@@ -1,0 +1,7 @@
+"""Paged KV store of the port: the line/byte ledger (a copy of the JAX
+package's, so both price a line identically) and the live store over the
+engine's state tensors."""
+from repro_torch.kvstore.base import BlockLedger, KVStoreError, LineCosts
+from repro_torch.kvstore.paged import PagedStore
+
+__all__ = ["BlockLedger", "KVStoreError", "LineCosts", "PagedStore"]
