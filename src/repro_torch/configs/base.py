@@ -5,7 +5,7 @@ field, so that one configuration means the same model in both packages
 (the parity tests compare the two dataclasses field by field, full and
 ``.reduced()``).  One dataclass covers every family via a per-layer
 ``block_pattern`` and optional sub-configs; this package runs the
-attention-only decoder stacks.
+attention-only decoder stacks and the hybrid Mamba+MoE stack.
 """
 from __future__ import annotations
 

@@ -26,6 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
+    "decode_attention": "decode_attention.cu",
+    "mamba_scan": "mamba_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,18 +1,25 @@
-"""Paged decode attention: the CUDA kernel
-``csrc/paged_decode_attention.cu`` and its plain PyTorch version.
+"""Decode attention, one query token per request: two CUDA kernels and
+their plain PyTorch versions.
 
-Replaces the TPU kernel ``src/repro/kernels/decode_attention.py::
-paged_decode_attention_pallas`` (body ``_paged_decode_kernel``).  Its
-bound on the H100 is bytes: every live K and V line is read once per step.
-The kernel reads only the ``ceil(len / 64)`` tiles of live lines through
-the block table, and shares each tile among the G query heads of its KV
-head; with one block per (request, KV head) it leaves most SMs idle at
-small batch (see the source for the next step).
+* Paged (``csrc/paged_decode_attention.cu``) replaces the TPU kernel
+  ``src/repro/kernels/decode_attention.py::paged_decode_attention_pallas``:
+  K/V are read through per-request block tables.
+* Dense (``csrc/decode_attention.cu``) replaces
+  ``src/repro/kernels/decode_attention.py::decode_attention_pallas``: K/V
+  are each request's rows of a dense ``(B, W, KVH, hd)`` cache.  Stacks
+  that do not page (the hybrid Mamba+attention stack) decode through it.
 
-:func:`paged_decode_attention_cuda` is the entry point the model calls.
-On CUDA tensors it launches the kernel or raises; on CPU tensors, and only
-there, it runs :func:`paged_decode_attention_torch`.  ``counts`` records
-kernel launches and plain-version calls.
+Both share one kernel body (``csrc/decode_attention.cuh``).  Their bound
+on the H100 is bytes: every live K and V line is read once per step.  The
+kernels read only the ``ceil(len / 64)`` tiles of live lines and share
+each tile among the G query heads of its KV head; with one block per
+(request, KV head) they leave most SMs idle at small batch (see the
+header for the next step).
+
+:func:`paged_decode_attention_cuda` and :func:`decode_attention_cuda` are
+the entry points the model calls.  On CUDA tensors they launch the kernel
+or raise; on CPU tensors, and only there, they run the plain version.
+``counts`` records, per kernel, launches and plain-version calls.
 """
 from __future__ import annotations
 
@@ -29,8 +36,12 @@ NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
-#: ``launches`` of the CUDA kernel and ``plain_calls`` of the plain version
-counts = {"launches": 0, "plain_calls": 0}
+#: per kernel: ``launches`` of the CUDA kernel, ``plain_calls`` of the
+#: plain version
+counts = {"paged_decode_attention": {"launches": 0, "plain_calls": 0},
+          "decode_attention": {"launches": 0, "plain_calls": 0}}
+_paged_counts = counts["paged_decode_attention"]
+_dense_counts = counts["decode_attention"]
 
 
 def paged_decode_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
@@ -49,31 +60,133 @@ def paged_decode_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
     ``max_blocks * block_lines`` are clamped to it, and a table entry
     outside ``[0, num_blocks)`` masks its lines (a row with no line left
     gives 0) rather than reading outside the pool."""
-    counts["plain_calls"] += 1
-    squeeze = q.dim() == 4
-    if squeeze:
-        q = q[:, 0]
-    B, H, hd = q.shape
+    _paged_counts["plain_calls"] += 1
+    B, hd = q.shape[0], q.shape[-1]
     bl, KVH = k_pool.shape[1], k_pool.shape[2]
-    G = H // KVH
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     tables = block_tables.long()
     in_pool = (tables >= 0) & (tables < k_pool.shape[0])
     tables = torch.where(in_pool, tables, 0)
     W = tables.shape[1] * bl
-    kc = k_pool[tables].reshape(B, W, KVH, hd).float()
-    vc = v_pool[tables].reshape(B, W, KVH, hd).float()
-    qf = q.float().reshape(B, KVH, G, hd)
-    s = torch.einsum("bkgd,bwkd->bkgw", qf, kc) * scale
-    valid = ((torch.arange(W, device=q.device)[None]
-              < lengths.to(q.device)[:, None])
-             & in_pool.repeat_interleave(bl, dim=1))[:, None, None, :]
+    kc = k_pool[tables].reshape(B, W, KVH, hd)
+    vc = v_pool[tables].reshape(B, W, KVH, hd)
+    valid = _prefix(lengths, W) & in_pool.repeat_interleave(bl, dim=1)
+    return _attend(q, kc, vc, valid, scale)
+
+
+def _prefix(lengths: torch.Tensor, W: int) -> torch.Tensor:
+    """(B, W) mask of each row's first ``lengths[b]`` lines."""
+    return (torch.arange(W, device=lengths.device)[None]
+            < lengths[:, None])
+
+
+def _attend(q, kc, vc, valid, scale):
+    """q (B, H, hd) or (B, 1, H, hd) against kc/vc (B, W, KVH, hd) where
+    ``valid`` (B, W); scores and softmax in f32, and a row with no valid
+    line gives 0 (l clamped at 1e-30, as in the kernels)."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    B, H, hd = q.shape
+    KVH = kc.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, KVH, H // KVH, hd)
+    s = torch.einsum("bkgd,bwkd->bkgw", qf, kc.float()) * scale
+    valid = valid.to(q.device)[:, None, None, :]
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid
-    o = torch.einsum("bkgw,bwkd->bkgd", p, vc)
+    o = torch.einsum("bkgw,bwkd->bkgd", p, vc.float())
     o = o / p.sum(dim=-1).clamp_min(1e-30)[..., None]
     o = o.reshape(B, H, hd).to(q.dtype)
     return o[:, None] if squeeze else o
+
+
+def _check_q(q):
+    if q.dim() == 4 and q.shape[1] != 1:
+        raise ValueError(f"4-d q must be (B, 1, H, hd), got {tuple(q.shape)}")
+    if q.dim() not in (3, 4):
+        raise ValueError(f"q must be (B, H, hd) or (B, 1, H, hd), got "
+                         f"{tuple(q.shape)}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
+
+
+def _check_kv(q, k, v, lengths, what, *extra):
+    """k/v ``(rows, W, KVH, hd)`` against q; lengths int32 (B,); all of
+    them (and ``extra``) contiguous and on one device."""
+    H, hd = q.shape[-2], q.shape[-1]
+    if k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{what} must be (., ., KVH, hd); got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not match {what} "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: need one "
+                        f"of {list(DTYPE_CODES)} for all three")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    if lengths.shape != (q.shape[0],):
+        raise ValueError(f"lengths {tuple(lengths.shape)} do not match batch "
+                         f"{q.shape[0]}")
+    ts = (q, k, v, lengths) + extra
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"q, {what}, lengths and tables must be contiguous")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"q, {what}, lengths and tables must share a "
+                         f"device")
+
+
+def decode_attention_torch(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the dense kernel: q (B, H, hd) or (B, 1, H, hd)
+    against caches (B, W, KVH, hd); lines ``>= lengths[b]`` are masked
+    (lengths clamped to [0, W]), and a row of length 0 gives 0, as the TPU
+    kernel does."""
+    _dense_counts["plain_calls"] += 1
+    return _attend(q, k_cache, v_cache, _prefix(lengths, k_cache.shape[1]),
+                   scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_kernel():
+    fn = build.load("decode_attention").decode_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The dense kernel's wrapper; same contract as
+    :func:`decode_attention_torch` for bf16 or f32, hd 64 or 128."""
+    _check_q(q)
+    _check_kv(q, k_cache, v_cache, lengths, "caches")
+    if k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not match batch "
+                         f"{q.shape[0]}")
+    if q.device.type == "cpu":
+        return decode_attention_torch(q, k_cache, v_cache, lengths,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode kernel for device {q.device}")
+    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    W, KVH = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _dense_kernel()(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, H, KVH, hd, W,
+            float(scale), DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    _dense_counts["launches"] += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,36 +199,14 @@ def _kernel():
 
 
 def _check(q, k_pool, v_pool, block_tables, lengths):
-    if q.dim() == 4 and q.shape[1] != 1:
-        raise ValueError(f"4-d q must be (B, 1, H, hd), got {tuple(q.shape)}")
-    if q.dim() not in (3, 4):
-        raise ValueError(f"q must be (B, H, hd) or (B, 1, H, hd), got "
-                         f"{tuple(q.shape)}")
-    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError(f"pools must be (num_blocks, block_lines, KVH, hd); "
-                         f"got {tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
-    if k_pool.shape[3] != hd or H % k_pool.shape[2]:
-        raise ValueError(f"q {tuple(q.shape)} does not match pool "
-                         f"{tuple(k_pool.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    if (q.dtype not in DTYPE_CODES or k_pool.dtype != q.dtype
-            or v_pool.dtype != q.dtype):
-        raise TypeError(f"dtypes {q.dtype}, {k_pool.dtype}, {v_pool.dtype}: "
-                        f"need one of {list(DTYPE_CODES)} for all three")
-    if (block_tables.dim() != 2 or block_tables.shape[0] != B
-            or lengths.shape != (B,)):
-        raise ValueError(f"tables {tuple(block_tables.shape)} / lengths "
-                         f"{tuple(lengths.shape)} do not match batch {B}")
+    _check_q(q)
+    B = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"tables {tuple(block_tables.shape)} do not match "
+                         f"batch {B}")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
-    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, block_tables,
-                                           lengths)):
-        raise ValueError("q, pools, tables and lengths must be contiguous")
-    if len({t.device for t in (q, k_pool, v_pool, block_tables,
-                               lengths)}) != 1:
-        raise ValueError("q, pools, tables and lengths must share a device")
+    _check_kv(q, k_pool, v_pool, lengths, "pools", block_tables)
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -146,5 +237,5 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")
-    counts["launches"] += 1
+    _paged_counts["launches"] += 1
     return out

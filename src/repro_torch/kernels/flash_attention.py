@@ -34,8 +34,10 @@ NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
-#: ``launches`` of the CUDA kernel and ``plain_calls`` of the plain version
-counts = {"launches": 0, "plain_calls": 0}
+#: per kernel: ``launches`` of the CUDA kernel, ``plain_calls`` of the
+#: plain version
+counts = {"flash_attention": {"launches": 0, "plain_calls": 0}}
+_counts = counts["flash_attention"]
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,7 +49,7 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hd) in q's dtype, scores and softmax in f32.  Query row i sits at
     absolute position ``q_offset + i``; a key at position j is visible when
     ``j <= q_offset + i`` (causal) and ``q_offset + i - j < window``."""
-    counts["plain_calls"] += 1
+    _counts["plain_calls"] += 1
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -129,5 +131,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    counts["launches"] += 1
+    _counts["launches"] += 1
     return out

@@ -9,11 +9,17 @@ layer stack's state layout is untouched while allocation and headroom are
 block-granular.  :meth:`decode_block_tables` feeds the paged decode kernel
 (``repro_torch.kernels.decode_attention``), which gathers K/V through them.
 
+Leaves are classified as in the JAX package: attention ``k``/``v`` are
+*line* leaves (indexed by KV line, axis 2 of the stacked leaf), and every
+leaf of a recurrent mixer (Mamba's ``conv`` and ``ssm``) is a *recurrent*
+leaf, a constant-size per-request state that moves whole.
+
 The state is updated in place.  Whatever leaves the store (an exported
 slot) is a copy, so later in-place writes on either side never alias.
 
 :meth:`copy_lines` is the per-step redundancy mirror: only the KV rows of
-the new accounting lines move, O(delta) per step, not O(kv_capacity).
+the new accounting lines move, plus the recurrent states whole, O(delta)
+per step, not O(kv_capacity).
 """
 from __future__ import annotations
 
@@ -64,18 +70,20 @@ class PagedStore:
         self.state = init_state(cfg, num_slots, kv_capacity, device=device)
         self.slot_rid: Dict[int, int] = {}
         self.rid_slot: Dict[int, int] = {}
-        #: line-indexed leaves: (segment index, part key, leaf key)
-        self._paths: List[Tuple[int, str, str]] = []
+        #: state leaves: (segment index, part key, leaf key, kind), kind
+        #: ``line`` (attention k/v) or ``recurrent`` (moves whole)
+        self._paths: List[Tuple[int, str, str, str]] = []
         for i, seg in enumerate(plan_segments(layer_specs(cfg))):
-            for j in range(len(seg.specs)):
+            for j, spec in enumerate(seg.specs):
                 for key in self.state["layers"][i][f"p{j}"]:
-                    if key not in LINE_KEYS:
-                        raise KVStoreError(f"state leaf {key!r} is not a KV "
-                                           f"line leaf")
-                    self._paths.append((i, f"p{j}", key))
+                    if spec.block == "attn" and key not in LINE_KEYS:
+                        raise KVStoreError(f"attention state leaf {key!r} "
+                                           f"is not a KV line leaf")
+                    kind = "line" if spec.block == "attn" else "recurrent"
+                    self._paths.append((i, f"p{j}", key, kind))
 
     def _leaf(self, state, path) -> torch.Tensor:
-        i, pj, key = path
+        i, pj, key = path[:3]
         return state["layers"][i][pj][key]
 
     # -- capacity ------------------------------------------------------------
@@ -171,7 +179,7 @@ class PagedStore:
         out = {"layers": [{pj: {} for pj in seg}
                           for seg in self.state["layers"]]}
         for path in self._paths:
-            i, pj, key = path
+            i, pj, key = path[:3]
             out["layers"][i][pj][key] = \
                 self._leaf(self.state, path)[:, slot: slot + 1].clone()
         return out
@@ -186,11 +194,15 @@ class PagedStore:
     def merge_slot_rows(self, slot: int, sub_state, lo: int, hi: int,
                         src_slot: int = 0):
         """Copy ``sub_state``'s batch row ``src_slot`` into ``slot``, KV rows
-        ``[lo, hi)`` only (clamped to the smaller window): the merge for
-        bucket-sized prefill scratch."""
+        ``[lo, hi)`` only of the line leaves (clamped to the smaller
+        window): the merge for bucket-sized prefill scratch.  Recurrent
+        leaves copy whole."""
         for path in self._paths:
             dst = self._leaf(self.state, path)
             src = self._leaf(sub_state, path)
+            if path[3] == "recurrent":
+                dst[:, slot] = src[:, src_slot]
+                continue
             h = min(hi, src.shape[2], dst.shape[2])
             l = min(lo, h)
             if h > l:
@@ -200,17 +212,22 @@ class PagedStore:
     def copy_lines(self, src: "PagedStore", src_slot: int, dst_slot: int,
                    from_line: int, to_line: int) -> float:
         """Copy only the KV rows of accounting lines ``[from_line,
-        to_line)`` from ``src``'s slot into ours; returns the bytes moved.
-        Accounting line ``L`` reserves physical row ``L-1`` (the newest
-        sampled token's KV is written by the *next* decode step), so rows
-        ``[from_line-1, to_line-1)`` move, modulo the ring window."""
+        to_line)`` from ``src``'s slot into ours, plus the recurrent states
+        whole (on every sync); returns the bytes moved.  Accounting line
+        ``L`` reserves physical row ``L-1`` (the newest sampled token's KV
+        is written by the *next* decode step), so rows ``[from_line-1,
+        to_line-1)`` move, modulo the ring window."""
         lo, hi = max(0, from_line - 1), max(0, to_line - 1)
-        if hi > lo:
-            for path in self._paths:
-                dst = self._leaf(self.state, path)
-                cap = dst.shape[2]
-                pos = torch.tensor([p % cap for p in range(lo, hi)],
-                                   dtype=torch.long, device=dst.device)
-                dst[:, dst_slot, pos] = \
-                    self._leaf(src.state, path)[:, src_slot, pos]
+        for path in self._paths:
+            dst = self._leaf(self.state, path)
+            if path[3] == "recurrent":
+                dst[:, dst_slot] = self._leaf(src.state, path)[:, src_slot]
+                continue
+            if hi <= lo:
+                continue
+            cap = dst.shape[2]
+            pos = torch.tensor([p % cap for p in range(lo, hi)],
+                               dtype=torch.long, device=dst.device)
+            dst[:, dst_slot, pos] = \
+                self._leaf(src.state, path)[:, src_slot, pos]
         return self.costs.mirror_bytes(max(0, to_line - from_line))

@@ -7,8 +7,10 @@ Three execution modes of :func:`gqa_forward`, as in the JAX package:
                     written into the cache and attention reads back only the
                     request's live line blocks through the paged decode
                     kernel;
-  * dense decode  — one token against the whole cache window (the oracle
-                    path of engines that do not page).
+  * dense decode  — one token against each request's own rows of the
+                    cache, lines past its length masked, through the dense
+                    decode kernel (the path of engines that do not page:
+                    the hybrid stack, and the oracle of paged engines).
 
 Caches are updated in place: a state leaf handed in is the leaf that comes
 back, written.  KV caches use ring-buffer indexing when the capacity is
@@ -22,11 +24,10 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention import paged_decode_attention_cuda
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.common import apply_rope, dense_init
-
-NEG_INF = -1e30
 
 Clock = Union[int, torch.Tensor]
 
@@ -47,24 +48,6 @@ class PagedDecode:
         self.slots = slots.long()     # (Bc,) state rows of the batch
         self.tables = tables          # (Bc, max_blocks) int32 pool block ids
         self.block_lines = block_lines
-
-
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, *, scale: float,
-                     valid: torch.Tensor) -> torch.Tensor:
-    """Dense decode: q (B, 1, H, hd) against caches (B, W, KVH, hd);
-    ``valid`` (W,) or (B, W) marks live slots."""
-    B, _, H, hd = q.shape
-    KVH = k_cache.shape[2]
-    G = H // KVH
-    qf = q.float().reshape(B, KVH, G, hd)
-    s = torch.einsum("bkgd,bwkd->bkgw", qf, k_cache.float()) * scale
-    if valid.dim() == 1:
-        valid = valid[None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgw,bwkd->bkgd", p, v_cache.float())
-    return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -91,17 +74,6 @@ def ring_write(cache: torch.Tensor, values: torch.Tensor, t: Clock,
         pos = (t.long()[:, None] + offsets[None]) % capacity
         cache[torch.arange(B, device=dev)[:, None], pos] = values
     return cache
-
-
-def ring_valid(t_next: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Valid-slot mask after t_next tokens written into a ring of size cap.
-    Scalar t -> (cap,); per-request (B,) t -> (B, cap)."""
-    t_next = torch.as_tensor(t_next)
-    n_valid = torch.clamp(t_next, max=capacity)
-    ar = torch.arange(capacity, device=n_valid.device)
-    if n_valid.dim() == 0:
-        return ar < n_valid
-    return ar[None] < n_valid[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -178,11 +150,17 @@ def gqa_forward(
     elif mode == "decode":
         if state is None or t is None:
             raise ValueError("decode needs a state and a clock")
+        if S != 1:
+            raise ValueError("dense decode takes one token per request")
         cap = state["k"].shape[1]
         kc = ring_write(state["k"], k, t, cap)
         vc = ring_write(state["v"], v, t, cap)
-        valid = ring_valid(torch.as_tensor(t, device=x.device) + S, cap)
-        out = decode_attention(q, kc, vc, scale=scale, valid=valid)
+        # after the write the live lines of each ring are a prefix of
+        # length min(t + 1, cap)
+        lengths = torch.clamp(torch.as_tensor(t, device=x.device) + S,
+                              max=cap).to(torch.int32).expand(B)
+        out = decode_attention_cuda(q.contiguous(), kc, vc,
+                                    lengths.contiguous(), scale=scale)
     else:
         raise ValueError(mode)
 

@@ -7,19 +7,22 @@ along a leading repeat dim, the layout the JAX package scans over.  Here a
 Python loop walks the repeat dim; each step indexes views of the stacked
 leaves, so cache writes land in the stacked state in place.
 
-This slice of the port runs attention-only decoder stacks with dense
-FFNs; other blocks raise ``NotImplementedError`` naming their slice.
+The port runs attention and Mamba mixers with dense or MoE FFNs; xLSTM
+blocks and cross attention raise ``NotImplementedError`` naming their
+slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.attention import gqa_forward, init_gqa
 from repro_torch.models.common import rms_norm
 from repro_torch.models.ffn import dense_ffn, init_dense_ffn
+from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.state import cache_capacity, init_layer_state
 
 
@@ -69,12 +72,9 @@ def plan_segments(specs: List[LayerSpec], max_period: int = 16) -> List[Segment]
 
 
 def check_supported(spec: LayerSpec):
-    if spec.block != "attn":
+    if spec.block not in ("attn", "mamba"):
         raise NotImplementedError(
-            f"{spec.block!r} blocks wait for the recurrent-stack slice of the "
-            f"port")
-    if spec.is_moe:
-        raise NotImplementedError("MoE FFNs wait for the MoE slice of the port")
+            f"{spec.block!r} blocks wait for the xLSTM slice of the port")
     if spec.cross:
         raise NotImplementedError(
             "cross attention waits for the encoder-decoder slice of the port")
@@ -91,31 +91,50 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     check_supported(spec)
     d = cfg.d_model
     p: Dict[str, Any] = {
-        "norm1": torch.ones((repeats, d), dtype=dtype, device=device),
-        "mixer": init_gqa(gen, cfg, repeats, dtype, device),
-    }
-    if spec.d_ff:
+        "norm1": torch.ones((repeats, d), dtype=dtype, device=device)}
+    if spec.block == "attn":
+        p["mixer"] = init_gqa(gen, cfg, repeats, dtype, device)
+    else:
+        p["mixer"] = mamba_mod.init_mamba(gen, cfg, repeats, dtype, device)
+    if spec.d_ff or spec.is_moe:
         p["norm2"] = torch.ones((repeats, d), dtype=dtype, device=device)
-        p["ffn"] = init_dense_ffn(gen, cfg, spec.d_ff, repeats, dtype, device)
+        if spec.is_moe:
+            p["ffn"] = init_moe(gen, cfg, repeats, dtype, device)
+        else:
+            p["ffn"] = init_dense_ffn(gen, cfg, spec.d_ff, repeats, dtype,
+                                      device)
     return p
 
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x: torch.Tensor,
-                state, ctx: Dict[str, Any]) -> Tuple[torch.Tensor, Any]:
-    """Returns (x, state); the state's cache leaves are written in place."""
+                state, ctx: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, Any, Union[float, torch.Tensor]]:
+    """Returns (x, state, router aux loss); the state's leaves are written
+    in place.  The aux loss is the float 0.0 for a dense FFN, so stacks
+    without MoE launch nothing for it."""
     rs = cfg.residual_scale
+    aux = 0.0
     h_in = rms_norm(x, params["norm1"], cfg.rms_norm_eps)
-    h, state = gqa_forward(
-        cfg, params["mixer"], h_in, mode=ctx["mode"], state=state,
-        update_cache=ctx["update_cache"], positions=ctx["positions"],
-        t=ctx.get("t"), window=ctx.get("window"),
-        causal=ctx.get("causal", True), history=ctx.get("history", 0),
-        paged=ctx.get("paged"))
+    if spec.block == "attn":
+        h, state = gqa_forward(
+            cfg, params["mixer"], h_in, mode=ctx["mode"], state=state,
+            update_cache=ctx["update_cache"], positions=ctx["positions"],
+            t=ctx.get("t"), window=ctx.get("window"),
+            causal=ctx.get("causal", True), history=ctx.get("history", 0),
+            paged=ctx.get("paged"))
+    else:
+        h, state = mamba_mod.mamba_forward(
+            cfg, params["mixer"], h_in, mode=ctx["mode"], state=state,
+            update_cache=ctx["update_cache"])
     x = x + rs * h
-    if spec.d_ff:
+    if spec.d_ff or spec.is_moe:
         f_in = rms_norm(x, params["norm2"], cfg.rms_norm_eps)
-        x = x + rs * dense_ffn(cfg, params["ffn"], f_in)
-    return x, state
+        if spec.is_moe:
+            h, aux = moe_forward(cfg, params["ffn"], f_in)
+        else:
+            h = dense_ffn(cfg, params["ffn"], f_in)
+        x = x + rs * h
+    return x, state, aux
 
 
 # ---------------------------------------------------------------------------
@@ -147,16 +166,20 @@ def init_segment_state(cfg: ModelConfig, seg: Segment, batch: int,
 
 
 def apply_segment(cfg: ModelConfig, seg: Segment, params, x: torch.Tensor,
-                  seg_state, ctx: Dict[str, Any]) -> torch.Tensor:
+                  seg_state, ctx: Dict[str, Any]
+                  ) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
     """Run the periodic body over the repeat dim; ``seg_state`` (if any)
-    is updated in place."""
+    is updated in place.  Returns (x, summed router aux loss)."""
+    aux = 0.0
     for r in range(seg.repeats):
         lp = _at(params, r)
         ls = _at(seg_state, r) if seg_state is not None else None
         for j, spec in enumerate(seg.specs):
-            x, _ = apply_layer(cfg, spec, lp[f"p{j}"], x,
-                               ls[f"p{j}"] if ls is not None else None, ctx)
-    return x
+            x, _, aux_j = apply_layer(
+                cfg, spec, lp[f"p{j}"], x,
+                ls[f"p{j}"] if ls is not None else None, ctx)
+            aux = aux + aux_j
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -177,8 +200,13 @@ def init_stack_state(cfg: ModelConfig, segs: List[Segment], batch: int,
 
 
 def apply_stack(cfg: ModelConfig, segs: List[Segment], seg_params,
-                x: torch.Tensor, states, ctx: Dict[str, Any]) -> torch.Tensor:
+                x: torch.Tensor, states, ctx: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
+    """Returns (x, router aux loss summed over the stack)."""
+    aux = 0.0
     for i, seg in enumerate(segs):
-        x = apply_segment(cfg, seg, seg_params[i], x,
-                          states[i] if states is not None else None, ctx)
-    return x
+        x, aux_i = apply_segment(cfg, seg, seg_params[i], x,
+                                 states[i] if states is not None else None,
+                                 ctx)
+        aux = aux + aux_i
+    return x, aux

@@ -11,7 +11,9 @@ Functional API on nested-dict params, mirroring the JAX package's:
   decode_multi(...)                                    -> (tokens, state, emitted)
 
 The state is updated in place; the returned state is the one passed in.
-This slice runs decoder-only attention stacks with GQA and dense FFNs.
+The port runs decoder-only stacks of GQA attention and Mamba mixers with
+dense or MoE FFNs.  The router's aux loss is summed by ``apply_stack`` as
+in the JAX package; serving ignores it.
 """
 from __future__ import annotations
 
@@ -56,8 +58,10 @@ def check_config(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Device = "cuda"):
-    """Random weights at the JAX package's scales (fan-in normal, embedding
-    std 0.02), drawn from ``generator`` (which must live on ``device``)."""
+    """Random weights at the JAX package's scales and dtypes (fan-in
+    normal, embedding std 0.02; Mamba's ``A_log``, ``D`` and ``dt_b`` and
+    the MoE router in f32), drawn from ``generator`` (which must live on
+    ``device``)."""
     check_config(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -112,8 +116,8 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], state
     x = _embed_tokens(params, tokens)
     ctx = {"mode": "full", "positions": pos, "update_cache": True, "t": 0,
            "window": cfg.sliding_window}
-    x = apply_stack(cfg, _segs(cfg), params["segments"], x, state["layers"],
-                    ctx)
+    x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
+                       state["layers"], ctx)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_norm_eps)
     return _head(cfg, params, x)[:, 0], state
 
@@ -130,8 +134,8 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     x = _embed_tokens(params, tokens)
     ctx = {"mode": "full", "positions": positions, "update_cache": True,
            "t": 0, "window": cfg.sliding_window}
-    x = apply_stack(cfg, _segs(cfg), params["segments"], x, state["layers"],
-                    ctx)
+    x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
+                       state["layers"], ctx)
     last = x[torch.arange(B, device=x.device), lengths.long() - 1]
     last = rms_norm(last, params["final_norm"], cfg.rms_norm_eps)
     return _head(cfg, params, last), state
@@ -149,8 +153,8 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     x = _embed_tokens(params, tokens)
     ctx = {"mode": "decode", "positions": pos, "update_cache": True, "t": t,
            "window": cfg.sliding_window, "paged": paged}
-    x = apply_stack(cfg, _segs(cfg), params["segments"], x, state["layers"],
-                    ctx)
+    x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
+                       state["layers"], ctx)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _head(cfg, params, x)[:, 0], state
 

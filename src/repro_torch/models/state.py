@@ -1,4 +1,5 @@
-"""Serving-state trees: attention KV caches (dense / ring-buffer).
+"""Serving-state trees: attention KV caches (dense / ring-buffer) and Mamba
+states.
 
 States are nested dicts of tensors, laid out as in the JAX package so the
 two can be compared leaf by leaf.  Every state dict carries only tensors;
@@ -6,6 +7,8 @@ the scalar clock ``t`` lives in the engine, passed per call.
 
 Layout (R = segment repeat dim, added by the layer stack):
   attention KV : k,v          (R, B, W, KVH, HD)    W = cache window capacity
+  mamba        : conv         (R, B, d_conv, d_in)  model dtype
+                 ssm          (R, B, d_in, d_state) f32
 """
 from __future__ import annotations
 
@@ -33,6 +36,18 @@ def init_attn_kv(cfg: ModelConfig, repeats: int, batch: int, capacity: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_mamba_state(cfg: ModelConfig, repeats: int, batch: int, dtype,
+                     device):
+    mc = cfg.mamba
+    d_in = mc.expand * cfg.d_model
+    return {
+        "conv": torch.zeros((repeats, batch, mc.d_conv, d_in), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((repeats, batch, d_in, mc.d_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
 def xlstm_dims(cfg: ModelConfig, kind: str):
     xc = cfg.xlstm
     if kind == "mlstm":
@@ -48,9 +63,10 @@ def init_layer_state(cfg: ModelConfig, kind: str, repeats: int, batch: int,
     """State for one position of a segment, stacked over its repeats."""
     if kind == "attn":
         return init_attn_kv(cfg, repeats, batch, capacity, dtype, device)
+    if kind == "mamba":
+        return init_mamba_state(cfg, repeats, batch, dtype, device)
     raise NotImplementedError(
-        f"{kind!r} block state waits for the recurrent-stack slice of the "
-        f"port")
+        f"{kind!r} block state waits for the xLSTM slice of the port")
 
 
 def state_bytes(state) -> int:

@@ -16,7 +16,10 @@ Redundancy primitives used by the AcceLLM core:
   promote_replica / demote_to_replica — role flips with no data movement
 
 The engine never batches prefill with decode (AcceLLM §4.2.3).  Prefill
-and paged decode run through the port's CUDA kernels on the card.  Prefix
+and decode run through the port's CUDA kernels on the card.  Attention-only
+stacks decode paged over the compacted active batch; other stacks (the
+hybrid Mamba+attention stack) prefill one prompt at a time and decode
+dense over all slots, as in the JAX package.  Prefix
 cache, mesh serving, chunked-prefill resume and streamed exports wait for
 later slices of the port and raise ``NotImplementedError``.
 """
@@ -231,10 +234,13 @@ class InstanceEngine:
         self.store.alloc(req.rid, slot, lines=req.total_len)
 
     def _prefill_single(self, req: Request) -> int:
-        """Unpadded single-prompt path (prompts beyond the bucket); scratch
-        sized to the prompt's bucket."""
+        """Unpadded single-prompt path (prompts beyond the bucket, and
+        every prompt of a stack that is not attention-only); scratch sized
+        to the prompt's bucket for attention-only stacks, else the full
+        window, as the JAX package sizes it."""
         slot = self._take_slot()
-        window = bucket_len(req.prompt_len, cap=self.kv_capacity)
+        window = (bucket_len(req.prompt_len, cap=self.kv_capacity)
+                  if self._attn_only else self.kv_capacity)
         fresh = init_state(self.cfg, 1, window, device=self.device)
         tokens = self._tokens(req).to(self.device)
         logits, fresh = prefill(self.cfg, self.params, {"tokens": tokens},

@@ -6,16 +6,19 @@ runs on a machine with the card alone:
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: 1e-4 max abs in f32 and 2e-2 in bf16; the kernel and the
-plain version sum in different orders.
+Tolerances: 1e-4 max abs in f32 and 2e-2 in bf16 for attention; the
+kernel and the plain version sum in different orders.  The selective scan
+(f32 only) is held to 1e-4 relative to the largest output.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda, decode_attention_torch,
     paged_decode_attention_cuda, paged_decode_attention_torch)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_torch
 
 
 def _need_cuda():
@@ -84,3 +87,46 @@ def test_paged_kernel_bad_tables_match_plain_on_card(dtype, tol):
     torch.cuda.synchronize()
     assert float((out.float() - exp.float()).abs().max()) <= tol
     assert float(out[1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_dense_decode_kernel_matches_plain_on_card(dtype, tol):
+    """Jamba's head layout (64 / 8, hd 128) with lengths 0, 1, ragged and
+    the full window."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, H, KVH, hd, W = 6, 64, 8, 128, 1024
+    q = torch.randn((B, 1, H, hd), generator=g, device="cuda").to(dtype)
+    kc = torch.randn((B, W, KVH, hd), generator=g, device="cuda").to(dtype)
+    vc = torch.randn((B, W, KVH, hd), generator=g, device="cuda").to(dtype)
+    lengths = torch.tensor([0, 1, 63, 65, 700, W], dtype=torch.int32,
+                           device="cuda")
+    out = decode_attention_cuda(q, kc, vc, lengths)
+    exp = decode_attention_torch(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert float((out.float() - exp.float()).abs().max()) <= tol
+    assert float(out[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,N", [(512, 4096, 16), (300, 1000, 16),
+                                   (37, 200, 8)])
+def test_scan_kernel_matches_plain_on_card(S, C, N):
+    """Any S, a ragged channel edge, nonzero h0."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(S)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    B = 2
+    args = (randn(B, S, C), torch.nn.functional.softplus(randn(B, S, C) - 1),
+            randn(B, S, N), randn(B, S, N), -torch.exp(randn(C, N) * 0.5),
+            randn(C), randn(B, C, N) * 0.1)
+    y, h = mamba_scan_cuda(*args)
+    y_p, h_p = mamba_scan_torch(*args)
+    torch.cuda.synchronize()
+    for a, b in ((y, y_p), (h, h_p)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -1,9 +1,11 @@
-"""The port's attention kernels held against the JAX package's.
+"""The port's kernels held against the JAX package's.
 
 Each plain PyTorch version (what a kernel wrapper runs on CPU tensors) is
 compared with the Pallas TPU kernel run in interpret mode on the same
-inputs, made with numpy from a seed.  Tolerance 1e-5 in f32: the two sum
-in different orders.  The CUDA kernels themselves run only on the card;
+inputs, made with numpy from a seed.  Tolerance 1e-5 in f32 for attention:
+the two sum in different orders.  The selective scan gets 1e-4, the JAX
+package's own kernel-test tolerance: its recurrence carries rounding over
+every time step.  The CUDA kernels themselves run only on the card;
 ``test_torch_cuda.py`` holds them against these plain versions there.
 """
 import jax.numpy as jnp
@@ -12,16 +14,22 @@ import pytest
 import torch
 
 from repro.kernels import ref
-from repro.kernels.decode_attention import paged_decode_attention_pallas
+from repro.kernels.decode_attention import (decode_attention_pallas,
+                                            paged_decode_attention_pallas)
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.mamba_scan import mamba_scan_pallas
 from repro.models.attention import flash_attention as repro_flash_jnp
-from repro_torch.kernels import read_counts, reset_counts
+from repro_torch.kernels import KERNELS, read_counts, reset_counts
+from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda, decode_attention_torch,
     paged_decode_attention_cuda, paged_decode_attention_torch)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_torch
 
 TOL = 1e-5
+SCAN_TOL = 1e-4
 
 FLASH_SHAPES = [
     # (B, S, H, KVH, hd): the JAX package's kernel-test shapes
@@ -226,3 +234,179 @@ def test_paged_wrapper_rejects_int64_tables():
         paged_decode_attention_cuda(q, pool, pool,
                                     torch.zeros((1, 2), dtype=torch.int64),
                                     torch.ones((1,), dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# dense decode attention
+# ---------------------------------------------------------------------------
+
+DENSE_SHAPES = [
+    # (B, H, KVH, hd, W)
+    (4, 8, 2, 64, 256),
+    (4, 64, 8, 128, 128),      # Jamba's head layout, G = 8
+    (4, 24, 2, 128, 512),      # G = 12
+]
+
+
+def _dense_inputs(shape):
+    B, H, KVH, hd, W = shape
+    rng = np.random.default_rng(B + H + W)
+    q = _randn(rng, (B, 1, H, hd))
+    kc, vc = _randn(rng, (B, W, KVH, hd)), _randn(rng, (B, W, KVH, hd))
+    lengths = np.asarray([0, 1, W // 2 + 3, W], np.int32)
+    return q, kc, vc, lengths
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_decode_plain_matches_pallas(shape):
+    """Lengths 0, 1, partial and full (the whole window)."""
+    q, kc, vc, lengths = _dense_inputs(shape)
+    exp = decode_attention_pallas(jnp.asarray(q), jnp.asarray(kc),
+                                  jnp.asarray(vc), jnp.asarray(lengths),
+                                  block_k=64, interpret=True)
+    out = decode_attention_torch(torch.from_numpy(q), torch.from_numpy(kc),
+                                 torch.from_numpy(vc),
+                                 torch.from_numpy(lengths))
+    assert out.shape == exp.shape
+    assert _err(out, exp) < TOL
+    assert float(out[0].abs().max()) == 0.0, "a length-0 row must give 0"
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_decode_plain_matches_ref(shape):
+    """Against the JAX package's oracle on the rows with a live line (its
+    softmax over a length-0 row averages V where the kernels give 0)."""
+    q, kc, vc, lengths = _dense_inputs(shape)
+    exp = np.asarray(ref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lengths)))
+    out = decode_attention_cuda(torch.from_numpy(q), torch.from_numpy(kc),
+                                torch.from_numpy(vc),
+                                torch.from_numpy(lengths)).numpy()
+    assert _err(out[1:], exp[1:]) < TOL
+
+
+@pytest.mark.parametrize("bad", ["dtype", "lengths_dtype", "batch",
+                                 "head_dim"])
+def test_dense_wrapper_rejects_what_kernel_does_not_take(bad):
+    q = torch.zeros((2, 4, 64))
+    kc = torch.zeros((2, 16, 2, 64))
+    lengths = torch.ones((2,), dtype=torch.int32)
+    if bad == "dtype":
+        q, kc = q.half(), kc.half()
+    elif bad == "lengths_dtype":
+        lengths = lengths.long()
+    elif bad == "batch":
+        kc = torch.zeros((3, 16, 2, 64))
+    else:
+        q, kc = torch.zeros((2, 4, 32)), torch.zeros((2, 16, 2, 32))
+    with pytest.raises((TypeError, ValueError)):
+        decode_attention_cuda(q, kc, kc, lengths)
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(seed, B, S, C, N):
+    """The JAX package's kernel-test distributions, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    softplus = lambda v: np.log1p(np.exp(v))       # noqa: E731
+    return (
+        _randn(rng, (B, S, C)),
+        softplus(_randn(rng, (B, S, C)) - 1.0).astype(np.float32),
+        _randn(rng, (B, S, N)),
+        _randn(rng, (B, S, N)),
+        -np.exp(_randn(rng, (C, N)) * 0.5).astype(np.float32),
+        _randn(rng, (C,)),
+        (_randn(rng, (B, C, N)) * 0.1).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, S, C, N, c_blk, t_blk): the JAX package's scan-kernel sweep
+    (1, 64, 32, 16, 16, 32),
+    (2, 128, 64, 16, 32, 64),
+    (1, 96, 48, 8, 48, 32),
+])
+def test_scan_plain_matches_pallas_and_ref(shape):
+    """Nonzero h0 (a resumed state) in every case."""
+    B, S, C, N, cb, tb = shape
+    args = _scan_inputs(sum(shape), B, S, C, N)
+    y_p, h_p = mamba_scan_pallas(*map(jnp.asarray, args), channel_blk=cb,
+                                 time_blk=tb, interpret=True)
+    y_r, h_r = ref.mamba_scan_ref(*map(jnp.asarray, args))
+    y, h = mamba_scan_torch(*map(torch.from_numpy, args))
+    for exp_y, exp_h in ((y_p, h_p), (y_r, h_r)):
+        assert _err(y, exp_y) < SCAN_TOL
+        assert _err(h, exp_h) < SCAN_TOL
+
+
+@pytest.mark.parametrize("S,C", [(100, 40), (1, 16), (0, 8)])
+def test_scan_plain_any_length_matches_ref(S, C):
+    """S = 100 is no multiple of the TPU kernel's time block and C = 40 of
+    its channel block: the Hopper kernel's contract (any S, any C) held
+    against the oracle.  S = 0 returns h0 as the final state."""
+    args = _scan_inputs(S + C, 2, S, C, 16)
+    y, h = mamba_scan_cuda(*map(torch.from_numpy, args))
+    assert tuple(y.shape) == (2, S, C)
+    if S:
+        y_r, h_r = ref.mamba_scan_ref(*map(jnp.asarray, args))
+        assert _err(y, y_r) < SCAN_TOL
+        assert _err(h, h_r) < SCAN_TOL
+    else:
+        assert _err(h, args[-1]) == 0.0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "state_dim", "contiguous",
+                                 "shape"])
+def test_scan_wrapper_rejects_what_kernel_does_not_take(bad):
+    args = [torch.from_numpy(a) for a in _scan_inputs(3, 1, 8, 16, 16)]
+    if bad == "dtype":
+        args[0] = args[0].to(torch.bfloat16)
+    elif bad == "state_dim":
+        args = [torch.from_numpy(a) for a in _scan_inputs(3, 1, 8, 16, 12)]
+    elif bad == "contiguous":
+        args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        args[5] = args[5][:8]
+    with pytest.raises((TypeError, ValueError)):
+        mamba_scan_cuda(*args)
+
+
+# ---------------------------------------------------------------------------
+# the registry
+# ---------------------------------------------------------------------------
+
+
+def test_registry_names_every_kernel_once():
+    """Counts are keyed by kernel name (two kernels share the decode
+    module); every kernel has a source to build."""
+    names = ["flash_attention", "paged_decode_attention", "decode_attention",
+             "mamba_scan"]
+    assert sorted(KERNELS) == sorted(names)
+    assert sorted(build.SOURCES) == sorted(names)
+    for name, src in build.SOURCES.items():
+        assert (build.CSRC / src).is_file(), name
+
+
+def test_new_wrappers_take_plain_version_on_cpu_only():
+    rng = np.random.default_rng(2)
+    reset_counts()
+    q = torch.from_numpy(_randn(rng, (2, 4, 64)))
+    kc = torch.from_numpy(_randn(rng, (2, 16, 2, 64)))
+    lengths = torch.tensor([3, 16], dtype=torch.int32)
+    decode_attention_cuda(q, kc, kc, lengths)
+    scan = [torch.from_numpy(a) for a in _scan_inputs(4, 1, 8, 16, 16)]
+    mamba_scan_cuda(*scan)
+    counts = read_counts()
+    assert counts["decode_attention"] == {"launches": 0, "plain_calls": 1}
+    assert counts["mamba_scan"] == {"launches": 0, "plain_calls": 1}
+    assert counts["paged_decode_attention"] == {"launches": 0,
+                                                "plain_calls": 0}
+    with pytest.raises(ValueError):
+        decode_attention_cuda(q.to("meta"), kc.to("meta"), kc.to("meta"),
+                              lengths.to("meta"))
+    with pytest.raises(ValueError):
+        mamba_scan_cuda(*[a.to("meta") for a in scan])
