@@ -10,9 +10,11 @@ of which exits non-zero on failure:
 2. kernels — each CUDA kernel against its plain PyTorch version at the
    main paths' shapes plus a ragged shape, and timed beside its plain
    version, its roofline bound and, where one PyTorch call computes the
-   same function, that call: prefill and paged decode attention in bf16
-   (tolerance 2e-2 max abs) and f32 (1e-4); dense decode attention at
-   Jamba's heads in bf16 and f32 likewise; the selective scan in f32
+   same function, that call: prefill attention (tile edges, a chunk
+   resume with q_offset) and paged decode attention in bf16 (tolerance
+   2e-2 max abs) and f32 (1e-4); dense decode attention at Jamba's heads
+   in bf16 and f32 likewise, with lengths on each side of a split
+   boundary; the selective scan in f32
    (1e-4 relative) at d_in 16384 for S = 512 and a ragged S = 300;
 3. serve — full-width starcoder2-3b in bf16 (random weights from a seed)
    behind one ``InstanceEngine``: six greedy requests admitted by
@@ -74,9 +76,12 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, iters, flush=None):
+def time_ms(fn, iters, flush=None, spin=True):
     """Mean device ms of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after an optional L2 flush (the flush is not timed)."""
+    CUDA events after an optional L2 flush (the flush is not timed).  With
+    ``spin``, a 0.2 ms spin on the card after the flush keeps it busy while
+    the host enqueues the call, so the events time the device's work and
+    not the wrapper's Python."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -84,6 +89,8 @@ def time_ms(fn, iters, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush()
+        if spin:
+            torch.cuda._sleep(400_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -108,20 +115,26 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # -- prefill attention ---------------------------------------------------
-    flash_cases = [  # (B, S, H, KVH, hd, window, what)
-        (8, 512, 24, 2, 128, 4096, "main path: bucket 512, batch 8"),
-        (2, 200, 24, 2, 128, None, "ragged Sq = Skv = 200"),
-        (2, 256, 4, 1, 64, 64, "hd 64 (reduced config), window 64"),
+    flash_cases = [  # (B, Sq, Skv, H, KVH, hd, window, q_offset, what)
+        (8, 512, 512, 24, 2, 128, 4096, 0, "main path: bucket 512, batch 8"),
+        (2, 200, 200, 24, 2, 128, None, 0, "ragged Sq = Skv = 200"),
+        (2, 256, 256, 4, 1, 64, 64, 0, "hd 64 (reduced config), window 64"),
+        (2, 48, 128, 24, 2, 128, 32, 80,
+         "chunk resume: 48 rows at offset 80, 128 keys, window 32"),
+        (2, 300, 300, 24, 2, 128, None, 0, "Sq = 300, no multiple of 128"),
     ]
     flash_err = 0.0
-    for B, S, H, KVH, hd, window, what in flash_cases:
+    for B, Sq, Skv, H, KVH, hd, window, q_offset, what in flash_cases:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (randn((B, S, H, hd), dtype), randn((B, S, KVH, hd), dtype),
-                       randn((B, S, KVH, hd), dtype))
+            q, k, v = (randn((B, Sq, H, hd), dtype),
+                       randn((B, Skv, KVH, hd), dtype),
+                       randn((B, Skv, KVH, hd), dtype))
             out = flash_mod.flash_attention_cuda(q, k, v, causal=True,
-                                                 window=window)
+                                                 window=window,
+                                                 q_offset=q_offset)
             exp = flash_mod.flash_attention_torch(q, k, v, causal=True,
-                                                  window=window)
+                                                  window=window,
+                                                  q_offset=q_offset)
             torch.cuda.synchronize()
             err = max_err(out, exp)
             log(f"kernels: flash_attention {what} {str(dtype)[6:]}: "
@@ -300,12 +313,21 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
 
     # -- dense decode attention: Jamba's 64/8 heads, hd 128, 1024 lines ------
     W, H, KVH, hd = 1024, 64, 8, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, chunk = dense_mod.split_plan(8, KVH, H // KVH, W, sms)
     dense_cases = [  # (lengths, what)
         ([116, 272, 316, 528, 716, 1016, 1, 1],
          "main path: 6 requests mid-decode, 2 idle slots"),
         ([0, 1, 63, 65, 255, 513, 1000, 1024],
          "ragged lengths, one empty row, one full row"),
+        ([0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, W - 1, W],
+         f"one off each side of the {chunk}-line split boundary"),
     ]
+    log(f"kernels: decode_attention at 8 rows, {KVH} KV heads, W {W}: "
+        f"{splits} splits of {chunk} lines, {8 * KVH * splits} split blocks "
+        f"on {sms} SMs")
+    check(8 * KVH * splits >= 2 * sms, "decode_attention: fewer than two "
+          "split blocks per SM at the timed shape")
 
     def dense_inputs(lengths, dtype):
         Bd = len(lengths)
@@ -814,11 +836,13 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     log(smi.splitlines()[0].strip())
     dev = torch.device("cuda")
-    # a 64 MiB write between timed launches evicts the 50 MB L2
-    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # a 64 MiB read between timed launches evicts the 50 MB L2 and leaves
+    # it clean (a write would leave ~50 MB of dirty lines for the timed
+    # launch to write back)
+    scratch = torch.zeros(8 << 20, dtype=torch.int64, device=dev)
 
     def flush():
-        scratch.zero_()
+        scratch.sum()
 
     # -- 1. build --------------------------------------------------------------
     t0 = time.perf_counter()

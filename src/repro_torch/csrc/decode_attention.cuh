@@ -1,9 +1,6 @@
-// One-token GQA decode attention for Hopper, shared by the paged kernel
-// (paged_decode_attention.cu) and the dense-cache kernel
-// (decode_attention.cu).  The two differ only in where line `pos` of
-// request `b` lives (the PAGED template flag): in the block pool through
-// the request's table row, or in row b * W + pos of the dense (B, W)
-// cache, with no table read.
+// One-token GQA decode attention for Hopper: the body of the paged kernel
+// (paged_decode_attention.cu).  Line `pos` of request `b` lives in the
+// block pool, in the block that the request's table row names.
 //
 // One thread block owns one (request, kv head).  It walks only the
 // ceil(len / 64) tiles of live lines, loads each K/V tile once into
@@ -16,12 +13,13 @@
 // skinny products, a few per byte.  This first version keeps the reads
 // minimal (live lines only, each line once per KV head) but puts only
 // B * KVH blocks on the card, so at small batch most SMs idle and the
-// kernel is latency bound.  The next step is flash-decoding: split each
-// request's lines over several blocks and merge their (m, l, acc)
-// partials in a second short pass.
+// kernel is latency bound.  The next step is flash-decoding, as the
+// dense-cache kernel (decode_attention.cu) does: split each request's
+// lines over several blocks and merge their (m, l, acc) partials in a
+// second short pass.
 //
 // A row of length 0 writes 0 (l is clamped at 1e-30, as in the TPU
-// kernels).  Lengths are clamped to max_blocks * block_lines, and a paged
+// kernels).  Lengths are clamped to max_blocks * block_lines, and a
 // line whose table entry lies outside [0, num_blocks) is masked instead of
 // read.
 #pragma once
@@ -48,11 +46,9 @@ size_t smem_bytes(int G) {
          + sizeof(long long) * TK;                // cache row of each line
 }
 
-// k and v are (rows, KVH, HD).  Paged: line `pos` of request `b` is row
-// tables[b][pos / block_lines] * block_lines + pos % block_lines.  Dense:
-// the caller passes block_lines = W and max_blocks = 1, and the line is row
-// b * W + pos (tables is not read).
-template <typename T, int HD, bool PAGED>
+// k and v are (rows, KVH, HD).  Line `pos` of request `b` is row
+// tables[b][pos / block_lines] * block_lines + pos % block_lines.
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
     decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ tables,
@@ -77,7 +73,7 @@ __global__ void __launch_bounds__(THREADS)
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int len = max(0, min(lengths[b], max_blocks * block_lines));
-  const int* table = PAGED ? tables + (size_t)b * max_blocks : tables;
+  const int* table = tables + (size_t)b * max_blocks;
   const T* qb = q + ((size_t)b * H + (size_t)kvh * G) * HD;
 
   for (int i = tid; i < G * HD; i += THREADS) {
@@ -96,13 +92,9 @@ __global__ void __launch_bounds__(THREADS)
       long long row = -1;
       if (tid < n) {
         const int pos = t0 + tid;
-        if (!PAGED) {
-          row = (long long)b * block_lines + pos;
-        } else {
-          const int blk = table[pos / block_lines];
-          if (blk >= 0 && blk < num_blocks)
-            row = (long long)blk * block_lines + pos % block_lines;
-        }
+        const int blk = table[pos / block_lines];
+        if (blk >= 0 && blk < num_blocks)
+          row = (long long)blk * block_lines + pos % block_lines;
       }
       rows[tid] = row;
     }
@@ -171,7 +163,7 @@ __global__ void __launch_bounds__(THREADS)
     ob[p] = from_float<T>(Os[p] / fmaxf(Ls[p / HD], 1e-30f));
 }
 
-template <typename T, int HD, bool PAGED>
+template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* tables, const int* lengths, void* out, int B,
                    int H, int KVH, int num_blocks, int block_lines,
@@ -181,45 +173,42 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const size_t smem = smem_bytes<HD>(H / KVH);
   if (smem > smem_max) {  // a larger G needs a larger opt-in
     smem_ok = false;
-    cudaError_t err = allow_smem(decode_kernel<T, HD, PAGED>, smem, smem_ok);
+    cudaError_t err = allow_smem(decode_kernel<T, HD>, smem, smem_ok);
     if (err != cudaSuccess) return err;
     smem_max = smem;
   }
   dim3 grid(KVH, B);
-  decode_kernel<T, HD, PAGED><<<grid, THREADS, smem, stream>>>(
+  decode_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), tables, lengths, static_cast<T*>(out), H, KVH,
       num_blocks, block_lines, max_blocks, scale);
   return cudaGetLastError();
 }
 
-// The four (dtype, head dim) instances the wrappers accept.
-template <bool PAGED>
-int dispatch(const void* q, const void* k, const void* v, const void* tables,
-             const void* lengths, void* out, int B, int H, int KVH, int hd,
-             int num_blocks, int block_lines, int max_blocks, float scale,
-             int dtype, void* stream) {
+// The four (dtype, head dim) instances the wrapper accepts.
+inline int dispatch(const void* q, const void* k, const void* v,
+                    const void* tables, const void* lengths, void* out, int B,
+                    int H, int KVH, int hd, int num_blocks, int block_lines,
+                    int max_blocks, float scale, int dtype, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
   if (dtype == DTYPE_F32 && hd == 64)
-    return (int)launch<float, 64, PAGED>(q, k, v, tb, ln, out, B, H, KVH,
-                                         num_blocks, block_lines, max_blocks,
-                                         scale, s);
+    return (int)launch<float, 64>(q, k, v, tb, ln, out, B, H, KVH, num_blocks,
+                                  block_lines, max_blocks, scale, s);
   if (dtype == DTYPE_F32 && hd == 128)
-    return (int)launch<float, 128, PAGED>(q, k, v, tb, ln, out, B, H, KVH,
-                                          num_blocks, block_lines,
-                                          max_blocks, scale, s);
+    return (int)launch<float, 128>(q, k, v, tb, ln, out, B, H, KVH,
+                                   num_blocks, block_lines, max_blocks, scale,
+                                   s);
   if (dtype == DTYPE_BF16 && hd == 64)
-    return (int)launch<__nv_bfloat16, 64, PAGED>(q, k, v, tb, ln, out, B, H,
-                                                 KVH, num_blocks, block_lines,
-                                                 max_blocks, scale, s);
+    return (int)launch<__nv_bfloat16, 64>(q, k, v, tb, ln, out, B, H, KVH,
+                                          num_blocks, block_lines, max_blocks,
+                                          scale, s);
   if (dtype == DTYPE_BF16 && hd == 128)
-    return (int)launch<__nv_bfloat16, 128, PAGED>(q, k, v, tb, ln, out, B, H,
-                                                  KVH, num_blocks,
-                                                  block_lines, max_blocks,
-                                                  scale, s);
+    return (int)launch<__nv_bfloat16, 128>(q, k, v, tb, ln, out, B, H, KVH,
+                                           num_blocks, block_lines,
+                                           max_blocks, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

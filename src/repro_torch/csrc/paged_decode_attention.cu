@@ -8,7 +8,7 @@
 // one (request, kv head): it reads its own table row and length, and
 // walks only the tiles of live lines, gathering each line from the pool
 // block its table names.  The kernel body, its bound and its next step
-// are in decode_attention.cuh, shared with the dense-cache kernel.
+// are in decode_attention.cuh.
 //
 // Lengths past max_blocks * block_lines are clamped to it, and a table
 // entry outside the pool masks its lines instead of reading outside the
@@ -28,7 +28,7 @@ extern "C" int paged_decode_attention_fwd(
     const void* lengths, void* out, int B, int H, int KVH, int hd,
     int num_blocks, int block_lines, int max_blocks, float scale, int dtype,
     void* stream) {
-  return decode::dispatch<true>(q, k_pool, v_pool, tables, lengths, out, B,
+  return decode::dispatch(q, k_pool, v_pool, tables, lengths, out, B,
                                 H, KVH, hd, num_blocks, block_lines,
                                 max_blocks, scale, dtype, stream);
 }

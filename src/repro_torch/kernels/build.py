@@ -100,6 +100,12 @@ def build_all() -> Dict[str, dict]:
         return build_info
 
 
+def aligned16(t):
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary: the kernels read 16-byte vectors and TMA boxes."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     if name not in _libs:

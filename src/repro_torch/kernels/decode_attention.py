@@ -1,32 +1,42 @@
 """Decode attention, one query token per request: two CUDA kernels and
 their plain PyTorch versions.
 
-* Paged (``csrc/paged_decode_attention.cu``) replaces the TPU kernel
+* Paged (``csrc/paged_decode_attention.cu``, body in
+  ``csrc/decode_attention.cuh``) replaces the TPU kernel
   ``src/repro/kernels/decode_attention.py::paged_decode_attention_pallas``:
-  K/V are read through per-request block tables.
+  K/V are read through per-request block tables.  One block per
+  (request, KV head) walks the tiles of live lines, so at small batch it
+  leaves most SMs idle.
 * Dense (``csrc/decode_attention.cu``) replaces
   ``src/repro/kernels/decode_attention.py::decode_attention_pallas``: K/V
   are each request's rows of a dense ``(B, W, KVH, hd)`` cache.  Stacks
   that do not page (the hybrid Mamba+attention stack) decode through it.
+  It is split-KV (flash-decoding): :func:`split_plan` spreads each
+  request's lines over enough blocks to fill the card, each block writes
+  an f32 partial (m, l, acc) per head to a scratch this wrapper allocates,
+  and a second pass merges them.
 
-Both share one kernel body (``csrc/decode_attention.cuh``).  Their bound
-on the H100 is bytes: every live K and V line is read once per step.  The
-kernels read only the ``ceil(len / 64)`` tiles of live lines and share
-each tile among the G query heads of its KV head; with one block per
-(request, KV head) they leave most SMs idle at small batch (see the
-header for the next step).
+Their bound on the H100 is bytes: every live K and V line is read once
+per step, and each line is shared by the G query heads of its KV head.
+The dense kernel runs its products on the tensor cores in bf16 and on the
+CUDA cores in f32.  At the hybrid path's shape (8 rows, W 1024, 64/8
+heads, hd 128, bf16) it took 0.018-0.019 ms of device time on an NVIDIA
+H100 80GB HBM3 (700 W power limit), against 0.032-0.043 ms for
+``scaled_dot_product_attention`` on the same clock (``kernel_times.py``);
+``PERF.md`` has each kernel's time beside its bound.
 
 :func:`paged_decode_attention_cuda` and :func:`decode_attention_cuda` are
 the entry points the model calls.  On CUDA tensors they launch the kernel
 or raise; on CPU tensors, and only there, they run the plain version.
-``counts`` records, per kernel, launches and plain-version calls.
+``counts`` records, per kernel, launches (one per wrapper call, the dense
+kernel's two passes included) and plain-version calls.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,6 +45,12 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+#: the dense kernel's lines per split come in whole tiles of this many;
+#: a block serves this many query heads and writes up to this many partials
+#: per head and split (one in bf16, 128 / hd in f32)
+TILE_LINES = 64
+HEADS_PER_BLOCK = 8
+PARTS_PER_SPLIT = 2
 
 #: per kernel: ``launches`` of the CUDA kernel, ``plain_calls`` of the
 #: plain version
@@ -148,10 +164,35 @@ def decode_attention_torch(q: torch.Tensor, k_cache: torch.Tensor,
                    scale)
 
 
+def split_plan(B: int, KVH: int, G: int, W: int,
+               sm_count: int) -> Tuple[int, int]:
+    """``(splits, chunk)`` of the dense kernel: each request's W lines go to
+    ``splits`` blocks of ``chunk`` lines (whole 64-line tiles) per (KV
+    head, group of 8 query heads), enough that the grid holds at least
+    ``2 * sm_count`` blocks where W allows two tiles per block; fewer lines
+    per block cost more in partials to merge than they save.  Host-only:
+    it reads no length, so choosing it costs no device sync."""
+    blocks = B * KVH * -(-G // HEADS_PER_BLOCK)
+    want = max(1, min(-(-2 * sm_count // blocks), -(-W // (2 * TILE_LINES))))
+    chunk = _chunk(W, want)
+    return max(1, -(-W // chunk)), chunk
+
+
+def _chunk(W: int, splits: int) -> int:
+    """Lines per split: W / splits rounded down to whole tiles, so that the
+    rounding never leaves fewer splits than asked for."""
+    return max(TILE_LINES, -(-W // splits) // TILE_LINES * TILE_LINES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _dense_kernel():
     fn = build.load("decode_attention").decode_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -175,11 +216,20 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
     W, KVH = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    splits, chunk = split_plan(B, KVH, H // KVH, W,
+                               _sm_count(q.device.index or 0))
+    parts = splits * PARTS_PER_SPLIT
+    q, k_cache, v_cache = (build.aligned16(t) for t in (q, k_cache, v_cache))
     out = torch.empty_like(q)
+    part_ml = torch.empty((B, H, parts, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((B, H, parts, hd), dtype=torch.float32,
+                           device=q.device)
     with torch.cuda.device(q.device):
         err = _dense_kernel()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, H, KVH, hd, W,
+            lengths.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), B, H, KVH, hd, W, splits, chunk,
             float(scale), DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_torch,
-    paged_decode_attention_cuda, paged_decode_attention_torch)
+    paged_decode_attention_cuda, paged_decode_attention_torch, split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_torch
@@ -40,6 +40,31 @@ def test_flash_kernel_matches_plain_on_card(dtype, tol, S, window):
     exp = flash_attention_torch(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert float((out.float() - exp.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, KVH, hd, window, q_offset): the bf16 kernel's edges
+    (2, 1, 1, 24, 2, 128, None, 0),        # one row, one key
+    (2, 65, 65, 24, 2, 128, None, 0),      # one row past a warpgroup's 64
+    (2, 129, 129, 24, 2, 128, None, 0),    # one row past the 128-row tile
+    (1, 48, 128, 4, 2, 64, 32, 80),        # chunk resume: offset 80, window
+    (2, 256, 256, 4, 1, 64, None, 0),      # hd 64
+    (2, 300, 300, 24, 2, 128, 16, 0),      # a window inside one tile
+])
+def test_flash_bf16_edges_match_plain_on_card(case):
+    _need_cuda()
+    B, Sq, Skv, H, KVH, hd, window, q_offset = case
+    g = torch.Generator(device="cuda").manual_seed(Sq + Skv)
+    q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, Skv, KVH, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, Skv, KVH, hd), generator=g, device="cuda").bfloat16()
+    out = flash_attention_cuda(q, k, v, causal=True, window=window,
+                               q_offset=q_offset)
+    exp = flash_attention_torch(q, k, v, causal=True, window=window,
+                                q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert float((out.float() - exp.float()).abs().max()) <= 2e-2
 
 
 @pytest.mark.cuda
@@ -108,6 +133,35 @@ def test_dense_decode_kernel_matches_plain_on_card(dtype, tol):
     torch.cuda.synchronize()
     assert float((out.float() - exp.float()).abs().max()) <= tol
     assert float(out[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 1])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_dense_decode_split_edges_match_plain_on_card(B, dtype, tol):
+    """Lengths 0, 1, one off each side of a split boundary and the full
+    row of 1024, at B = 8 and at B = 1 (where the most splits run)."""
+    _need_cuda()
+    H, KVH, hd, W = 64, 8, 128, 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, chunk = split_plan(B, KVH, H // KVH, W, sms)
+    assert B * KVH * splits >= min(2 * sms, B * KVH * W // 128)
+    lens = [0, 1, chunk - 1, chunk, chunk + 1, W - chunk + 1, W - 1, W]
+    rows = [lens] if B == 8 else [[n] for n in (W, chunk + 1, 0)]
+    g = torch.Generator(device="cuda").manual_seed(B)
+    for lengths in rows:
+        q = torch.randn((B, 1, H, hd), generator=g, device="cuda").to(dtype)
+        kc = torch.randn((B, W, KVH, hd), generator=g, device="cuda").to(dtype)
+        vc = torch.randn((B, W, KVH, hd), generator=g, device="cuda").to(dtype)
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        out = decode_attention_cuda(q, kc, vc, lengths)
+        exp = decode_attention_torch(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        assert float((out.float() - exp.float()).abs().max()) <= tol
+        for b in range(B):
+            if int(lengths[b]) == 0:
+                assert float(out[b].abs().max()) == 0.0
 
 
 @pytest.mark.cuda

@@ -48,7 +48,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+    ROOT / "chip_smoke.py", ROOT / "kernel_times.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path}: imports {bad}"
@@ -82,3 +83,14 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          cwd=tmp_path, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_kernel_times_refuses_without_cuda(tmp_path):
+    """``kernel_times.py`` exits non-zero and prints no timing when no card
+    is visible."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "kernel_times.py")],
+                         capture_output=True, text=True, env=env,
+                         cwd=tmp_path, timeout=120)
+    assert res.returncode != 0
+    assert '"kernel"' not in res.stdout

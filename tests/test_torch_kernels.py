@@ -3,9 +3,12 @@
 Each plain PyTorch version (what a kernel wrapper runs on CPU tensors) is
 compared with the Pallas TPU kernel run in interpret mode on the same
 inputs, made with numpy from a seed.  Tolerance 1e-5 in f32 for attention:
-the two sum in different orders.  The selective scan gets 1e-4, the JAX
-package's own kernel-test tolerance: its recurrence carries rounding over
-every time step.  The CUDA kernels themselves run only on the card;
+the two sum in different orders, and f32 rounding over a 64- or 128-term
+dot and a softmax over at most 512 keys stays near 1e-6 on outputs of
+order 1.  Where a float64 numpy reference is at hand, each side is held to
+it on its own, so a failure names the side that moved.  The selective scan
+gets 1e-4, the JAX package's own kernel-test tolerance: its recurrence
+carries rounding over every time step.  The CUDA kernels themselves run only on the card;
 ``test_torch_cuda.py`` holds them against these plain versions there.
 """
 import jax.numpy as jnp
@@ -22,13 +25,14 @@ from repro.models.attention import flash_attention as repro_flash_jnp
 from repro_torch.kernels import KERNELS, read_counts, reset_counts
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
-    decode_attention_cuda, decode_attention_torch,
-    paged_decode_attention_cuda, paged_decode_attention_torch)
+    NEG_INF, _chunk, decode_attention_cuda, decode_attention_torch,
+    paged_decode_attention_cuda, paged_decode_attention_torch, split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_torch
 
 TOL = 1e-5
+LOG2E = 1.4426950408889634
 SCAN_TOL = 1e-4
 
 FLASH_SHAPES = [
@@ -49,14 +53,35 @@ def _err(a, b):
                         - np.asarray(b, np.float32)).max())
 
 
+def _flash_ref64(q, k, v, causal, window):
+    """Float64 numpy attention: q (B, Sq, H, hd), k/v (B, Skv, KVH, hd)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kk = np.repeat(k.astype(np.float64), G, axis=2)
+    vv = np.repeat(v.astype(np.float64), G, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kk) / np.sqrt(hd)
+    pos = np.arange(S)
+    mask = np.ones((S, S), bool)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    s = np.where(mask, s, -np.inf)
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    p /= p.sum(axis=-1, keepdims=True)
+    return np.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 @pytest.mark.parametrize("window", [None, 64])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_pallas(shape, window, causal):
+    """Each side against a float64 reference, then against each other."""
     B, S, H, KVH, hd = shape
     rng = np.random.default_rng(sum(shape))
     q, k, v = (_randn(rng, (B, S, H, hd)), _randn(rng, (B, S, KVH, hd)),
                _randn(rng, (B, S, KVH, hd)))
+    ref = _flash_ref64(q, k, v, causal, window)
     exp = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
                                  jnp.asarray(v), causal=causal,
                                  window=window, block_q=64, block_k=64,
@@ -64,6 +89,8 @@ def test_flash_plain_matches_pallas(shape, window, causal):
     out = flash_attention_torch(torch.from_numpy(q), torch.from_numpy(k),
                                 torch.from_numpy(v), causal=causal,
                                 window=window)
+    assert _err(exp, ref) < TOL, "the Pallas kernel moved from float64"
+    assert _err(out, ref) < TOL, "the plain version moved from float64"
     assert _err(out, exp) < TOL
 
 
@@ -286,6 +313,71 @@ def test_dense_decode_plain_matches_ref(shape):
     assert _err(out[1:], exp[1:]) < TOL
 
 
+def _split_merge_torch(q, k_cache, v_cache, lengths, splits):
+    """The dense kernel's two passes in plain PyTorch.  Each request's
+    lines are cut into spans of ``chunk`` lines as the kernel cuts them for
+    ``splits``; each span gives an f32 partial per head (m in base 2, l,
+    unnormalised acc), and the merge rescales them by ``exp2(m - max m)``.
+    A span at or past a row's length gives the empty partial (m = NEG_INF,
+    l = 0, acc = 0), which adds nothing."""
+    q = q[:, 0]
+    B, H, hd = q.shape
+    W, KVH = k_cache.shape[1], k_cache.shape[2]
+    chunk = _chunk(W, splits)
+    qf = q.float().reshape(B, KVH, H // KVH, hd) * (LOG2E / np.sqrt(hd))
+    s = torch.einsum("bkgd,bwkd->bkgw", qf, k_cache.float())
+    valid = (torch.arange(W)[None] < lengths[:, None])[:, None, None, :]
+    ms, ls, accs = [], [], []
+    for lo in range(0, W, chunk):
+        live = valid[..., lo:lo + chunk]
+        sp = s[..., lo:lo + chunk].masked_fill(~live, NEG_INF)
+        m = sp.amax(dim=-1)
+        p = torch.exp2(sp - m[..., None]) * live
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgw,bwkd->bkgd", p,
+                                 v_cache[:, lo:lo + chunk].float()))
+    m = torch.stack(ms)
+    w = torch.exp2(m - m.amax(dim=0))
+    l = (torch.stack(ls) * w).sum(dim=0)
+    o = (torch.stack(accs) * w[..., None]).sum(dim=0)
+    o = (o / l.clamp_min(1e-30)[..., None]).reshape(B, H, hd).to(q.dtype)
+    return o[:, None]
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_split_merge_matches_plain_and_pallas(shape, splits):
+    """The dense kernel's split-KV arithmetic in plain PyTorch equals the
+    plain version and the Pallas kernel.  Lengths 0, 1, W / 2 + 3 and W:
+    the length-0 row merges only empty partials and must give exactly 0,
+    and with 3 or 8 splits the short rows leave whole splits past their
+    length."""
+    q, kc, vc, lengths = _dense_inputs(shape)
+    exp = decode_attention_pallas(jnp.asarray(q), jnp.asarray(kc),
+                                  jnp.asarray(vc), jnp.asarray(lengths),
+                                  block_k=64, interpret=True)
+    args = [torch.from_numpy(a) for a in (q, kc, vc, lengths)]
+    out = _split_merge_torch(*args, splits)
+    assert _err(out, decode_attention_torch(*args)) < TOL
+    assert _err(out, exp) < TOL
+    assert float(out[0].abs().max()) == 0.0, "a length-0 row must give 0"
+
+
+@pytest.mark.parametrize("B,KVH,G,W", [(8, 8, 8, 1024), (1, 8, 8, 1024),
+                                       (8, 2, 12, 512), (4, 2, 4, 16),
+                                       (64, 8, 8, 1024), (2, 1, 4, 0)])
+def test_split_plan_fills_the_card(B, KVH, G, W):
+    """Enough blocks for two per SM where W allows two 64-line tiles per
+    block; spans of whole tiles that cover W, none of them wholly past W."""
+    sms = 132
+    splits, chunk = split_plan(B, KVH, G, W, sms)
+    blocks = B * KVH * -(-G // 8) * splits
+    assert chunk % 64 == 0 and splits >= 1
+    assert splits * chunk >= W and (splits - 1) * chunk < max(W, 1)
+    assert blocks >= min(2 * sms, B * KVH * -(-G // 8) * -(-W // 128))
+
+
 @pytest.mark.parametrize("bad", ["dtype", "lengths_dtype", "batch",
                                  "head_dim"])
 def test_dense_wrapper_rejects_what_kernel_does_not_take(bad):
@@ -389,6 +481,17 @@ def test_registry_names_every_kernel_once():
     assert sorted(build.SOURCES) == sorted(names)
     for name, src in build.SOURCES.items():
         assert (build.CSRC / src).is_file(), name
+
+
+def test_aligned16_copies_only_views_off_a_16_byte_boundary():
+    """The kernels read 16-byte vectors and TMA boxes: a tensor whose data
+    starts elsewhere is handed over as an aligned copy of equal values."""
+    base = torch.arange(12, dtype=torch.float32)
+    assert build.aligned16(base) is base
+    view = base[1:]
+    assert view.data_ptr() % 16 != 0
+    copy = build.aligned16(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
 
 
 def test_new_wrappers_take_plain_version_on_cpu_only():
