@@ -12,10 +12,14 @@ of which exits non-zero on failure:
    version, its roofline bound and, where one PyTorch call computes the
    same function, that call: prefill attention (tile edges, a chunk
    resume with q_offset) and paged decode attention in bf16 (tolerance
-   2e-2 max abs) and f32 (1e-4); dense decode attention at Jamba's heads
+   2e-2 max abs) and f32 (1e-4), the latter at B 1 and larger, G 12, 4,
+   1 and 20, 16- and 32-line blocks, lengths 0 and on each side of a
+   span edge, and bad tables; dense decode attention at Jamba's heads
    in bf16 and f32 likewise, with lengths on each side of a split
-   boundary; the selective scan in f32
-   (1e-4 relative) at d_in 16384 for S = 512 and a ragged S = 300;
+   boundary; the selective scan in f32 (1e-4 relative) at d_in 16384
+   for S = 512, a ragged S = 300 and S = 1, at a ragged C with N 8 and
+   16 at B 2, and S = 0 (h_final equals h0); its bound counts its
+   exponentials at the SFU rate;
 3. serve — full-width starcoder2-3b in bf16 (random weights from a seed)
    behind one ``InstanceEngine``: six greedy requests admitted by
    ``prefill_batch`` and decoded by ``decode_multi(steps=8)``; every
@@ -61,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+SFU_OPS_PER_CLOCK_PER_SM = 16  # exp2 and the like, compute capability 9.0
 
 
 class SmokeFailure(RuntimeError):
@@ -159,45 +164,64 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
     f_bound, f_by = _bound(f_bytes, f_flops, "bfloat16")
 
     # -- paged decode attention ----------------------------------------------
-    bl, mb, slots = 16, 32, 8
-    paged_cases = [  # (lengths, H, KVH, hd, what)
-        ([116, 144, 216, 272, 400, 512], 24, 2, 128,
+    # (lengths as a function of the case's span of lines per split, H, KVH,
+    # hd, block_lines, what); W = 512 lines per table, as on the serve path
+    W = 512
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    paged_cases = [
+        (lambda s: [116, 144, 216, 272, 400, 512], 24, 2, 128, 16,
          "main path: 6 requests mid-decode"),
-        ([0, 1, 17, 255, 511, 512], 24, 2, 128, "lengths 0, 1 and ragged"),
-        ([0, 1, 17, 255, 511, 600], 24, 2, 128,
+        (lambda s: [0, 1, 17, 255, 511, 512], 24, 2, 128, 16,
+         "lengths 0, 1 and ragged"),
+        (lambda s: [0, 1, 17, 255, 511, 600], 24, 2, 128, 16,
          "out-of-pool entries, length past the table"),
-        ([3, 40, 129], 4, 1, 64, "hd 64 (reduced config)"),
+        (lambda s: [3, 40, 129], 4, 1, 64, 16, "hd 64 (reduced config)"),
+        (lambda s: [s], 24, 2, 128, 16, "B 1, G 12, length on the span edge"),
+        (lambda s: [s + 1], 24, 2, 128, 32,
+         "B 1, G 12, 32-line blocks, one past the span edge"),
+        (lambda s: [0, 1, s, s + 1, 300, W], 8, 2, 128, 32,
+         "G 4, 32-line blocks, span edges"),
+        (lambda s: [1, s, s + 1, W], 2, 2, 128, 16, "G 1, span edges"),
+        (lambda s: [1, s - 1, s + 1, 300, W, 0], 40, 2, 128, 16,
+         "G 20 (two head groups), span edges"),
     ]
     paged_err = 0.0
 
-    def paged_inputs(lengths, H, KVH, hd, dtype):
-        nb = slots * mb
+    def paged_inputs(lengths, H, KVH, hd, bl, dtype):
+        mb, nb = W // bl, 8 * (W // bl)
         qq = randn((len(lengths), H, hd), dtype)
         kp, vp = randn((nb, bl, KVH, hd), dtype), randn((nb, bl, KVH, hd), dtype)
         perm = torch.randperm(nb, generator=gen, device=dev)[:len(lengths) * mb]
         tables = perm.reshape(len(lengths), mb).to(torch.int32)
-        if max(lengths) > mb * bl:  # the shared contract for bad tables
-            tables[3, 2], tables[4, 0], tables[5, 31] = -1, nb, nb + 7
+        if max(lengths) > W:  # the shared contract for bad tables
+            tables[3, 2], tables[4, 0], tables[5, mb - 1] = -1, nb, nb + 7
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         return qq, kp, vp, tables, lens
 
-    for lengths, H_, KVH_, hd_, what in paged_cases:
+    for lengths_of, H_, KVH_, hd_, bl_, what in paged_cases:
+        splits, span = paged_mod.split_plan(
+            len(lengths_of(0)), KVH_, H_ // KVH_, W, sms,
+            paged_mod.PAGED_HEADS_PER_BLOCK)
+        lengths = lengths_of(span)
         for dtype in (torch.bfloat16, torch.float32):
-            args = paged_inputs(lengths, H_, KVH_, hd_, dtype)
+            args = paged_inputs(lengths, H_, KVH_, hd_, bl_, dtype)
             out = paged_mod.paged_decode_attention_cuda(*args)
             exp = paged_mod.paged_decode_attention_torch(*args)
             torch.cuda.synchronize()
             err = max_err(out, exp)
-            log(f"kernels: paged_decode_attention {what} {str(dtype)[6:]}: "
+            log(f"kernels: paged_decode_attention {what} (lengths {lengths}, "
+                f"{splits} splits of {span} lines) {str(dtype)[6:]}: "
                 f"max_abs_err {err:.3e} (tol {tol[dtype]:.0e})")
             check(err <= tol[dtype], f"paged_decode_attention {what} "
                   f"{dtype}: error {err} above {tol[dtype]}")
-            if lengths[0] == 0:
-                check(float(out[0].abs().max()) == 0.0,
-                      "paged_decode_attention: a length-0 row must give 0")
+            for b, n in enumerate(lengths):
+                if n == 0:
+                    check(float(out[b].abs().max()) == 0.0,
+                          "paged_decode_attention: a length-0 row must give 0")
             paged_err = max(paged_err, err)
-    lengths = paged_cases[0][0]
-    args = paged_inputs(lengths, 24, 2, 128, torch.bfloat16)
+    lengths = paged_cases[0][0](0)
+    mb = W // 16
+    args = paged_inputs(lengths, 24, 2, 128, 16, torch.bfloat16)
     p_ms = time_ms(lambda: paged_mod.paged_decode_attention_cuda(*args), 50,
                    flush)
     p_plain = time_ms(lambda: paged_mod.paged_decode_attention_torch(*args),
@@ -255,19 +279,42 @@ def _device_profile(torch, fn):
     return out
 
 
+# the port's own kernel functions, listed in a breakdown even below its top
+PORT_KERNEL_FUNCTIONS = ("flash_fwd_kernel", "paged_kernel", "split_kernel",
+                         "merge_kernel", "mamba_scan_kernel")
+
+
 def _breakdown(wall_ms, kernels, top=6):
+    """Device time and busy share of a run, its ``top`` kernels by device
+    time and, below them, any of the port's own kernels."""
     device_ms = sum(ms for ms, _ in kernels.values())
     ranked = sorted(((ms, n, name) for name, (ms, n) in kernels.items()),
-                    reverse=True)[:top]
+                    reverse=True)
+    shown = ranked[:top] + [r for r in ranked[top:]
+                            if any(f in r[2] for f in PORT_KERNEL_FUNCTIONS)]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
-            "top": [(name, ms, n) for ms, n, name in ranked]}
+            "top": [(name, ms, n) for ms, n, name in shown]}
 
 
-def _bound(nbytes, flops, dtype_name):
+def _bound(nbytes, flops, dtype_name, sfu_ms=0.0):
+    """(least ms, what bounds it): the bytes at the memory rate against the
+    operations, the flops at the peak rate of their type or ``sfu_ms`` for
+    the work only the special-function units do, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = max(flops / PEAK_FLOPS[dtype_name] * 1e3, sfu_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sfu_ms(n, sms):
+    """Least ms for ``n`` exponentials on the special-function units: 16
+    per clock per SM (CUDA C Programming Guide, arithmetic instruction
+    throughput, compute capability 9.0) at the card's max SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    return n / (SFU_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6) * 1e3
 
 
 def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
@@ -276,6 +323,7 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2)
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -289,9 +337,13 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
                 randn((B, C, N)) * 0.1)
 
     scan_err = 0.0
-    for S, what in ((512, "main path: 512-token prompt"),
-                    (300, "ragged S = 300")):
-        args = scan_inputs(1, S, 16384, 16)
+    for B, S, C, N, what in (
+            (1, 512, 16384, 16, "main path: 512-token prompt"),
+            (1, 300, 16384, 16, "ragged S = 300"),
+            (2, 1, 16384, 16, "S = 1, B 2"),
+            (2, 300, 1000, 16, "ragged C = 1000, B 2"),
+            (2, 512, 1003, 8, "N 8, C = 1003 (4-byte copies), B 2")):
+        args = scan_inputs(B, S, C, N)
         y, h = scan_mod.mamba_scan_cuda(*args)
         y_p, h_p = scan_mod.mamba_scan_torch(*args)
         torch.cuda.synchronize()
@@ -303,17 +355,24 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
             check(rel <= 1e-4, f"mamba_scan {what} {name}: relative error "
                   f"{rel} above 1e-4")
             scan_err = max(scan_err, err)
+    args = scan_inputs(2, 0, 1000, 16)
+    y, h = scan_mod.mamba_scan_cuda(*args)
+    torch.cuda.synchronize()
+    check(tuple(y.shape) == (2, 0, 1000) and torch.equal(h, args[-1]),
+          "mamba_scan S = 0: y must be empty and h_final equal h0")
+    log("kernels: mamba_scan S = 0, C = 1000, B 2: y empty, h_final == h0")
     B, S, C, N = 1, 512, 16384, 16
     args = scan_inputs(B, S, C, N)
     s_ms = time_ms(lambda: scan_mod.mamba_scan_cuda(*args), 50, flush)
     s_plain = time_ms(lambda: scan_mod.mamba_scan_torch(*args), 3, flush)
     s_bytes = 4 * (3 * B * S * C + 2 * B * S * N + C * N + C + 2 * B * C * N)
     s_flops = B * S * C * (6 * N + 3)        # per step: 6 per state + 3
-    s_bound, s_by = _bound(s_bytes, s_flops, "float32")
+    s_exps = B * S * C * N                   # one exp per state update
+    s_bound, s_by = _bound(s_bytes, s_flops, "float32",
+                           _sfu_ms(s_exps, sms))
 
     # -- dense decode attention: Jamba's 64/8 heads, hd 128, 1024 lines ------
     W, H, KVH, hd = 1024, 64, 8, 128
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     splits, chunk = dense_mod.split_plan(8, KVH, H // KVH, W, sms)
     dense_cases = [  # (lengths, what)
         ([116, 272, 316, 528, 716, 1016, 1, 1],
@@ -384,8 +443,10 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
          "library_ms": None},
     ]
     log(f"kernels: mamba_scan timed at B 1, S 512, C 16384, N 16: "
-        f"{s_bytes / 1e6:.1f} MB, {s_flops:.3e} flops, {B * S * C * N:.3e} "
-        f"exps; decode_attention at lengths {lengths}, W {W}")
+        f"{s_bytes / 1e6:.1f} MB ({_bound(s_bytes, 0, 'float32')[0]:.4f} ms), "
+        f"{s_flops:.3e} flops ({_bound(0, s_flops, 'float32')[0]:.4f} ms), "
+        f"{s_exps:.3e} exps ({_sfu_ms(s_exps, sms):.4f} ms on the SFUs); "
+        f"decode_attention at lengths {lengths}, W {W}")
     return records
 
 

@@ -1,29 +1,27 @@
 """Decode attention, one query token per request: two CUDA kernels and
 their plain PyTorch versions.
 
-* Paged (``csrc/paged_decode_attention.cu``, body in
-  ``csrc/decode_attention.cuh``) replaces the TPU kernel
+* Paged (``csrc/paged_decode_attention.cu``) replaces the TPU kernel
   ``src/repro/kernels/decode_attention.py::paged_decode_attention_pallas``:
-  K/V are read through per-request block tables.  One block per
-  (request, KV head) walks the tiles of live lines, so at small batch it
-  leaves most SMs idle.
+  K/V are read through per-request block tables.  It is split-KV in one
+  launch: :func:`split_plan` spreads each request's lines over enough
+  blocks to fill the card, each block gathers its lines through the
+  table, and the last block of each row merges the row's partials.  The
+  partials and the rows' ticket counters live in a scratch this module
+  keeps per device and stream, so a call allocates nothing but its output.
 * Dense (``csrc/decode_attention.cu``) replaces
   ``src/repro/kernels/decode_attention.py::decode_attention_pallas``: K/V
   are each request's rows of a dense ``(B, W, KVH, hd)`` cache.  Stacks
   that do not page (the hybrid Mamba+attention stack) decode through it.
-  It is split-KV (flash-decoding): :func:`split_plan` spreads each
-  request's lines over enough blocks to fill the card, each block writes
-  an f32 partial (m, l, acc) per head to a scratch this wrapper allocates,
-  and a second pass merges them.
+  It is split-KV too: each block writes an f32
+  partial (m, l, acc) per head to a scratch this wrapper allocates, and a
+  second pass merges them.
 
 Their bound on the H100 is bytes: every live K and V line is read once
 per step, and each line is shared by the G query heads of its KV head.
-The dense kernel runs its products on the tensor cores in bf16 and on the
-CUDA cores in f32.  At the hybrid path's shape (8 rows, W 1024, 64/8
-heads, hd 128, bf16) it took 0.018-0.019 ms of device time on an NVIDIA
-H100 80GB HBM3 (700 W power limit), against 0.032-0.043 ms for
-``scaled_dot_product_attention`` on the same clock (``kernel_times.py``);
-``PERF.md`` has each kernel's time beside its bound.
+Both run their products on the tensor cores in bf16 and on the CUDA cores
+in f32.  ``PERF.md`` has each kernel's time on the card beside its bound,
+its plain version and ``scaled_dot_product_attention``.
 
 :func:`paged_decode_attention_cuda` and :func:`decode_attention_cuda` are
 the entry points the model calls.  On CUDA tensors they launch the kernel
@@ -36,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,12 +43,14 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-#: the dense kernel's lines per split come in whole tiles of this many;
-#: a block serves this many query heads and writes up to this many partials
+#: both kernels' lines per split come in whole tiles of this many; a dense
+#: block serves this many query heads and writes up to this many partials
 #: per head and split (one in bf16, 128 / hd in f32)
 TILE_LINES = 64
 HEADS_PER_BLOCK = 8
 PARTS_PER_SPLIT = 2
+#: query heads per paged block in bf16 (the m16 rows of its MMA); 8 in f32
+PAGED_HEADS_PER_BLOCK = 16
 
 #: per kernel: ``launches`` of the CUDA kernel, ``plain_calls`` of the
 #: plain version
@@ -164,15 +164,18 @@ def decode_attention_torch(q: torch.Tensor, k_cache: torch.Tensor,
                    scale)
 
 
-def split_plan(B: int, KVH: int, G: int, W: int,
-               sm_count: int) -> Tuple[int, int]:
-    """``(splits, chunk)`` of the dense kernel: each request's W lines go to
-    ``splits`` blocks of ``chunk`` lines (whole 64-line tiles) per (KV
-    head, group of 8 query heads), enough that the grid holds at least
-    ``2 * sm_count`` blocks where W allows two tiles per block; fewer lines
-    per block cost more in partials to merge than they save.  Host-only:
-    it reads no length, so choosing it costs no device sync."""
-    blocks = B * KVH * -(-G // HEADS_PER_BLOCK)
+@functools.lru_cache(maxsize=None)
+def split_plan(B: int, KVH: int, G: int, W: int, sm_count: int,
+               heads_per_block: int = HEADS_PER_BLOCK) -> Tuple[int, int]:
+    """``(splits, chunk)`` of a split-KV decode kernel: each request's W
+    lines go to ``splits`` blocks of ``chunk`` lines (whole 64-line tiles)
+    per (KV head, group of ``heads_per_block`` query heads: 8 for the dense
+    kernel, :data:`PAGED_HEADS_PER_BLOCK` for the paged one), enough that
+    the grid holds at least ``2 * sm_count`` blocks where W allows two
+    tiles per block; fewer lines per block cost more in partials to merge
+    than they save.  Host-only: it reads no length, so choosing it costs
+    no device sync."""
+    blocks = B * KVH * -(-G // heads_per_block)
     want = max(1, min(-(-2 * sm_count // blocks), -(-W // (2 * TILE_LINES))))
     chunk = _chunk(W, want)
     return max(1, -(-W // chunk)), chunk
@@ -242,10 +245,34 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.load("paged_decode_attention").paged_decode_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+#: (device, stream) -> (part_ml, part_acc, counters) of the paged kernel;
+#: launches on one stream run in order, so they can share one scratch
+_paged_scratch_bufs: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def _paged_scratch(device: torch.device, stream: int, n_part: int,
+                   hd: int, n_counters: int) -> Tuple[torch.Tensor, ...]:
+    """The paged kernel's f32 partials (``n_part`` rows of (m, l) and of
+    ``hd`` accumulators) and its int32 ticket counters, kept per device and
+    stream and grown when a call needs more.  The kernel leaves every
+    counter at 0, so they are zeroed once, when allocated."""
+    key = (device, stream)
+    need = (2 * n_part, n_part * hd, n_counters)
+    bufs = _paged_scratch_bufs.get(key)
+    if bufs is None or any(t.numel() < n for t, n in zip(bufs, need)):
+        size = need if bufs is None else [max(t.numel(), n)
+                                          for t, n in zip(bufs, need)]
+        bufs = (torch.empty(size[0], dtype=torch.float32, device=device),
+                torch.empty(size[1], dtype=torch.float32, device=device),
+                torch.zeros(size[2], dtype=torch.int32, device=device))
+        _paged_scratch_bufs[key] = bufs
+    return bufs
 
 
 def _check(q, k_pool, v_pool, block_tables, lengths):
@@ -257,6 +284,9 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
     _check_kv(q, k_pool, v_pool, lengths, "pools", block_tables)
+    if k_pool.shape[0] * k_pool.shape[1] >= 2 ** 31:
+        raise ValueError(f"pools {tuple(k_pool.shape)} hold 2**31 rows or "
+                         f"more; the kernel indexes rows with int32")
 
 
 def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -275,15 +305,27 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"no paged decode kernel for device {q.device}")
     B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
     num_blocks, bl, KVH = k_pool.shape[:3]
+    max_blocks = block_tables.shape[1]
+    G = H // KVH
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    splits, chunk = split_plan(B, KVH, G, max_blocks * bl,
+                               _sm_count(q.device.index or 0),
+                               PAGED_HEADS_PER_BLOCK)
+    q, k_pool, v_pool = (build.aligned16(t) for t in (q, k_pool, v_pool))
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # a counter per (request, KV head, head group); f32's groups of 8
+    # heads are the most
+    part_ml, part_acc, counters = _paged_scratch(
+        q.device, stream, B * H * splits, hd,
+        B * KVH * -(-G // HEADS_PER_BLOCK))
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, KVH, hd, num_blocks, bl, block_tables.shape[1],
-            float(scale), DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            part_ml.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),
+            B, H, KVH, hd, num_blocks, bl, max_blocks, splits, chunk,
+            float(scale), DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")

@@ -7,11 +7,16 @@ mamba_scan_pallas`` (body ``_scan_kernel``)::
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) outer B_t
     y_t = h_t . C_t + D * x_t
 
-Its bound on the H100 is bytes: x, dt and y cross memory once each
-(3 * B * S * C * 4 bytes), against B * S * C * N exps.  The kernel keeps
-each (batch, channel)'s N state values in registers for the whole
-sequence, so the state never round-trips through memory; the TPU kernel's
-S % 256 and C % 128 tiling limits do not apply (any S, any C).
+Its bound on the H100 is the larger of the bytes (x, dt and y cross
+memory once each, 3 * B * S * C * 4 bytes) and the B * S * C * N
+exponentials at the SFU's rate; at Jamba's widths the two are about
+equal.  The kernel keeps the state in registers for the whole sequence,
+spread over 4 lanes per channel (N / 4 states a lane) so that the card
+holds 4 * C threads per request, computes each exp as ``ex2.approx`` of a
+pre-scaled argument, sums y_t across a channel's lanes once per tile in
+shared memory, and stages x, dt, B and C by double-buffered ``cp.async``.
+The TPU kernel's S % 256 and C % 128 tiling limits do not apply (any S,
+any C).
 
 :func:`mamba_scan_cuda` is the entry point the model calls.  On CUDA
 tensors it launches the kernel or raises; on CPU tensors, and only there,
@@ -102,6 +107,8 @@ def mamba_scan_cuda(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no selective-scan kernel for device {x.device}")
     B, S, C = x.shape
+    x, dt, b_ssm, c_ssm, a, d, h0 = (build.aligned16(t) for t in
+                                     (x, dt, b_ssm, c_ssm, a, d, h0))
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
     with torch.cuda.device(x.device):

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import (
-    decode_attention_cuda, decode_attention_torch,
+    PAGED_HEADS_PER_BLOCK, decode_attention_cuda, decode_attention_torch,
     paged_decode_attention_cuda, paged_decode_attention_torch, split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
@@ -115,6 +115,48 @@ def test_paged_kernel_bad_tables_match_plain_on_card(dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,G,bl", [(1, 12, 16), (1, 12, 32), (6, 4, 16),
+                                    (3, 1, 32), (8, 20, 16)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_split_edges_match_plain_on_card(B, G, bl, dtype, tol):
+    """Lengths 0, 1, on a span boundary and one past it, W - 1 and W (and
+    one past the table, clamped), at B 1 (where splitting matters most)
+    and larger B; G 12, 4, 1 and 20 (two head groups); 16- and 32-line
+    pool blocks, so a 64-line tile spans several of them."""
+    _need_cuda()
+    KVH, hd, W = 2, 128, 512
+    mb = W // bl
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, chunk = split_plan(B, KVH, G, W, sms, PAGED_HEADS_PER_BLOCK)
+    cand = [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, W - 1, W,
+            W + 5]
+    rows = ([[n] for n in (W, chunk, chunk + 1, 1, 0)] if B == 1
+            else [[cand[(i * 2 + j) % len(cand)] for i in range(B)]
+                  for j in range(2)])
+    g = torch.Generator(device="cuda").manual_seed(B * 100 + G + bl)
+    nb = 2 * B * mb
+    for lengths in rows:
+        q = torch.randn((B, G * KVH, hd), generator=g,
+                        device="cuda").to(dtype)
+        k_pool = torch.randn((nb, bl, KVH, hd), generator=g,
+                             device="cuda").to(dtype)
+        v_pool = torch.randn((nb, bl, KVH, hd), generator=g,
+                             device="cuda").to(dtype)
+        tables = torch.randperm(nb, generator=g, device="cuda")[:B * mb]
+        tables = tables.reshape(B, mb).to(torch.int32)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        out = paged_decode_attention_cuda(q, k_pool, v_pool, tables, lens)
+        exp = paged_decode_attention_torch(q, k_pool, v_pool, tables, lens)
+        torch.cuda.synchronize()
+        assert float((out.float() - exp.float()).abs().max()) <= tol, (
+            lengths)
+        for b in range(B):
+            if lengths[b] == 0:
+                assert float(out[b].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_dense_decode_kernel_matches_plain_on_card(dtype, tol):
@@ -166,9 +208,12 @@ def test_dense_decode_split_edges_match_plain_on_card(B, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,C,N", [(512, 4096, 16), (300, 1000, 16),
-                                   (37, 200, 8)])
+                                   (37, 200, 8), (1, 16384, 16),
+                                   (512, 1003, 8), (300, 1001, 16),
+                                   (512, 16384, 8)])
 def test_scan_kernel_matches_plain_on_card(S, C, N):
-    """Any S, a ragged channel edge, nonzero h0."""
+    """Any S, a ragged channel edge (C % 4 != 0 takes 4-byte copies),
+    N 8 and 16, nonzero h0, B 2."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(S)
 
@@ -184,3 +229,21 @@ def test_scan_kernel_matches_plain_on_card(S, C, N):
     torch.cuda.synchronize()
     for a, b in ((y, y_p), (h, h_p)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N", [(1000, 16), (1003, 8)])
+def test_scan_kernel_empty_sequence_returns_h0_on_card(C, N):
+    """S = 0: y is empty and h_final holds h0's values exactly."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(C)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    args = (randn(2, 0, C), randn(2, 0, C), randn(2, 0, N), randn(2, 0, N),
+            -torch.exp(randn(C, N) * 0.5), randn(C), randn(2, C, N))
+    y, h = mamba_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (2, 0, C)
+    assert torch.equal(h, args[-1]) and h.data_ptr() != args[-1].data_ptr()

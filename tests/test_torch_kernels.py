@@ -11,6 +11,9 @@ gets 1e-4, the JAX package's own kernel-test tolerance: its recurrence
 carries rounding over every time step.  The CUDA kernels themselves run only on the card;
 ``test_torch_cuda.py`` holds them against these plain versions there.
 """
+import functools
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +28,8 @@ from repro.models.attention import flash_attention as repro_flash_jnp
 from repro_torch.kernels import KERNELS, read_counts, reset_counts
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
-    NEG_INF, _chunk, decode_attention_cuda, decode_attention_torch,
+    NEG_INF, PAGED_HEADS_PER_BLOCK, _chunk, _paged_scratch,
+    _paged_scratch_bufs, decode_attention_cuda, decode_attention_torch,
     paged_decode_attention_cuda, paged_decode_attention_torch, split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
@@ -397,6 +401,178 @@ def test_dense_wrapper_rejects_what_kernel_does_not_take(bad):
 
 
 # ---------------------------------------------------------------------------
+# the paged kernel's split-KV design
+# ---------------------------------------------------------------------------
+
+
+def _paged_split_merge_torch(q, k_pool, v_pool, tables, lengths, splits,
+                             heads_per_block=PAGED_HEADS_PER_BLOCK):
+    """The paged kernel's arithmetic in plain PyTorch.  Each line's pool
+    row is worked out as the kernel does (-1 past the row's length or for
+    a table entry outside the pool, its K/V then zero-filled and its score
+    masked).  Each request's lines are cut into spans of ``chunk`` lines as
+    the kernel cuts them for ``splits``; only the ``ceil(len / chunk)``
+    spans that start below the length run, per (KV head, group of
+    ``heads_per_block`` query heads), each giving a base-2 partial (m, l,
+    unnormalised acc).  One live span is the output; more are merged,
+    rescaled by ``exp2(m - max m)``, skipping partials that saw no line."""
+    B, H, hd = q.shape
+    nb, bl, KVH = k_pool.shape[:3]
+    W = tables.shape[1] * bl
+    G = H // KVH
+    chunk = _chunk(W, splits)
+    lens = lengths.long().clamp(0, W)
+    pos = torch.arange(W)
+    blk = tables.long()[:, pos // bl]
+    ok = (pos[None] < lens[:, None]) & (blk >= 0) & (blk < nb)
+    rows = torch.where(ok, blk * bl + pos % bl, -1)
+
+    def gather(pool):
+        flat = pool.reshape(nb * bl, KVH, hd).float()
+        return flat[rows.clamp_min(0)] * ok[..., None, None]
+
+    kc, vc = gather(k_pool), gather(v_pool)
+    scale_log2 = LOG2E / np.sqrt(hd)
+    out = torch.zeros(B * H, hd)
+    for b in range(B):
+        n_live = max(1, -(-int(lens[b]) // chunk))
+        for kvh in range(KVH):
+            for lo_h in range(0, G, heads_per_block):
+                heads = [kvh * G + gh
+                         for gh in range(lo_h, min(G, lo_h + heads_per_block))]
+                qh = q[b, heads].float()
+                parts = []
+                for split in range(n_live):
+                    lo = split * chunk
+                    hi = min(lo + chunk, int(lens[b]))
+                    live = ok[b, lo:hi]
+                    sc = (qh @ kc[b, lo:hi, kvh].T) * scale_log2
+                    sc = sc.masked_fill(~live, NEG_INF)
+                    m = (sc.amax(dim=-1) if hi > lo
+                         else torch.full((len(heads),), NEG_INF))
+                    pr = torch.exp2(sc - m[:, None]) * live
+                    l = pr.sum(dim=-1)
+                    parts.append((torch.where(l == 0, NEG_INF, m), l,
+                                  pr @ vc[b, lo:hi, kvh]))
+                if n_live == 1:
+                    _, l, acc = parts[0]
+                else:
+                    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+                    w = [torch.where(l == 0, 0.0, torch.exp2(m - m_all))
+                         for m, l, _ in parts]
+                    l = sum(pl * wi for (_, pl, _), wi in zip(parts, w))
+                    acc = sum(pa * wi[:, None]
+                              for (_, _, pa), wi in zip(parts, w))
+                out[[b * H + h for h in heads]] = (
+                    acc / l.clamp_min(1e-30)[:, None])
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_case(block_lines, G):
+    """Four requests over a shuffled pool, KVH 2, hd 64, W 256; lengths 0,
+    1, W / 2 + 3 and W.  Returns the numpy inputs and the Pallas kernel's
+    output (interpret mode), computed once per case."""
+    KVH, hd, W, B = 2, 64, 256, 4
+    mb = W // block_lines
+    rng = np.random.default_rng(100 * block_lines + G)
+    q = _randn(rng, (B, G * KVH, hd))
+    nb = 2 * B * mb
+    tables = rng.permutation(nb)[:B * mb].reshape(B, mb).astype(np.int32)
+    k_pool = _randn(rng, (nb, block_lines, KVH, hd))
+    v_pool = _randn(rng, (nb, block_lines, KVH, hd))
+    lengths = np.asarray([0, 1, W // 2 + 3, W], np.int32)
+    args = (q, k_pool, v_pool, tables, lengths)
+    exp = paged_decode_attention_pallas(*map(jnp.asarray, args),
+                                        interpret=True)
+    return args, np.asarray(exp)
+
+
+@pytest.mark.parametrize("G", [1, 4, 12, 20])
+@pytest.mark.parametrize("block_lines", [8, 16, 32])
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_paged_split_merge_matches_plain_and_pallas(splits, block_lines, G):
+    """The paged kernel's split-KV arithmetic in plain PyTorch equals the
+    plain version and the Pallas kernel.  Spans of 64-line tiles cross
+    pool blocks of 8, 16 and 32 lines; G 20 makes two head groups (16 +
+    4); with 3 or 8 splits the short rows leave whole spans past their
+    length, and the length-0 row must give exactly 0."""
+    args, exp = _paged_case(block_lines, G)
+    targs = [torch.from_numpy(a) for a in args]
+    out = _paged_split_merge_torch(*targs, splits)
+    assert _err(out, paged_decode_attention_torch(*targs)) < TOL
+    assert _err(out, exp) < TOL
+    assert float(out[0].abs().max()) == 0.0, "a length-0 row must give 0"
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("bad", ["negative", "past_pool"])
+def test_paged_split_merge_masks_out_of_pool_entries(bad, splits):
+    """The bad-table contract through the split arithmetic: the inputs of
+    ``test_paged_plain_masks_out_of_pool_entries``, then a 192-line table
+    whose bad entries fall in different spans, a row of bad entries only
+    and a length past the table."""
+    H, KVH, hd, bl, nb = 4, 2, 64, 8, 6
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (2, H, hd))
+    k_pool = _randn(rng, (nb, bl, KVH, hd))
+    v_pool = _randn(rng, (nb, bl, KVH, hd))
+    b = -1 if bad == "negative" else nb
+    cases = [(q, k_pool, v_pool, np.asarray([[4, b, 1], [b, b, b]], np.int32),
+              np.asarray([3 * bl + 5, 2 * bl], np.int32))]
+    mb, nb2 = 24, 40
+    b2 = -1 if bad == "negative" else nb2 + 3
+    tables = rng.integers(0, nb2, (3, mb))
+    tables[0, [2, 9, 17]] = b2
+    tables[1] = b2
+    cases.append((_randn(rng, (3, 24, hd)), _randn(rng, (nb2, bl, KVH, hd)),
+                  _randn(rng, (nb2, bl, KVH, hd)), tables.astype(np.int32),
+                  np.asarray([mb * bl, 100, mb * bl + 9], np.int32)))
+    for args in cases:
+        targs = [torch.from_numpy(a) for a in args]
+        out = _paged_split_merge_torch(*targs, splits)
+        assert _err(out, paged_decode_attention_torch(*targs)) < TOL
+        assert float(out[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,KVH,G,W", [
+    (6, 2, 12, 512), (1, 2, 12, 512), (8, 2, 12, 512), (1, 8, 1, 4096),
+    (4, 2, 20, 256), (64, 8, 8, 1024), (2, 1, 4, 0), (1, 2, 12, 100)])
+def test_paged_split_plan_fills_the_card(B, KVH, G, W):
+    """Spans of whole 64-line tiles that cover W, none wholly past W, and
+    at least two blocks per SM where W allows two tiles per block.  The
+    plan reads no length: its inputs are the shapes and the SM count."""
+    sms = 132
+    splits, chunk = split_plan(B, KVH, G, W, sms, PAGED_HEADS_PER_BLOCK)
+    rows = B * KVH * -(-G // PAGED_HEADS_PER_BLOCK)
+    assert chunk % 64 == 0 and splits >= 1
+    assert splits * chunk >= W and (splits - 1) * chunk < max(W, 1)
+    assert rows * splits >= min(2 * sms, rows * -(-W // 128))
+    assert list(inspect.signature(split_plan).parameters) == [
+        "B", "KVH", "G", "W", "sm_count", "heads_per_block"]
+
+
+def test_paged_scratch_is_kept_per_device_and_stream():
+    """A call allocates no scratch: the same buffers come back for a
+    shape that fits, they grow for one that does not, and a new stream
+    gets its own.  Counters are zero when allocated."""
+    dev = torch.device("cpu")
+    try:
+        first = _paged_scratch(dev, -1, 48, 128, 12)
+        assert [t.numel() for t in first] == [96, 48 * 128, 12]
+        assert not first[2].any()
+        again = _paged_scratch(dev, -1, 24, 64, 4)
+        assert all(a is b for a, b in zip(first, again))
+        grown = _paged_scratch(dev, -1, 96, 64, 12)
+        assert [t.numel() for t in grown] == [192, 48 * 128, 12]
+        other = _paged_scratch(dev, -2, 24, 64, 4)
+        assert all(a is not b for a, b in zip(grown, other))
+    finally:
+        _paged_scratch_bufs.pop((dev, -1), None)
+        _paged_scratch_bufs.pop((dev, -2), None)
+
+
+# ---------------------------------------------------------------------------
 # selective scan
 # ---------------------------------------------------------------------------
 
@@ -431,6 +607,48 @@ def test_scan_plain_matches_pallas_and_ref(shape):
     y_r, h_r = ref.mamba_scan_ref(*map(jnp.asarray, args))
     y, h = mamba_scan_torch(*map(torch.from_numpy, args))
     for exp_y, exp_h in ((y_p, h_p), (y_r, h_r)):
+        assert _err(y, exp_y) < SCAN_TOL
+        assert _err(h, exp_h) < SCAN_TOL
+
+
+def _scan_lanes_torch(x, dt, b_ssm, c_ssm, a, d, h0):
+    """The scan kernel's arithmetic in plain PyTorch, in f32: exp(dt * A)
+    as exp2(dt * (A * log2 e)) with A scaled once, each of a channel's 4
+    lanes summing its N / 4 states in order, and the 4 lanes' parts added
+    as the kernel adds them, (p0 + p2) + (p1 + p3), before D * x_t."""
+    B, S, C = x.shape
+    N = a.shape[1]
+    a2 = a * np.float32(LOG2E)
+    h = h0.clone()
+    ys = []
+    for t in range(S):
+        h = (torch.exp2(dt[:, t, :, None] * a2) * h
+             + (dt[:, t] * x[:, t])[..., None] * b_ssm[:, t, None, :])
+        prod = (h * c_ssm[:, t, None, :]).reshape(B, C, 4, N // 4)
+        part = prod[..., 0]
+        for s in range(1, N // 4):
+            part = part + prod[..., s]
+        acc = (part[..., 0] + part[..., 2]) + (part[..., 1] + part[..., 3])
+        ys.append(acc + d * x[:, t])
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, S, C, N, c_blk, t_blk): the JAX package's scan-kernel sweep
+    (1, 64, 32, 16, 16, 32),
+    (2, 128, 64, 16, 32, 64),
+    (1, 96, 48, 8, 48, 32),
+])
+def test_scan_lane_arithmetic_matches_plain_and_pallas(shape):
+    """The kernel's exp2 with a pre-scaled A and its sum order over lanes
+    stay within the scan's tolerance of the plain version and Pallas."""
+    B, S, C, N, cb, tb = shape
+    args = _scan_inputs(sum(shape) + 1, B, S, C, N)
+    y_p, h_p = mamba_scan_pallas(*map(jnp.asarray, args), channel_blk=cb,
+                                 time_blk=tb, interpret=True)
+    y_t, h_t = mamba_scan_torch(*map(torch.from_numpy, args))
+    y, h = _scan_lanes_torch(*map(torch.from_numpy, args))
+    for exp_y, exp_h in ((y_p, h_p), (y_t, h_t)):
         assert _err(y, exp_y) < SCAN_TOL
         assert _err(h, exp_h) < SCAN_TOL
 
