@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs eight phases, each
+port's kernels from ``src/repro_torch/csrc``, and runs eleven phases, each
 of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -31,7 +31,26 @@ of which exits non-zero on failure:
 5. redundancy — a replica on a second engine follows a request by mirror
    syncs, then takes over by promotion; its tokens must equal a run with
    no handoff;
-6. serve-hybrid — Jamba-1.5-Large at full width, depth cut to its first
+6. cluster — full-width starcoder2-3b in bf16 served by ``api.serve``
+   through a two-instance AcceLLM ``LiveCluster`` (8 slots each, a
+   1024-line window, fused decode up to 8 steps) on ~12 requests of the
+   paper's Table 2 "light" traffic (Poisson, rate 0.1 per iteration);
+   every request must finish with all its tokens, every logit be finite,
+   mirror syncs and a rebalance or promotion must happen, the mirror and
+   stream bytes must equal ``LineCosts`` over the lines each engine's
+   ledger moved, and the prefill and paged kernels must have launched with
+   no plain version run.  Prints the report, wall ms per iteration,
+   ``sched_us_per_iter`` and the card's busy share over 50 scheduling
+   steps (profiled in a rerun of the serve's first 90 steps);
+7. cluster-chunked — the same model and traffic shape, ~6 requests, under
+   sarathi with 128-token chunks: chunks must resume past their prompt's
+   start and the prefill kernel must launch at ``q_offset > 0``;
+8. cluster-consistency — in f32 at full width, T=0: a 500-token prompt's
+   final chunk (sarathi, 128-token chunks) against the whole-prompt
+   prefill within 1e-3 * max|logit|, and six prompts through the accellm
+   cluster against one engine: equal tokens, unless the engine's top-2
+   logit gap at the differing step is under 1e-4 * max|logit| (printed);
+9. serve-hybrid — Jamba-1.5-Large at full width, depth cut to its first
    5 layers (4 mamba, MoE on 1 and 3, attention at 4; ~48 GB in bf16):
    six greedy requests (prompts 100 to 1000, 32 tokens each) through
    ``prefill_batch`` (one prompt at a time) and ``decode_multi(steps=8)``
@@ -39,15 +58,16 @@ of which exits non-zero on failure:
    logit be finite, the scan, prefill and dense decode kernels must have
    launched and no plain version run; decode ms per step and a profiled
    breakdown;
-7. redundancy-hybrid — mirror syncs of one KV line plus the whole
-   recurrent state each, then promotion; tokens equal a control run;
-8. consistency-hybrid — in f32 on Jamba's first 3 layers (mamba; mamba +
-   MoE; mamba) with capacity factor 8: decode logits after 1, 8 and 16
-   steps against a fresh prefill within 1e-3 * max|logit|, and each
-   mamba layer's ssm state within 1e-4 relative.
+10. redundancy-hybrid — mirror syncs of one KV line plus the whole
+    recurrent state each, then promotion; tokens equal a control run;
+11. consistency-hybrid — in f32 on Jamba's first 3 layers (mamba; mamba +
+    MoE; mamba) with capacity factor 8: decode logits after 1, 8 and 16
+    steps against a fresh prefill within 1e-3 * max|logit|, and each
+    mamba layer's ssm state within 1e-4 relative.
 
-The starcoder2 weights are freed before the Jamba phases, and the bf16
-Jamba weights before the f32 ones.  TF32 is off for matmuls and cuDNN.
+Each phase group's weights are freed before the next: starcoder2's after
+phases 3-5, 6-7 and 8, the bf16 Jamba weights before the f32 ones.  TF32
+is off for matmuls and cuDNN.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
 """
@@ -261,13 +281,25 @@ def _wall_ms(torch, fn):
 def _device_profile(torch, fn):
     """{kernel name: (device ms, launches)} over one call of ``fn``, from
     torch.profiler's CUPTI trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    prof = _profiler()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with prof:
         fn()
         torch.cuda.synchronize()
+    return _kernel_times(prof)
+
+
+def _profiler(cpu=True):
+    """A profiler of the card's kernels; ``cpu`` also records the host's
+    operators (costly to aggregate over a long run)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                   + [ProfilerActivity.CUDA])
+
+
+def _kernel_times(prof):
+    """{kernel name: (device ms, launches)} of a finished profile."""
+    from torch.autograd import DeviceType
     out = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -705,6 +737,346 @@ def _redundancy(phase, engine, prompt, same_slot):
         f"{len(req.output_tokens)} tokens equal the control run")
 
 
+def _record_moves(engine_cls):
+    """Patch ``engine_cls`` to count what its engines move, from each
+    engine's own ledger: the bytes ``LineCosts`` price for the lines each
+    replica's synced mark gained and for the lines each stream installed.
+    Returns (moved, restore)."""
+    moved = {"mirror": 0.0, "stream": 0.0, "mirror_lines": 0,
+             "stream_lines": 0}
+    plain_sync, plain_import = (engine_cls.sync_replica_from,
+                                engine_cls.import_stream)
+
+    def sync(self, src, src_slot, dst_slot, from_line=None, to_line=None):
+        rid = src._rid_at(src_slot)
+        before = self.store.synced_line(rid)
+        out = plain_sync(self, src, src_slot, dst_slot, from_line=from_line,
+                         to_line=to_line)
+        delta = self.store.synced_line(rid) - before
+        moved["mirror"] += self.store.costs.mirror_bytes(delta)
+        moved["mirror_lines"] += delta
+        return out
+
+    def stream(self, slot, chunks, length, last_tok, lines, req,
+               as_replica_of=None):
+        plain_import(self, slot, chunks, length, last_tok, lines, req,
+                     as_replica_of=as_replica_of)
+        got = self.store.lines(req.rid)
+        moved["stream"] += self.store.costs.bytes_at(got)
+        moved["stream_lines"] += got
+
+    def restore():
+        engine_cls.sync_replica_from = plain_sync
+        engine_cls.import_stream = plain_import
+
+    engine_cls.sync_replica_from = sync
+    engine_cls.import_stream = stream
+    return moved, restore
+
+
+#: scheduling steps of the cluster phase's serve that the profiler covers
+CLUSTER_WINDOW = (40, 90)
+
+
+def _step_clock(torch, cluster_cls, window, prof=None):
+    """Patch ``cluster_cls.step`` to record each scheduling step's host
+    start, end and iterations, synchronising the card at the edges of
+    ``window`` (first step, end step) and profiling the steps inside it
+    with ``prof``; returns (marks, restore)."""
+    plain = cluster_cls.step
+    marks = []
+
+    def step(self):
+        i = len(marks)
+        if i == window[0]:
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.start()
+        it0 = self.n_iterations
+        t0 = time.perf_counter()
+        plain(self)
+        if i == window[1] - 1:
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.stop()
+        marks.append((t0, time.perf_counter(), self.n_iterations - it0))
+
+    def restore():
+        cluster_cls.step = plain
+
+    cluster_cls.step = step
+    return marks, restore
+
+
+def _watch_offsets(attention_mod):
+    """Patch the model's prefill-kernel entry to count the calls that
+    resume a chunk (``q_offset > 0``); returns (counter, restore)."""
+    plain = attention_mod.flash_attention_cuda
+    calls = {"q_offset>0": 0}
+
+    def watched(q, k, v, **kw):
+        if kw.get("q_offset", 0) > 0:
+            calls["q_offset>0"] += 1
+        return plain(q, k, v, **kw)
+
+    def restore():
+        attention_mod.flash_attention_cuda = plain
+
+    attention_mod.flash_attention_cuda = watched
+    return calls, restore
+
+
+def _light(duration):
+    """The paper's Table 2 "light" traffic (prompts and decodes 20-500
+    tokens) as Poisson arrivals at 0.1 per iteration over ``duration``
+    iterations."""
+    from repro_torch.workloads import Poisson, TableLengths, WorkloadSpec
+    return WorkloadSpec(arrival=Poisson(rate=0.1, duration=duration),
+                        lengths=TableLengths("light"), name="light")
+
+
+def _cluster_spec(**kw):
+    from repro_torch.api import ServeSpec
+    base = dict(arch="starcoder2-3b", reduced=False, policy="accellm",
+                n_instances=2, num_slots=8, kv_capacity=1024, block_lines=16,
+                fuse_decode_steps=8, seed=0, device="cuda", max_steps=5000)
+    base.update(kw)
+    return ServeSpec(**base)
+
+
+def phase_cluster(torch, np):
+    """Phases 6-7: full-width starcoder2-3b in bf16 served by ``api.serve``
+    through a two-instance AcceLLM cluster, then through a sarathi cluster
+    that resumes prompts chunk by chunk; returns each phase's kernel
+    counts."""
+    from repro_torch.api import ServeReport, build_cluster, serve
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.scheduling import LiveCluster
+    from repro_torch.serving import InstanceEngine
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import sampling as sampling_mod
+
+    # -- 6. cluster ----------------------------------------------------------------
+    spec = _cluster_spec(traffic=_light(120.0))
+    n_req = len(list(spec.traffic.source(seed=spec.seed)))
+    log(f"cluster: {spec.arch} full width, bf16, policy {spec.policy}, "
+        f"{spec.n_instances} instances x {spec.num_slots} slots, window "
+        f"{spec.kv_capacity}, {spec.block_lines}-line blocks, fuse "
+        f"{spec.fuse_decode_steps}; traffic {spec.traffic.describe()}: "
+        f"{n_req} requests")
+    finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
+    marks, unclock = _step_clock(torch, LiveCluster, CLUSTER_WINDOW)
+    moved, unrecord = _record_moves(InstanceEngine)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    report = serve(spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"cluster": read_counts()}
+    unrecord()
+    unclock()
+    restore()
+    cluster = report.cluster
+    params = cluster.engines[0].params
+    n_it = cluster.n_iterations
+    log("cluster: report:\n" + report.describe())
+    log(f"cluster: serve wall {wall:.3f} s (weights drawn inside), {n_it} "
+        f"iterations in {len(marks)} scheduling steps, "
+        f"{wall * 1e3 / max(1, n_it):.3f} ms per iteration, "
+        f"sched_us_per_iter {report.sched_us_per_iter:.1f}; launches "
+        f"{counts['cluster']}")
+    check(report.all_finished, f"cluster: not every request finished: "
+          f"{report.describe()}")
+    check(report.n_submitted == n_req, f"cluster: {report.n_submitted} of "
+          f"{n_req} requests submitted")
+    check(all(len(r.output_tokens) == r.max_new_tokens
+              for r in report.finished),
+          "cluster: a request ended short of its max_new_tokens")
+    check(bool(torch.stack(finite).all()), "cluster: non-finite logits")
+    st = report.stats
+    check(st["mirror_syncs"] > 0, "cluster: no mirror sync")
+    check(st["rebalances"] + st["replica_promotions"] > 0,
+          "cluster: no rebalance or promotion")
+    for key in ("mirror", "stream"):
+        check(st[f"{key}_bytes"] == moved[key],
+              f"cluster: stats {key}_bytes {st[f'{key}_bytes']} != "
+              f"{moved[key]} priced by LineCosts over "
+              f"{moved[key + '_lines']} lines")
+    log(f"cluster: mirror_bytes {st['mirror_bytes']:.0f} = LineCosts over "
+        f"{moved['mirror_lines']} mirrored lines; stream_bytes "
+        f"{st['stream_bytes']:.0f} = LineCosts over {moved['stream_lines']} "
+        f"streamed lines")
+    _check_path_counts(counts["cluster"],
+                       ("flash_attention", "paged_decode_attention"),
+                       "cluster")
+
+    # the serve's first steps again on the same weights (T=0: the same
+    # decisions), the card's kernels profiled over the window
+    lo, hi = CLUSTER_WINDOW
+    check(len(marks) >= hi, f"cluster: {len(marks)} scheduling steps, fewer "
+          f"than the profiled window's end {hi}")
+    again = build_cluster(spec, params=params)
+    prof = _profiler(cpu=False)
+    marks2, unclock = _step_clock(torch, LiveCluster, CLUSTER_WINDOW, prof)
+    again.run(max_steps=hi,
+              source=spec.traffic.source(seed=spec.seed, cfg=again.cfg))
+    torch.cuda.synchronize()
+    unclock()
+    window_it = sum(m[2] for m in marks[lo:hi])
+    check(again.n_iterations == sum(m[2] for m in marks[:hi])
+          and sum(m[2] for m in marks2[lo:hi]) == window_it,
+          "cluster: the rerun's iterations differ from the serve's")
+    window_ms = (marks[hi - 1][1] - marks[lo][0]) * 1e3
+    profiled_ms = (marks2[hi - 1][1] - marks2[lo][0]) * 1e3
+    t0 = time.perf_counter()
+    b = _breakdown(window_ms, _kernel_times(prof), top=8)
+    log(f"cluster: profile aggregated in {time.perf_counter() - t0:.1f} s")
+    log(f"cluster: scheduling steps {lo}-{hi - 1} ({window_it} iterations) "
+        f"took {window_ms:.1f} ms in the serve, "
+        f"{window_ms / max(1, window_it):.3f} ms per iteration; "
+        f"{profiled_ms:.1f} ms profiled in a rerun of the serve's first {hi} "
+        f"steps")
+    _print_breakdown({f"steps {lo}-{hi - 1}": b}, "cluster")
+    del again, cluster, report, prof
+
+    # -- 7. cluster-chunked --------------------------------------------------------
+    spec = _cluster_spec(policy="sarathi", policy_kwargs={"chunk_tokens": 128},
+                         traffic=_light(60.0))
+    n_req = len(list(spec.traffic.source(seed=spec.seed)))
+    chunked = build_cluster(spec, params=params)
+    chunked.planner.trace = []
+    offsets, restore = _watch_offsets(attention_mod)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    finished = chunked.run(max_steps=spec.max_steps, source=spec.traffic.source(
+        seed=spec.seed, cfg=chunked.cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["cluster-chunked"] = read_counts()
+    restore()
+    report = ServeReport(spec=spec, cluster=chunked, finished=finished,
+                         n_submitted=len(chunked._submitted))
+    resumed = [it for e in chunked.planner.trace
+               if e[0] in ("prefill", "mixed")
+               for it in e[2][0 if e[0] == "mixed" else slice(None)]
+               if it[1] > 0]
+    log("cluster-chunked: sarathi, chunk_tokens 128; report:\n"
+        + report.describe())
+    log(f"cluster-chunked: serve wall {wall:.3f} s, {chunked.n_iterations} "
+        f"iterations, {wall * 1e3 / max(1, chunked.n_iterations):.3f} ms per "
+        f"iteration; {len(resumed)} resumed chunks (start > 0); prefill "
+        f"kernel launches at q_offset > 0: {offsets['q_offset>0']}; "
+        f"launches {counts['cluster-chunked']}")
+    check(report.all_finished and len(finished) == n_req,
+          f"cluster-chunked: not every request finished: {report.describe()}")
+    check(resumed, "cluster-chunked: no chunk resumed past its start")
+    check(offsets["q_offset>0"] > 0,
+          "cluster-chunked: the prefill kernel never ran at q_offset > 0")
+    _check_path_counts(counts["cluster-chunked"],
+                       ("flash_attention", "paged_decode_attention"),
+                       "cluster-chunked")
+    del chunked, report, params
+    return counts
+
+
+def _top2_gap(logits):
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1]), float(logits.abs().max())
+
+
+def phase_cluster_consistency(torch, np):
+    """Phase 8, f32 at full width, T=0: a 500-token prompt's final chunk
+    through a sarathi cluster against the whole-prompt prefill, and six
+    prompts through the accellm cluster against one engine."""
+    from repro_torch.api import serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, init_state, prefill
+    from repro_torch.serving import InstanceEngine, Request
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import sampling as sampling_mod
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                         device="cuda")
+    rng = np.random.default_rng(5)
+    rng_tokens = [rng.integers(0, cfg.vocab_size, (1, 500), dtype=np.int32)
+                  for _ in range(7)]
+
+    def request(i, plen, new):
+        return Request(prompt_len=plen, max_new_tokens=new, rid=i,
+                       prompt_tokens=rng_tokens[i][:, :plen])
+    seen = []
+    plain_sample = sampling_mod.sample_slots
+
+    def recording(logits, *a, **kw):
+        seen.append(logits.detach().clone())
+        return plain_sample(logits, *a, **kw)
+
+    sampling_mod.sample_slots = engine_mod.sample_slots = recording
+    try:
+        # the final chunk's logits against the whole prompt's
+        spec = _cluster_spec(policy="sarathi",
+                             policy_kwargs={"chunk_tokens": 128},
+                             fuse_decode_steps=1)
+        rep = serve(spec, requests=[request(6, 500, 2)], cfg=cfg,
+                    params=params)
+        check(rep.all_finished, "cluster-consistency: the chunked request "
+              "did not finish")
+        chunk_logits = seen[0][0]
+        whole, _ = prefill(cfg, params, {"tokens": torch.as_tensor(
+            rng_tokens[6], device="cuda")}, init_state(cfg, 1, 512,
+                                                       device="cuda"))
+        err = max_err(chunk_logits, whole[0])
+        scale = float(whole.abs().max())
+        log(f"cluster-consistency: 500-token prompt in chunks of 128 (final "
+            f"chunk at q_offset 384): max |chunked - whole| {err:.3e}, max "
+            f"|logit| {scale:.3f}, ratio {err / scale:.3e} (limit 1e-3)")
+        check(err <= 1e-3 * scale, f"cluster-consistency: final chunk logits "
+              f"differ by {err} against max logit {scale}")
+
+        # six prompts: the accellm cluster against one engine
+        shapes = [(100, 16), (200, 12), (300, 16), (150, 10), (250, 14),
+                  (400, 12)]
+        creqs = [request(i, p, n) for i, (p, n) in enumerate(shapes)]
+        rep = serve(_cluster_spec(fuse_decode_steps=1), requests=creqs,
+                    cfg=cfg, params=params)
+        check(rep.all_finished, "cluster-consistency: the cluster run did "
+              "not finish")
+        eng = InstanceEngine(cfg, params, num_slots=2, kv_capacity=1024,
+                             block_lines=16, device="cuda")
+        near, faults = [], []
+        for i, (p, n) in enumerate(shapes):
+            r = request(i, p, n)
+            del seen[:]
+            eng.prefill_request(r)
+            while eng.slot_req:
+                eng.decode()
+            rows = [x[0] for x in seen]
+            for j, (a, b) in enumerate(zip(creqs[i].output_tokens,
+                                           r.output_tokens)):
+                if a == b:
+                    continue
+                gap, top = _top2_gap(rows[j])
+                (near if gap < 1e-4 * top else faults).append(
+                    (i, j, a, b, gap, top))
+                break
+        for i, j, a, b, gap, top in near + faults:
+            log(f"cluster-consistency: request {i} step {j}: cluster token "
+                f"{a}, engine token {b}; engine top-2 gap {gap:.3e} of max "
+                f"|logit| {top:.3f} ({'near-tie' if gap < 1e-4 * top else 'FAULT'})")
+        check(not faults, f"cluster-consistency: tokens differ beyond a "
+              f"near-tie: {faults}")
+        log(f"cluster-consistency: {len(shapes)} requests, cluster (stats "
+            f"{rep.stats}) against one engine: tokens equal"
+            + (f" up to {len(near)} near-ties" if near else "")
+            + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        sampling_mod.sample_slots = engine_mod.sample_slots = plain_sample
+
+
 def _depth_cut(cfg, n, **kw):
     return dataclasses.replace(cfg, num_layers=n,
                                block_pattern=cfg.block_pattern[:n], **kw)
@@ -715,7 +1087,7 @@ def _weight_bytes(params):
 
 
 def phase_hybrid(torch, dev, np):
-    """Phases 6-7 on Jamba-1.5-Large at full width, depth cut to its first
+    """Phases 9-10 on Jamba-1.5-Large at full width, depth cut to its first
     5 layers, in bf16; returns the serve phase's kernel counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts, reset_counts
@@ -723,7 +1095,7 @@ def phase_hybrid(torch, dev, np):
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
 
-    # -- 6. serve-hybrid ---------------------------------------------------------
+    # -- 9. serve-hybrid ---------------------------------------------------------
     cfg = _depth_cut(get_config("jamba-1.5-large-398b"), 5)
     mc, moe = cfg.mamba, cfg.moe
     t0 = time.perf_counter()
@@ -810,14 +1182,14 @@ def phase_hybrid(torch, dev, np):
     del e
     _print_breakdown(breakdown, "serve-hybrid")
 
-    # -- 7. redundancy-hybrid ----------------------------------------------------
+    # -- 10. redundancy-hybrid ---------------------------------------------------
     _redundancy("redundancy-hybrid", engine, rng.integers(
         0, cfg.vocab_size, (1, 300), dtype=np.int32), same_slot=True)
     return counts
 
 
 def phase_consistency_hybrid(torch, dev, np):
-    """Phase 8: f32 decode against a fresh prefill on Jamba's first 3
+    """Phase 11: f32 decode against a fresh prefill on Jamba's first 3
     layers (mamba; mamba + MoE; mamba) at full width, capacity factor 8
     (= experts / top-k, so no token drops)."""
     from repro_torch.configs import get_config
@@ -923,10 +1295,18 @@ def main() -> int:
     # -- 3-5. starcoder2-3b: serve, consistency, redundancy -----------------------
     paths = {"serve": phase_dense(torch, dev, np)}
     _free(torch)
-    # -- 6-7. Jamba, depth-cut, bf16: serve-hybrid, redundancy-hybrid -------------
+    # -- 6-8. starcoder2-3b behind api.serve: cluster, cluster-chunked,
+    # cluster-consistency ----------------------------------------------------------
+    t0 = time.perf_counter()
+    paths.update(phase_cluster(torch, np))
+    _free(torch)
+    phase_cluster_consistency(torch, np)
+    _free(torch)
+    log(f"chip_smoke: cluster phases {time.perf_counter() - t0:.1f} s")
+    # -- 9-10. Jamba, depth-cut, bf16: serve-hybrid, redundancy-hybrid ------------
     paths["serve-hybrid"] = phase_hybrid(torch, dev, np)
     _free(torch)
-    # -- 8. consistency-hybrid (f32) ---------------------------------------------
+    # -- 11. consistency-hybrid (f32) --------------------------------------------
     phase_consistency_hybrid(torch, dev, np)
     _free(torch)
 

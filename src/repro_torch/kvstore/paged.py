@@ -23,7 +23,7 @@ per step, not O(kv_capacity).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,8 +87,19 @@ class PagedStore:
         return state["layers"][i][pj][key]
 
     # -- capacity ------------------------------------------------------------
+    @property
+    def capacity_bytes(self) -> float:
+        """Accounting capacity: every slot filled to the cache window."""
+        return self.num_slots * self.costs.bytes_at(self.kv_capacity)
+
     def used_bytes(self) -> float:
         return self.ledger.used_bytes()
+
+    def used_bytes_of(self, rid: int) -> float:
+        return self.ledger.used_bytes_of(rid)
+
+    def free_bytes(self) -> float:
+        return self.capacity_bytes - self.ledger.used_bytes()
 
     def free_blocks(self) -> int:
         return self.ledger.free_blocks()
@@ -208,6 +219,31 @@ class PagedStore:
             if h > l:
                 dst[:, slot, l:h] = src[:, src_slot, l:h]
 
+    # -- per-layer streamed transfer -------------------------------------------
+    def stream_slot(self, slot: int) -> Iterator[Tuple[tuple, torch.Tensor]]:
+        """Yield ``slot``'s state one layer-part leaf at a time, the chunk
+        granularity a transfer can overlap with prefill compute.  Each
+        chunk is a view of the store's leaf: install it (which copies)
+        before the store writes the slot again."""
+        for path in self._paths:
+            yield path[:3], self._leaf(self.state, path)[:, slot: slot + 1]
+
+    def import_chunk(self, slot: int, path: tuple, chunk: torch.Tensor):
+        """Install one streamed chunk into ``slot`` (a copy, on this
+        store's device).  The encoder memory and the mesh hop of the JAX
+        package wait for the encoder-decoder and mesh slices."""
+        if path[0] == "enc_out":
+            raise NotImplementedError(
+                "encoder memory waits for the encoder-decoder slice of the "
+                "port")
+        i, pj, key = path
+        dst = self.state["layers"][i][pj][key]
+        if chunk.device != dst.device:
+            raise NotImplementedError(
+                f"a chunk on {chunk.device} for a store on {dst.device}: "
+                f"cross-device streaming waits for the mesh slice of the port")
+        dst[:, slot] = chunk[:, 0]
+
     # -- delta line copy (the mirror) ------------------------------------------
     def copy_lines(self, src: "PagedStore", src_slot: int, dst_slot: int,
                    from_line: int, to_line: int) -> float:
@@ -220,14 +256,22 @@ class PagedStore:
         lo, hi = max(0, from_line - 1), max(0, to_line - 1)
         for path in self._paths:
             dst = self._leaf(self.state, path)
+            src_leaf = self._leaf(src.state, path)
             if path[3] == "recurrent":
-                dst[:, dst_slot] = self._leaf(src.state, path)[:, src_slot]
+                dst[:, dst_slot] = src_leaf[:, src_slot]
                 continue
-            if hi <= lo:
-                continue
-            cap = dst.shape[2]
-            pos = torch.tensor([p % cap for p in range(lo, hi)],
-                               dtype=torch.long, device=dst.device)
-            dst[:, dst_slot, pos] = \
-                self._leaf(src.state, path)[:, src_slot, pos]
+            for a, b in _ring_spans(lo, hi, dst.shape[2]):
+                dst[:, dst_slot, a:b] = src_leaf[:, src_slot, a:b]
         return self.costs.mirror_bytes(max(0, to_line - from_line))
+
+
+def _ring_spans(lo: int, hi: int, cap: int) -> List[Tuple[int, int]]:
+    """Rows ``[lo, hi)`` of a ring of ``cap`` rows as at most two
+    contiguous ``(start, stop)`` spans (all ``cap`` rows once the range
+    covers the ring), so a copy needs no index tensor."""
+    if hi <= lo:
+        return []
+    if hi - lo >= cap:
+        return [(0, cap)]
+    a, b = lo % cap, hi % cap
+    return [(a, b)] if a < b else [(a, cap)] + ([(0, b)] if b else [])

@@ -3,6 +3,9 @@
 Three execution modes of :func:`gqa_forward`, as in the JAX package:
   * full          — prefill over S tokens through the prefill kernel
                     (:func:`repro_torch.kernels.flash_attention.flash_attention_cuda`);
+                    with ``history > 0`` a chunk resumes a prompt whose
+                    first ``history`` rows are cached, through the same
+                    kernel at ``q_offset = history``;
   * paged decode  — one token per active request; the new K/V line is
                     written into the cache and attention reads back only the
                     request's live line blocks through the paged decode
@@ -107,10 +110,6 @@ def gqa_forward(
     history: int = 0,
     paged: Optional[PagedDecode] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    if history:
-        raise NotImplementedError(
-            "chunked-prefill resume (history > 0) waits for the chunk-resume "
-            "slice of the port")
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -121,7 +120,25 @@ def gqa_forward(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if mode == "full":
+    if mode == "full" and history:
+        # chunked-prefill continuation: this chunk's queries attend to the
+        # cached rows [0, history) (roped at their absolute positions) and
+        # to the chunk itself, through the prefill kernel at q_offset =
+        # history; the chunk's rows land at [t, t + S)
+        if state is None or not causal:
+            raise ValueError("a chunk resume needs a cache and causal "
+                             "attention")
+        k_all = torch.cat([state["k"][:, :history].to(k.dtype), k], dim=1)
+        v_all = torch.cat([state["v"][:, :history].to(v.dtype), v], dim=1)
+        out = flash_attention_cuda(q.contiguous(), k_all, v_all, causal=True,
+                                   scale=scale, window=window,
+                                   q_offset=history)
+        if update_cache:
+            cap = state["k"].shape[1]
+            t0 = t if t is not None else history
+            ring_write(state["k"], k, t0, cap)
+            ring_write(state["v"], v, t0, cap)
+    elif mode == "full":
         out = flash_attention_cuda(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal, scale=scale,
                                    window=window)

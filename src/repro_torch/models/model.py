@@ -6,6 +6,7 @@ Functional API on nested-dict params, mirroring the JAX package's:
   init_state(cfg, batch, seq_len, device)             -> serving state
   prefill(cfg, params, batch, state)                   -> (last_logits, state)
   prefill_batched(cfg, params, tokens, state, lengths) -> (logits, state)
+  prefill_chunk(cfg, params, tokens, state, history)   -> (logits, state)
   decode_step(cfg, params, tokens, state, t)           -> (logits, state)
   decode_step_paged(...)                               -> (logits, state)
   decode_multi(...)                                    -> (tokens, state, emitted)
@@ -139,6 +140,24 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     last = x[torch.arange(B, device=x.device), lengths.long() - 1]
     last = rms_norm(last, params["final_norm"], cfg.rms_norm_eps)
     return _head(cfg, params, last), state
+
+
+def prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, state,
+                  history: int) -> Tuple[torch.Tensor, Any]:
+    """Resumable chunked prefill: process ``tokens`` (B, C) at absolute
+    positions ``[history, history + C)`` against a cache whose first
+    ``history`` rows earlier chunks filled.  Returns logits at the chunk's
+    last token (meaningful on the final chunk) and the extended caches.
+    Attention-only stacks only, as in the JAX package."""
+    C = tokens.shape[1]
+    positions = history + torch.arange(C, device=tokens.device)
+    x = _embed_tokens(params, tokens)
+    ctx = {"mode": "full", "positions": positions, "update_cache": True,
+           "t": history, "window": cfg.sliding_window, "history": history}
+    x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
+                       state["layers"], ctx)
+    x = rms_norm(x[:, -1], params["final_norm"], cfg.rms_norm_eps)
+    return _head(cfg, params, x), state
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,

@@ -9,7 +9,9 @@ One engine = one AcceLLM *instance*.  It owns
   * per-slot clocks (lengths): decode runs with per-request ``t``.
 
 Redundancy primitives used by the AcceLLM core:
-  export_slot / import_slot    — whole per-request state
+  export_slot / import_slot    — whole per-request state; ``export_stream``
+                                 / ``import_stream`` move it one layer
+                                 part at a time (prefill-time streaming)
   sync_replica_from            — the per-decode-step mirror update: ONLY the
                                  new KV lines since the replica's synced
                                  mark move, O(delta), not O(kv_capacity)
@@ -19,13 +21,15 @@ The engine never batches prefill with decode (AcceLLM §4.2.3).  Prefill
 and decode run through the port's CUDA kernels on the card.  Attention-only
 stacks decode paged over the compacted active batch; other stacks (the
 hybrid Mamba+attention stack) prefill one prompt at a time and decode
-dense over all slots, as in the JAX package.  Prefix
-cache, mesh serving, chunked-prefill resume and streamed exports wait for
-later slices of the port and raise ``NotImplementedError``.
+dense over all slots, as in the JAX package.  Attention-only stacks
+resume a prompt chunk by chunk (``prefill_batch`` with chunk items,
+Sarathi's chunked prefill), holding the slot in ``prefilling`` between
+chunks.  The prefix cache and mesh serving wait for later slices of the
+port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.kvstore import KVStoreError, PagedStore
 from repro_torch.models import (decode_multi, decode_step, init_state, prefill,
-                                prefill_batched)
+                                prefill_batched, prefill_chunk)
 from repro_torch.models.state import state_bytes
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.sampling import gumbel_noise, sample_slots
@@ -72,6 +76,11 @@ class InstanceEngine:
         self.slot_req: Dict[int, Request] = {}
         # replica slots: requests whose primary lives on the paired instance
         self.replica_of: Dict[int, Tuple[int, int]] = {}  # slot -> (inst, slot)
+        # slots mid-chunked-prefill: occupied, but not yet decoding
+        self.prefilling: Dict[int, Request] = {}
+        #: the radix prefix cache of the JAX package; it waits for its
+        #: slice of the port, so an engine never has one
+        self.prefix_cache = None
         #: sampling iterations consumed so far: iteration ``i`` draws its
         #: noise from a generator seeded by (seed, instance_id, i)
         self.draws = 0
@@ -93,8 +102,8 @@ class InstanceEngine:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """Whether this engine's stack could resume a prompt mid-chunk
-        (the resume itself waits for a later slice of the port)."""
+        """Whether this engine can resume a prompt mid-chunk (recurrent
+        state continuation across chunks is not implemented)."""
         return self._attn_only
 
     @property
@@ -109,9 +118,11 @@ class InstanceEngine:
 
     # -- capacity ------------------------------------------------------------
     def free_slots(self) -> List[int]:
-        """Slots usable for a fresh admission: unoccupied and with no
-        block of their region still referenced."""
-        used = set(self.slot_req) | set(self.replica_of)
+        """Slots usable for a fresh admission: unoccupied (no primary, no
+        replica, no prompt mid-chunk) and with no block of their region
+        still referenced."""
+        used = (set(self.slot_req) | set(self.replica_of)
+                | set(self.prefilling))
         return [s for s in range(self.num_slots)
                 if s not in used and not self.store.slot_used_blocks(s)]
 
@@ -147,6 +158,19 @@ class InstanceEngine:
 
     def _rid_at(self, slot: int) -> int:
         return self.store.slot_rid[slot]
+
+    # -- prefix cache ----------------------------------------------------------
+    def prefix_stamp(self, req: Request) -> int:
+        """Stamp ``req.prefix_hit`` once, when its prefill is first
+        scheduled.  With no prefix cache the hit is always 0."""
+        if req.prefix_hit is None:
+            req.prefix_hit = 0
+        return req.prefix_hit
+
+    def prefix_abandon(self, req: Request):
+        """The stamped prefill will not run here after all: drop the
+        stamp so the next placement consults its own instance."""
+        req.prefix_hit = None
 
     def _clean_slot(self, slot: int) -> int:
         if self.store.slot_used_blocks(slot):
@@ -194,7 +218,11 @@ class InstanceEngine:
         Whole prompts that fit the bucket run as ONE call, right-padded to
         ``plan.bucket_len`` (batch padded to a power of two as well), with
         scratch state at the bucket length, not ``kv_capacity``.  Longer
-        prompts run the unpadded single-prompt path."""
+        prompts run the unpadded single-prompt path.  Chunk items
+        (``start > 0`` or a partial ``end``) resume through the KV ledger
+        cursor; a stack that cannot resume gets one whole-prompt call at
+        ``start == 0`` instead (the caller sees it completed ahead of its
+        cursor)."""
         extras = extras or {}
         completed: Dict[int, int] = {}
         padded: List[PrefillItem] = []
@@ -204,11 +232,14 @@ class InstanceEngine:
                     "modality extras wait for the encoder-decoder slice of "
                     "the port")
             if not (it.start == 0 and it.completes):
-                raise NotImplementedError(
-                    "chunked-prefill resume waits for the chunk-resume "
-                    "slice of the port")
-            if self._attn_only and it.prompt_len <= min(plan.bucket_len,
-                                                         self.kv_capacity):
+                if not self._attn_only and it.start == 0:
+                    completed[it.rid] = self._prefill_single(it.req)
+                    continue
+                slot = self._prefill_chunk_item(it)
+                if slot is not None:
+                    completed[it.rid] = slot
+            elif self._attn_only and it.prompt_len <= min(plan.bucket_len,
+                                                           self.kv_capacity):
                 padded.append(it)
             else:
                 completed[it.rid] = self._prefill_single(it.req)
@@ -223,7 +254,8 @@ class InstanceEngine:
             raise KVStoreError(f"instance {self.instance_id} has no free slot")
         return self._clean_slot(free[0])
 
-    def _finish_prefill(self, req: Request, slot: int, tok: int):
+    def _finish_prefill(self, req: Request, slot: int, tok: int,
+                        ledgered: bool = False):
         self.lengths[slot] = req.prompt_len
         self.last_tokens[slot] = tok
         self.slot_req[slot] = req
@@ -231,7 +263,10 @@ class InstanceEngine:
         req.generated += 1
         req.output_tokens.append(tok)
         # ledger: prompt lines + the reserved line for the sampled token
-        self.store.alloc(req.rid, slot, lines=req.total_len)
+        if ledgered:
+            self.store.set_lines(req.rid, req.total_len)
+        else:
+            self.store.alloc(req.rid, slot, lines=req.total_len)
 
     def _prefill_single(self, req: Request) -> int:
         """Unpadded single-prompt path (prompts beyond the bucket, and
@@ -282,6 +317,51 @@ class InstanceEngine:
             self._finish_prefill(it.req, slot, int(next_toks[i]))
             out[it.rid] = slot
         return out
+
+    def _prefill_chunk_item(self, it: PrefillItem) -> Optional[int]:
+        """One resumable chunk of a prompt; returns the slot when the
+        final chunk completes the prefill, else None."""
+        req = it.req
+        if not self._attn_only:
+            raise NotImplementedError(
+                "chunked prefill needs an attention-only decoder stack "
+                "(recurrent state continuation across chunks is not "
+                "implemented)")
+        if req.prompt_len > self.kv_capacity:
+            raise NotImplementedError(
+                f"chunked prefill of a {req.prompt_len}-token prompt "
+                f"would wrap the {self.kv_capacity}-line cache window")
+        if req.rid not in self.store.rid_slot:
+            # first chunk: admit the request with an empty ledger entry
+            if req.prefix_hit:
+                raise NotImplementedError(
+                    "a prefix-cache hit waits for the prefix-cache slice "
+                    "of the port")
+            slot = self._take_slot()
+            self.prefilling[slot] = req
+            req.phase = Phase.PREFILL
+            self.store.alloc(req.rid, slot, lines=0)
+        else:
+            slot = self.store.rid_slot[req.rid]
+            if self.prefilling.get(slot) is not req:
+                raise KVStoreError(f"rid {req.rid} holds slot {slot} but is "
+                                   f"not mid-chunk there")
+        toks = self._tokens(req)[:, it.start:it.end].to(self.device)
+        sub = self.store.extract_slot(slot)
+        logits, sub = prefill_chunk(self.cfg, self.params, toks, sub,
+                                    history=it.start)
+        self.store.merge_slot_rows(slot, sub, it.start, it.end)
+        if not it.completes:
+            # cursor over the KV ledger: lines materialized so far.  A
+            # dense decode step this iteration writes a garbage row at the
+            # cursor for this slot; the next chunk overwrites it.
+            self.store.set_lines(req.rid, it.end)
+            self.lengths[slot] = it.end
+            return None
+        del self.prefilling[slot]
+        tok = int(self._sample(logits, np.asarray([slot], np.int32))[0])
+        self._finish_prefill(req, slot, tok, ledgered=True)
+        return slot
 
     # -- decode ----------------------------------------------------------------
     def decode(self) -> Dict[int, int]:
@@ -404,6 +484,7 @@ class InstanceEngine:
         pool."""
         self.slot_req.pop(slot, None)
         self.replica_of.pop(slot, None)
+        self.prefilling.pop(slot, None)
         freed = self.store.free_slot(slot)
         self.lengths[slot] = 0
         self.last_tokens[slot] = 0
@@ -418,16 +499,12 @@ class InstanceEngine:
                 self.store.lines(self._rid_at(slot)))
 
     def export_stream(self, slot: int):
-        raise NotImplementedError(
-            "per-layer streamed export waits for the cluster slice of the "
-            "port")
-
-    def import_stream(self, slot: int, chunks, length: int, last_tok: int,
-                      lines: int, req: Request,
-                      as_replica_of: Optional[Tuple[int, int]] = None):
-        raise NotImplementedError(
-            "per-layer streamed import waits for the cluster slice of the "
-            "port")
+        """Per-layer streamed export: ``(chunk_iter, length, last_token,
+        lines)``.  The chunks are views of this store's leaves: install
+        them before this engine runs again."""
+        return (self.store.stream_slot(slot), int(self.lengths[slot]),
+                int(self.last_tokens[slot]),
+                self.store.lines(self._rid_at(slot)))
 
     def import_slot(self, slot: int, exported, req: Request,
                     as_replica_of: Optional[Tuple[int, int]] = None):
@@ -435,6 +512,20 @@ class InstanceEngine:
         self._clean_slot(slot)
         self.store.alloc(req.rid, slot, lines=lines)
         self.store.merge_slot(slot, sub_state)
+        self._install(slot, length, last_tok, req, as_replica_of)
+
+    def import_stream(self, slot: int, chunks: Iterable, length: int,
+                      last_tok: int, lines: int, req: Request,
+                      as_replica_of: Optional[Tuple[int, int]] = None):
+        """Install a per-layer streamed export chunk by chunk."""
+        self._clean_slot(slot)
+        self.store.alloc(req.rid, slot, lines=lines)
+        for path, chunk in chunks:
+            self.store.import_chunk(slot, path, chunk)
+        self._install(slot, length, last_tok, req, as_replica_of)
+
+    def _install(self, slot: int, length: int, last_tok: int, req: Request,
+                 as_replica_of: Optional[Tuple[int, int]]):
         self.lengths[slot] = length
         self.last_tokens[slot] = last_tok
         if as_replica_of is not None:

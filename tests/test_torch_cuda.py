@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and two paths through them against the CPU: the model's chunk path at
+``q_offset > 0`` and a two-instance AcceLLM cluster (equal tokens and stats).
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode).  This file imports neither JAX nor the JAX package, so it
@@ -247,3 +249,72 @@ def test_scan_kernel_empty_sequence_returns_h0_on_card(C, N):
     torch.cuda.synchronize()
     assert tuple(y.shape) == (2, 0, C)
     assert torch.equal(h, args[-1]) and h.data_ptr() != args[-1].data_ptr()
+
+
+def _reduced_starcoder():
+    """The reduced starcoder2-3b in f32 with one set of random weights on
+    the CPU and the same weights on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("starcoder2-3b").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to("cuda")
+
+    return cfg, cpu, to_card(cpu)
+
+
+@pytest.mark.cuda
+def test_prefill_chunk_on_card_matches_cpu():
+    """The model's chunk path at q_offset > 0 through the prefill kernel:
+    logits of every chunk within 1e-4 of the CPU's plain version."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import init_state, prefill_chunk
+    cfg, p_cpu, p_card = _reduced_starcoder()
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 45), dtype=np.int32))
+    st = {d: init_state(cfg, 1, 64, device=d) for d in ("cpu", "cuda")}
+    reset_counts()
+    for lo, hi in ((0, 16), (16, 32), (32, 45)):
+        lc, st["cpu"] = prefill_chunk(cfg, p_cpu, toks[:, lo:hi], st["cpu"],
+                                      history=lo)
+        lg, st["cuda"] = prefill_chunk(cfg, p_card, toks[:, lo:hi].cuda(),
+                                       st["cuda"], history=lo)
+        torch.cuda.synchronize()
+        assert float((lg.cpu() - lc).abs().max()) <= 1e-4, (lo, hi)
+    assert read_counts()["flash_attention"]["launches"] == \
+        3 * cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_cluster_on_card_matches_cpu():
+    """A 2-instance accellm cluster on the card serves the same requests
+    as on the CPU: equal tokens and stats."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.scheduling import LiveCluster
+    from repro_torch.serving import Request
+    cfg, p_cpu, p_card = _reduced_starcoder()
+    shapes = [(8, 4), (12, 6), (6, 5), (10, 3), (7, 6), (9, 4)]
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_card)):
+        cluster = LiveCluster(cfg, params, 2, 8, 256, "accellm", device=dev)
+        reqs = [Request(prompt_len=p, max_new_tokens=n, rid=i,
+                        prompt_tokens=np.random.default_rng(i).integers(
+                            0, cfg.vocab_size, (1, p), dtype=np.int32))
+                for i, (p, n) in enumerate(shapes)]
+        for r in reqs:
+            cluster.submit(r)
+        cluster.run(max_steps=200)
+        out[dev] = ([r.output_tokens for r in reqs], dict(cluster.stats))
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][1]["mirror_syncs"] > 0

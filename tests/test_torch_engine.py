@@ -311,10 +311,18 @@ def test_later_slices_raise(setup):
     with pytest.raises(NotImplementedError):
         _engine(cfg, params, mesh=object())
     eng = _engine(cfg, params)
-    req = _mk(cfg, 0, 12)
-    chunk = PrefillPlan(0, (PrefillItem(req.rid, 12, 0, 8, req=req),), 16)
+    # chunk resume and streamed exports run since the cluster slice; a
+    # chunk of a prompt that would wrap the 16-line window, a prefix-cache
+    # hit and a streamed encoder memory still wait for later slices
+    req = _mk(cfg, 0, 20)
+    chunk = PrefillPlan(0, (PrefillItem(req.rid, 20, 0, 8, req=req),), 16)
+    with pytest.raises(NotImplementedError):
+        eng.prefill_batch(chunk)
+    hit = _mk(cfg, 2, 12)
+    hit.prefix_hit = 8
+    chunk = PrefillPlan(0, (PrefillItem(hit.rid, 12, 8, 12, req=hit),), 16)
     with pytest.raises(NotImplementedError):
         eng.prefill_batch(chunk)
     slot = eng.prefill_request(_mk(cfg, 1, 5))
     with pytest.raises(NotImplementedError):
-        eng.export_stream(slot)
+        eng.store.import_chunk(slot, ("enc_out",), None)
