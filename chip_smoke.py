@@ -3,8 +3,8 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs eleven phases, each
-of which exits non-zero on failure:
+port's kernels from ``src/repro_torch/csrc``, and runs fourteen phases,
+each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
 2. kernels — each CUDA kernel against its plain PyTorch version at the
@@ -19,7 +19,9 @@ of which exits non-zero on failure:
    boundary; the selective scan in f32 (1e-4 relative) at d_in 16384
    for S = 512, a ragged S = 300 and S = 1, at a ragged C with N 8 and
    16 at B 2, and S = 0 (h_final equals h0); its bound counts its
-   exponentials at the SFU rate;
+   exponentials at the SFU rate; prefill and paged decode attention are
+   also checked and timed at minicpm-2b's served shape (36/36 heads, hd
+   64: G = 1);
 3. serve — full-width starcoder2-3b in bf16 (random weights from a seed)
    behind one ``InstanceEngine``: six greedy requests admitted by
    ``prefill_batch`` and decoded by ``decode_multi(steps=8)``; every
@@ -45,29 +47,51 @@ of which exits non-zero on failure:
 7. cluster-chunked — the same model and traffic shape, ~6 requests, under
    sarathi with 128-token chunks: chunks must resume past their prompt's
    start and the prefill kernel must launch at ``q_offset > 0``;
-8. cluster-consistency — in f32 at full width, T=0: a 500-token prompt's
+8. cluster-fleet — the cluster phase's stream on its weights, first three
+   times with no kill (the wall ms per iteration that sim-calibration and
+   the kill runs are set beside, all timed on weights already drawn), then
+   with instance 1 killed at iteration 60 and rejoined at 90, under
+   accellm and under vllm, each beside a CPU rehearsal at reduced width:
+   fleet stats, fleet trace, plan trace and iterations must equal the
+   rehearsal's; accellm must absorb the kill by promotions (no re-queue,
+   no re-prefilled token) and warm the rejoin, vllm must re-queue and
+   re-prefill (the prefill kernel launching once per layer per prefill
+   plan); every request's tokens must equal the cluster serve's, unless
+   the two tokens' f32 logits lie within the bf16 error measured on that
+   row (printed); wall ms per iteration beside TTFT/TBT/JCT;
+9. cluster-consistency — in f32 at full width, T=0: a 500-token prompt's
    final chunk (sarathi, 128-token chunks) against the whole-prompt
    prefill within 1e-3 * max|logit|, and six prompts through the accellm
    cluster against one engine: equal tokens, unless the engine's top-2
    logit gap at the differing step is under 1e-4 * max|logit| (printed);
-9. serve-hybrid — Jamba-1.5-Large at full width, depth cut to its first
-   5 layers (4 mamba, MoE on 1 and 3, attention at 4; ~48 GB in bf16):
-   six greedy requests (prompts 100 to 1000, 32 tokens each) through
-   ``prefill_batch`` (one prompt at a time) and ``decode_multi(steps=8)``
-   (dense decode over all 8 slots); every request must finish, every
-   logit be finite, the scan, prefill and dense decode kernels must have
-   launched and no plain version run; decode ms per step and a profiled
-   breakdown;
-10. redundancy-hybrid — mirror syncs of one KV line plus the whole
+10. serve-minicpm — minicpm-2b at full width in bf16 (MHA at head dim
+    64, tied embeddings, residual and logit scales; ~5.4 GB): the serve
+    phase's six requests, the prefill and paged kernels only at 36/36
+    heads, hd 64, no plain call; its f32 decode-vs-prefill check as in
+    phase 4;
+11. sim-calibration — on the host: the port's simulator on the cluster
+    phase's stream with one modeled H100 per instance, its decode
+    dispatch set to the serve phase's decode ms per step at 8 active and
+    to 0; modeled TTFT/TBT/JCT beside the measured ones of each no-kill
+    run of phase 8;
+12. serve-hybrid — Jamba-1.5-Large at full width, depth cut to its first
+    5 layers (4 mamba, MoE on 1 and 3, attention at 4; ~48 GB in bf16):
+    six greedy requests (prompts 100 to 1000, 32 tokens each) through
+    ``prefill_batch`` (one prompt at a time) and ``decode_multi(steps=8)``
+    (dense decode over all 8 slots); every request must finish, every
+    logit be finite, the scan, prefill and dense decode kernels must have
+    launched and no plain version run; decode ms per step and a profiled
+    breakdown;
+13. redundancy-hybrid — mirror syncs of one KV line plus the whole
     recurrent state each, then promotion; tokens equal a control run;
-11. consistency-hybrid — in f32 on Jamba's first 3 layers (mamba; mamba +
+14. consistency-hybrid — in f32 on Jamba's first 3 layers (mamba; mamba +
     MoE; mamba) with capacity factor 8: decode logits after 1, 8 and 16
     steps against a fresh prefill within 1e-3 * max|logit|, and each
     mamba layer's ssm state within 1e-4 relative.
 
 Each phase group's weights are freed before the next: starcoder2's after
-phases 3-5, 6-7 and 8, the bf16 Jamba weights before the f32 ones.  TF32
-is off for matmuls and cuDNN.
+phases 3-5, 6-8 and 9, minicpm-2b's after 10, the bf16 Jamba weights
+before the f32 ones.  TF32 is off for matmuls and cuDNN.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
 """
@@ -86,6 +110,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SFU_OPS_PER_CLOCK_PER_SM = 16  # exp2 and the like, compute capability 9.0
+#: the measured and derived numbers of a kernel's record
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 class SmokeFailure(RuntimeError):
@@ -147,6 +173,8 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
         (2, 48, 128, 24, 2, 128, 32, 80,
          "chunk resume: 48 rows at offset 80, 128 keys, window 32"),
         (2, 300, 300, 24, 2, 128, None, 0, "Sq = 300, no multiple of 128"),
+        (8, 512, 512, 36, 36, 64, None, 0,
+         "minicpm-2b: bucket 512, batch 8, MHA (G 1) at hd 64"),
     ]
     flash_err = 0.0
     for B, Sq, Skv, H, KVH, hd, window, q_offset, what in flash_cases:
@@ -167,21 +195,28 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
             check(err <= tol[dtype], f"flash_attention {what} {dtype}: "
                   f"error {err} above {tol[dtype]}")
             flash_err = max(flash_err, err)
-    B, S, H, KVH, hd = 8, 512, 24, 2, 128
-    q, k, v = (randn((B, S, H, hd), torch.bfloat16),
-               randn((B, S, KVH, hd), torch.bfloat16),
-               randn((B, S, KVH, hd), torch.bfloat16))
-    f_ms = time_ms(lambda: flash_mod.flash_attention_cuda(
-        q, k, v, causal=True, window=4096), 20, flush)
-    f_plain = time_ms(lambda: flash_mod.flash_attention_torch(
-        q, k, v, causal=True, window=4096), 5, flush)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    f_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
-    pairs = S * (S + 1) // 2                     # window 4096 > S hides none
-    f_flops = 4 * B * H * hd * pairs
-    f_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
-    f_bound, f_by = _bound(f_bytes, f_flops, "bfloat16")
+
+    def time_flash(B, S, H, KVH, hd, window):
+        q, k, v = (randn((B, S, H, hd), torch.bfloat16),
+                   randn((B, S, KVH, hd), torch.bfloat16),
+                   randn((B, S, KVH, hd), torch.bfloat16))
+        ms = time_ms(lambda: flash_mod.flash_attention_cuda(
+            q, k, v, causal=True, window=window), 20, flush)
+        plain = time_ms(lambda: flash_mod.flash_attention_torch(
+            q, k, v, causal=True, window=window), 5, flush)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
+        pairs = S * (S + 1) // 2          # window None or > S hides none
+        bound, by = _bound(2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd),
+                           4 * B * H * hd * pairs, "bfloat16")
+        return {"shape": f"q {B}x{S}x{H}x{hd}, kv {KVH} heads, causal, bf16",
+                "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by, "library_ms": lib}
+
+    f_main = time_flash(8, 512, 24, 2, 128, 4096)
+    # minicpm-2b's served prefill: MHA (G = 1) at head dim 64, no window
+    f_hd64 = time_flash(8, 512, 36, 36, 64, None)
 
     # -- paged decode attention ----------------------------------------------
     # (lengths as a function of the case's span of lines per split, H, KVH,
@@ -196,6 +231,8 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
         (lambda s: [0, 1, 17, 255, 511, 600], 24, 2, 128, 16,
          "out-of-pool entries, length past the table"),
         (lambda s: [3, 40, 129], 4, 1, 64, 16, "hd 64 (reduced config)"),
+        (lambda s: [116, 144, 216, 272, 400, 512], 36, 36, 64, 16,
+         "minicpm-2b: 6 requests mid-decode, MHA (G 1) at hd 64"),
         (lambda s: [s], 24, 2, 128, 16, "B 1, G 12, length on the span edge"),
         (lambda s: [s + 1], 24, 2, 128, 32,
          "B 1, G 12, 32-line blocks, one past the span edge"),
@@ -239,33 +276,38 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
                     check(float(out[b].abs().max()) == 0.0,
                           "paged_decode_attention: a length-0 row must give 0")
             paged_err = max(paged_err, err)
-    lengths = paged_cases[0][0](0)
-    mb = W // 16
-    args = paged_inputs(lengths, 24, 2, 128, 16, torch.bfloat16)
-    p_ms = time_ms(lambda: paged_mod.paged_decode_attention_cuda(*args), 50,
-                   flush)
-    p_plain = time_ms(lambda: paged_mod.paged_decode_attention_torch(*args),
-                      20, flush)
-    Bp = len(lengths)
-    p_bytes = (2 * (2 * Bp * 24 * 128)              # q in, out
-               + 2 * 2 * sum(lengths) * 2 * 128     # live K and V lines
-               + 4 * Bp * mb + 4 * Bp)              # tables, lengths
-    p_flops = 4 * 24 * 128 * sum(lengths)
-    p_bound, p_by = _bound(p_bytes, p_flops, "bfloat16")
+
+    def time_paged(H, KVH, hd):
+        lengths = paged_cases[0][0](0)
+        args = paged_inputs(lengths, H, KVH, hd, 16, torch.bfloat16)
+        ms = time_ms(lambda: paged_mod.paged_decode_attention_cuda(*args), 50,
+                     flush)
+        plain = time_ms(lambda: paged_mod.paged_decode_attention_torch(*args),
+                        20, flush)
+        Bp, mb = len(lengths), W // 16
+        nbytes = (2 * (2 * Bp * H * hd)               # q in, out
+                  + 2 * 2 * sum(lengths) * KVH * hd   # live K and V lines
+                  + 4 * Bp * mb + 4 * Bp)             # tables, lengths
+        bound, by = _bound(nbytes, 4 * H * hd * sum(lengths), "bfloat16")
+        return {"shape": f"{Bp} requests, lengths {lengths}, {H}/{KVH} "
+                         f"heads, hd {hd}, bf16, 16-line blocks",
+                "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by, "library_ms": None}
+
+    p_main = time_paged(24, 2, 128)
+    p_hd64 = time_paged(36, 36, 64)
 
     records = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:119",
-         "launches": 0, "max_abs_err": flash_err, "ms": f_ms,
-         "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
-         "library_ms": f_lib},
+         "launches": 0, "max_abs_err": flash_err,
+         **{k: f_main[k] for k in TIMING_KEYS}, "hd64": f_hd64},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:233",
-         "launches": 0, "max_abs_err": paged_err, "ms": p_ms,
-         "plain_ms": p_plain, "bound_ms": p_bound, "bound_by": p_by,
-         "library_ms": None},
+         "launches": 0, "max_abs_err": paged_err,
+         **{k: p_main[k] for k in TIMING_KEYS}, "hd64": p_hd64},
     ]
     return records
 
@@ -484,11 +526,15 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
 
 def _log_records(records, lib_name):
     for r in records:
-        lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms ({lib_name})")
-        log(f"kernels: {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), library {lib}")
+        for what, t in (("", r), (" at minicpm-2b's hd 64", r.get("hd64"))):
+            if t is None:
+                continue
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f} ms ({lib_name})")
+            log(f"kernels: {r['name']}{what}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), library {lib}"
+                + (f"; {t['shape']}" if what else ""))
 
 
 def _watch_logits(torch, sampling_mod, engine_mod):
@@ -530,25 +576,18 @@ def _check_path_counts(counts, path_kernels, phase):
               f"{c['plain_calls']} times on the main path")
 
 
-def phase_dense(torch, dev, np):
-    """Phases 3-5 on full-width starcoder2-3b; returns the serve phase's
-    kernel counts."""
-    from repro_torch.configs import get_config
+def _serve_six(torch, np, cfg, params, dev, phase):
+    """Six greedy requests (prompts 100 to 500, 32 tokens each) behind one
+    8-slot engine with a 512-line window: bucketed ``prefill_batch``,
+    ``decode_multi(steps=8)`` and the ring wrap; every request must finish,
+    every logit be finite, the prefill and paged decode kernels must
+    launch and no plain version run.  Then decode ms per step at 1, 4 and
+    8 active.  Returns (counts, per_step, (rng, request, engine, admit))."""
     from repro_torch.kernels import read_counts, reset_counts
-    from repro_torch.models import (decode_step_paged, init_params,
-                                    init_state, prefill)
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
-
-    # -- 3. serve ----------------------------------------------------------------
-    cfg = get_config("starcoder2-3b")
-    log(f"serve: {cfg.name} full width: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, hd "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-        f"{cfg.dtype}")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    rng, request, engine, admit = _serving(cfg, params, dev, np, 0, 512)
+    helpers = _serving(cfg, params, dev, np, 0, 512)
+    _, request, engine, admit = helpers
 
     finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
     prompts = [100, 128, 200, 256, 384, 500]
@@ -576,11 +615,11 @@ def phase_dense(torch, dev, np):
     counts = read_counts()
     restore()
     check(all(len(r.output_tokens) == 32 for r in reqs),
-          f"serve: output lengths {[len(r.output_tokens) for r in reqs]}")
-    check(bool(torch.stack(finite).all()), "serve: non-finite logits")
+          f"{phase}: output lengths {[len(r.output_tokens) for r in reqs]}")
+    check(bool(torch.stack(finite).all()), f"{phase}: non-finite logits")
     _check_path_counts(counts, ("flash_attention", "paged_decode_attention"),
-                       "serve")
-    log(f"serve: 6 requests x 32 tokens done; prefill {sum(prompts)} tokens "
+                       phase)
+    log(f"{phase}: 6 requests x 32 tokens done; prefill {sum(prompts)} tokens "
         f"in {prefill_s * 1e3:.1f} ms = "
         f"{sum(prompts) / prefill_s:.0f} tokens/s; {decode_steps} "
         f"decode steps in {decode_s * 1e3:.1f} ms; host_syncs "
@@ -596,10 +635,65 @@ def phase_dense(torch, dev, np):
         e.decode_multi(steps=8)
         e.decode_multi(steps=8)
         per_step[n] = (time.perf_counter() - t0) / 16 * 1e3
-        check(e.batch_size == n, f"serve: {n}-slot timing lost a request")
+        check(e.batch_size == n, f"{phase}: {n}-slot timing lost a request")
         del e
-    log("serve: decode ms per step (256-token prompts, steps=8): "
+    log(f"{phase}: decode ms per step (256-token prompts, steps=8): "
         + ", ".join(f"{n} active {v:.3f}" for n, v in per_step.items()))
+    return counts, per_step, helpers
+
+
+def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase):
+    """In f32: 16 greedy decode steps through the paged kernel after a
+    200-token prompt, the logits after steps 1, 8 and 16 against a fresh
+    prefill (through the prefill kernel) over the prompt plus the
+    generated tokens, within 1e-3 * max|logit|."""
+    from repro_torch.models import decode_step_paged, init_state, prefill
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    log(f"{phase}: f32 weights {_weight_bytes(params32) / 1e9:.3f} GB")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
+                                          dtype=np.int32), device=dev)
+    state = init_state(cfg32, 1, 256, device=dev)
+    logits, state = prefill(cfg32, params32, {"tokens": prompt}, state)
+    tables = torch.arange(256 // 16, dtype=torch.int32, device=dev)[None]
+    slots = torch.zeros((1,), dtype=torch.int32, device=dev)
+    gen_toks, dec_logits = [], {}
+    for step in range(1, 17):
+        tok = logits.argmax(-1).to(torch.int32)
+        gen_toks.append(tok)
+        t = torch.full((1,), 200 + step - 1, dtype=torch.int32, device=dev)
+        logits, state = decode_step_paged(cfg32, params32, tok[:, None], state,
+                                          t, slots, tables, 16)
+        if step in (1, 8, 16):
+            dec_logits[step] = logits
+    for step, dl in dec_logits.items():
+        toks = torch.cat([prompt, torch.stack(gen_toks[:step], dim=1)], dim=1)
+        fresh = init_state(cfg32, 1, 256, device=dev)
+        pl, _ = prefill(cfg32, params32, {"tokens": toks}, fresh)
+        err = max_err(dl, pl)
+        scale = float(pl.abs().max())
+        log(f"{phase}: step {step}: max |decode - prefill| {err:.3e}, "
+            f"max |logit| {scale:.3f}, ratio {err / scale:.3e} (limit 1e-3)")
+        check(err <= 1e-3 * scale, f"{phase}: step {step} differs by "
+              f"{err} against max logit {scale}")
+
+
+def phase_dense(torch, dev, np):
+    """Phases 3-5 on full-width starcoder2-3b; returns the serve phase's
+    kernel counts and its decode ms per step by active slots."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    # -- 3. serve ----------------------------------------------------------------
+    cfg = get_config("starcoder2-3b")
+    log(f"serve: {cfg.name} full width: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, hd "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    counts, per_step, (rng, request, engine, admit) = _serve_six(
+        torch, np, cfg, params, dev, "serve")
 
     # where the time goes: one 8 x 256 prefill plan, then one fused decode
     # plan (steps=8) over those 8 requests; host wall clock unprofiled,
@@ -624,39 +718,12 @@ def phase_dense(torch, dev, np):
     _print_breakdown(breakdown, "serve")
 
     # -- 4. consistency (f32, full width) ----------------------------------------
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = _tree_map(lambda t: t.float(), params)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
-                                          dtype=np.int32), device=dev)
-    state = init_state(cfg32, 1, 256, device=dev)
-    logits, state = prefill(cfg32, params32, {"tokens": prompt}, state)
-    tables = torch.arange(256 // 16, dtype=torch.int32, device=dev)[None]
-    slots = torch.zeros((1,), dtype=torch.int32, device=dev)
-    gen_toks, dec_logits = [], {}
-    for step in range(1, 17):
-        tok = logits.argmax(-1).to(torch.int32)
-        gen_toks.append(tok)
-        t = torch.full((1,), 200 + step - 1, dtype=torch.int32, device=dev)
-        logits, state = decode_step_paged(cfg32, params32, tok[:, None], state,
-                                          t, slots, tables, 16)
-        if step in (1, 8, 16):
-            dec_logits[step] = logits
-    for step, dl in dec_logits.items():
-        toks = torch.cat([prompt, torch.stack(gen_toks[:step], dim=1)], dim=1)
-        fresh = init_state(cfg32, 1, 256, device=dev)
-        pl, _ = prefill(cfg32, params32, {"tokens": toks}, fresh)
-        err = max_err(dl, pl)
-        scale = float(pl.abs().max())
-        log(f"consistency: step {step}: max |decode - prefill| {err:.3e}, "
-            f"max |logit| {scale:.3f}, ratio {err / scale:.3e} (limit 1e-3)")
-        check(err <= 1e-3 * scale, f"consistency: step {step} differs by "
-              f"{err} against max logit {scale}")
-    del params32, state
+    _decode_vs_prefill(torch, np, cfg, params, dev, rng, "consistency")
 
     # -- 5. redundancy -----------------------------------------------------------
     _redundancy("redundancy", engine, rng.integers(
         0, cfg.vocab_size, (1, 300), dtype=np.int32), same_slot=False)
-    return counts
+    return counts, per_step
 
 
 def _serving(cfg, params, dev, np, seed, kv_capacity):
@@ -845,10 +912,11 @@ def _cluster_spec(**kw):
 
 
 def phase_cluster(torch, np):
-    """Phases 6-7: full-width starcoder2-3b in bf16 served by ``api.serve``
+    """Phases 6-8: full-width starcoder2-3b in bf16 served by ``api.serve``
     through a two-instance AcceLLM cluster, then through a sarathi cluster
-    that resumes prompts chunk by chunk; returns each phase's kernel
-    counts."""
+    that resumes prompts chunk by chunk, then the first stream again with
+    a mid-serve kill and a rejoin; returns each phase's kernel counts and
+    the first serve's measurements."""
     from repro_torch.api import ServeReport, build_cluster, serve
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.models import attention as attention_mod
@@ -881,6 +949,11 @@ def phase_cluster(torch, np):
     cluster = report.cluster
     params = cluster.engines[0].params
     n_it = cluster.n_iterations
+    # what the later phases hold their runs against: the no-kill tokens
+    # and iterations (cluster-fleet, which adds the timed no-kill runs that
+    # sim-calibration reads)
+    measured = {"spec": spec, "requests": list(cluster._submitted),
+                "iterations": n_it}
     log("cluster: report:\n" + report.describe())
     log(f"cluster: serve wall {wall:.3f} s (weights drawn inside), {n_it} "
         f"iterations in {len(marks)} scheduling steps, "
@@ -978,8 +1051,408 @@ def phase_cluster(torch, np):
     _check_path_counts(counts["cluster-chunked"],
                        ("flash_attention", "paged_decode_attention"),
                        "cluster-chunked")
-    del chunked, report, params
+    del chunked, report
+
+    # -- 8. cluster-fleet ------------------------------------------------------------
+    counts.update(phase_cluster_fleet(torch, params, measured))
+    del params
+    return counts, measured
+
+
+#: cluster-fleet: the kill of instance 1 and its rejoin, in iterations.  A
+#: CPU rehearsal of the stream at reduced width put the kill where
+#: instance 1 holds two mirrored primaries (instance 0 two more) and the
+#: rejoin where instance 0 still holds four requests, so it is warmed.
+FLEET_KILL, FLEET_JOIN = 60.0, 90.0
+#: cluster-fleet: timed serves of the stream with no kill
+NO_KILL_RUNS = 3
+
+
+def _fleet_spec(policy, kill=True, **kw):
+    from repro_torch.fleet import FixedFleet, JoinInstance, KillInstance
+    fleet = (FixedFleet((KillInstance(FLEET_KILL, 1),
+                         JoinInstance(FLEET_JOIN, 1))) if kill else None)
+    return _cluster_spec(policy=policy, traffic=_light(120.0), fleet=fleet,
+                         **kw)
+
+
+def _serve_traced(spec, params=None):
+    """``api.serve`` with the planner's plan trace on."""
+    from repro_torch.api import ServeReport, build_cluster
+    cluster = build_cluster(spec, params=params)
+    cluster.planner.trace = []
+    finished = cluster.run(max_steps=spec.max_steps, source=spec.traffic.source(
+        seed=spec.seed, cfg=cluster.cfg))
+    return ServeReport(spec=spec, cluster=cluster, finished=finished,
+                       n_submitted=len(cluster._submitted))
+
+
+def _prefill_plans(trace):
+    """Plans with a prefill part: each launches the prefill kernel once per
+    layer (whole prompts of a plan run as one padded batch)."""
+    return sum(1 for e in trace if e[0] in ("prefill", "mixed"))
+
+
+def _latency_line(report, ms_per_it):
+    """TTFT p50/p99, TBT mean/worst and JCT p50/p99, in iterations and in
+    ms at ``ms_per_it``."""
+    import numpy as np
+    vals = {"TTFT p50": np.percentile(report.ttfts(), 50),
+            "TTFT p99": np.percentile(report.ttfts(), 99),
+            "TBT mean": report.tbts().mean(), "TBT worst": report.tbts().max(),
+            "JCT p50": np.percentile(report.jcts(), 50),
+            "JCT p99": np.percentile(report.jcts(), 99)}
+    return "; ".join(f"{k} {v:.2f} it = {v * ms_per_it:.1f} ms"
+                     for k, v in vals.items())
+
+
+def _rows16_32(cfg, params, params32, window, tokens):
+    """One fresh prefill over ``tokens`` (1, S) in bf16 and one with the
+    same weights upcast to f32: the last position's logits of each, f32."""
+    from repro_torch.models import init_state, prefill
+    dev = tokens.device
+    rows = []
+    for c, p in ((cfg, params),
+                 (dataclasses.replace(cfg, dtype="float32"), params32)):
+        logits, _ = prefill(c, p, {"tokens": tokens},
+                            init_state(c, 1, window, device=dev))
+        rows.append(logits[0].float())
+        del logits
+    return rows
+
+
+def _tie_limit(row16, row32):
+    """Two tokens whose f32 logits lie closer than this may come out in
+    either order from a bf16 run: each logit of the row moved by at most
+    max|bf16 - f32| in this reading, so their gap by at most twice it."""
+    return 2.0 * float((row16 - row32).abs().max())
+
+
+def _tokens_against(torch, cfg, params, params32, window, reference,
+                    requests, phase):
+    """Each request's tokens against the same request's in ``reference``
+    (rid -> Request), at T = 0.  Where they first differ, the prompt and
+    the common tokens go through one fresh prefill in bf16 and one in f32:
+    the pair is a near-tie (printed) when its f32 gap is within
+    :func:`_tie_limit` of that row, and a fault otherwise."""
+    dev = _leaves(params)[0].device
+    near, faults = [], []
+    for r in requests:
+        ref = reference[r.rid]
+        check(bool((ref.prompt_tokens == r.prompt_tokens).all()),
+              f"{phase}: request {r.rid}'s prompt differs from the reference")
+        j = next((j for j, (a, b) in enumerate(zip(r.output_tokens,
+                                                  ref.output_tokens))
+                  if a != b), None)
+        if j is None:
+            continue
+        toks = torch.as_tensor(r.prompt_tokens, device=dev)
+        if j:
+            toks = torch.cat([toks, torch.tensor([r.output_tokens[:j]],
+                                                 dtype=toks.dtype,
+                                                 device=dev)], dim=1)
+        row16, row32 = _rows16_32(cfg, params, params32, window, toks)
+        a, b = int(r.output_tokens[j]), int(ref.output_tokens[j])
+        gap, limit = abs(float(row32[a] - row32[b])), _tie_limit(row16, row32)
+        (near if gap <= limit else faults).append((r.rid, j, a, b, gap,
+                                                   limit))
+    for rid, j, a, b, gap, limit in near + faults:
+        log(f"{phase}: request {rid} step {j}: token {a}, reference {b}; "
+            f"f32 gap {gap:.3e}, bf16 limit on this row {limit:.3e} "
+            f"({'near-tie' if gap <= limit else 'FAULT'})")
+    check(not faults, f"{phase}: tokens differ beyond a near-tie: {faults}")
+    return near
+
+
+def _tie_limits(torch, cfg, params, params32, window, requests, phase):
+    """The near-tie limit read on each request's first token: the served
+    token's f32 logit must be within the row's limit of the f32 maximum,
+    and the row's lowest token beyond it (the limit separates a wrong
+    token from a tie).  Prints each row's limit and f32 top-2 gap."""
+    dev = _leaves(params)[0].device
+    lines = []
+    for r in requests:
+        row16, row32 = _rows16_32(
+            cfg, params, params32, window,
+            torch.as_tensor(r.prompt_tokens, device=dev))
+        limit, top = _tie_limit(row16, row32), float(row32.max())
+        top2 = row32.topk(2).values
+        served = top - float(row32[int(r.output_tokens[0])])
+        check(served <= limit, f"{phase}: request {r.rid}'s first token lies "
+              f"{served:.3e} below the f32 maximum, beyond the limit "
+              f"{limit:.3e}")
+        check(top - float(row32.min()) > limit, f"{phase}: request {r.rid}'s "
+              f"limit {limit:.3e} does not separate the lowest token")
+        lines.append(f"{r.rid}: limit {limit:.3e}, top-2 gap "
+                     f"{float(top2[0] - top2[1]):.3e}, max |logit| "
+                     f"{float(row32.abs().max()):.3f}")
+    log(f"{phase}: bf16 near-tie limit (2 x max |bf16 - f32| over the row) "
+        f"and f32 top-2 gap at each request's first token: "
+        + "; ".join(lines))
+
+
+def phase_cluster_fleet(torch, params, measured):
+    """Phase 8: the cluster phase's stream on the same weights,
+    ``NO_KILL_RUNS`` times with no kill (their wall ms per iteration go
+    into ``measured["ms_per_iteration"]``), then with instance 1 killed at
+    ``FLEET_KILL`` and rejoined at ``FLEET_JOIN``, under accellm and under
+    vllm; returns the kernel counts of the no-kill runs and of each kill
+    run."""
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import sampling as sampling_mod
+    t_phase = time.perf_counter()
+    reference = {r.rid: r for r in measured["requests"]}
+    params32 = _tree_map(lambda t: t.float(), params)
+    counts = {}
+
+    # the stream with no kill, timed on weights already drawn, as the kill
+    # runs below are
+    phase = "cluster-fleet no-kill"
+    spec = _fleet_spec("accellm", kill=False)
+    measured["ms_per_iteration"] = []
+    served = []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(NO_KILL_RUNS):
+        t0 = time.perf_counter()
+        report = _serve_traced(spec, params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_it = report.cluster.n_iterations
+        ms_per_it = wall * 1e3 / max(1, n_it)
+        measured["ms_per_iteration"].append(ms_per_it)
+        log(f"{phase} run {i + 1}: serve wall {wall:.3f} s, {n_it} "
+            f"iterations, {ms_per_it:.3f} ms per iteration; "
+            + _latency_line(report, ms_per_it))
+        check(report.all_finished and n_it == measured["iterations"],
+              f"{phase} run {i + 1}: {n_it} iterations against the cluster "
+              f"serve's {measured['iterations']}: {report.describe()}")
+        cfg = report.cluster.cfg
+        served.append(report.finished)
+        del report
+    counts[phase] = read_counts()
+    _check_path_counts(counts[phase],
+                       ("flash_attention", "paged_decode_attention"), phase)
+    near = [t for finished in served
+            for t in _tokens_against(torch, cfg, params, params32,
+                                     spec.kv_capacity, reference, finished,
+                                     phase)]
+    log(f"{phase}: {NO_KILL_RUNS} runs, tokens equal the cluster serve's"
+        + (f" up to {len(near)} near-ties" if near else "")
+        + f"; launches {counts[phase]}")
+    _tie_limits(torch, cfg, params, params32, spec.kv_capacity,
+                measured["requests"], "cluster-fleet")
+    # the CPU rehearsal at reduced width: the policy's decisions depend on
+    # neither the widths nor the tokens, so the card must repeat them
+    t0 = time.perf_counter()
+    rehearsal = {(policy, kill): _serve_traced(_fleet_spec(
+        policy, kill, reduced=True, device="cpu"))
+        for policy, kill in (("accellm", True), ("vllm", True),
+                             ("vllm", False))}
+    log(f"cluster-fleet: kill instance 1 at iteration {FLEET_KILL:g}, "
+        f"rejoin at {FLEET_JOIN:g}; CPU rehearsal at reduced width in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for policy in ("accellm", "vllm"):
+        phase = f"cluster-fleet {policy}"
+        spec = _fleet_spec(policy)
+        finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        report = _serve_traced(spec, params=params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[phase] = read_counts()
+        restore()
+        cluster, reh = report.cluster, rehearsal[policy, True]
+        n_it, fs = cluster.n_iterations, report.fleet_stats
+        ms_per_it = wall * 1e3 / max(1, n_it)
+        log(f"{phase}: report:\n" + report.describe())
+        log(f"{phase}: serve wall {wall:.3f} s, {n_it} iterations, "
+            f"{ms_per_it:.3f} ms per iteration; "
+            + _latency_line(report, ms_per_it))
+        log(f"{phase}: fleet trace {cluster.fleet.trace}; launches "
+            f"{counts[phase]}")
+        check(report.all_finished and len(report.finished)
+              == len(reference), f"{phase}: not every request finished: "
+              f"{report.describe()}")
+        check(all(len(r.output_tokens) == r.max_new_tokens
+                  for r in report.finished),
+              f"{phase}: a request ended short of its max_new_tokens")
+        check(bool(torch.stack(finite).all()), f"{phase}: non-finite logits")
+        diff = {k: (v, reh.fleet_stats[k]) for k, v in fs.items()
+                if v != reh.fleet_stats[k]}
+        check(not diff, f"{phase}: fleet stats (card, rehearsal) differ: "
+              f"{diff}")
+        check(cluster.fleet.trace == reh.cluster.fleet.trace,
+              f"{phase}: the fleet trace differs from the rehearsal's")
+        check(n_it == reh.cluster.n_iterations
+              and cluster.planner.trace == reh.cluster.planner.trace,
+              f"{phase}: {n_it} iterations and the plan trace against the "
+              f"rehearsal's {reh.cluster.n_iterations}")
+        layers = cluster.cfg.num_layers
+        plans = _prefill_plans(cluster.planner.trace)
+        flash = counts[phase]["flash_attention"]["launches"]
+        check(flash == layers * plans, f"{phase}: {flash} prefill kernel "
+              f"launches for {plans} prefill plans x {layers} layers")
+        if policy == "accellm":
+            check(fs["promotions"] > 0 and fs["requeues"] == 0
+                  and fs["reprefill_tokens"] == 0 and fs["warm_streams"] > 0,
+                  f"{phase}: the kill must be absorbed by promotions and "
+                  f"the rejoin warmed: {fs}")
+        else:
+            base = _prefill_plans(rehearsal["vllm", False].cluster
+                                  .planner.trace)
+            check(fs["requeues"] > 0 and fs["reprefill_tokens"] > 0
+                  and plans > base, f"{phase}: the kill must re-prefill: "
+                  f"{fs}, {plans} prefill plans against {base} with no kill")
+            log(f"{phase}: {fs['requeues']} requests re-prefilled "
+                f"({fs['reprefill_tokens']} prompt tokens) in "
+                f"{plans - base} more prefill plans than with no kill: "
+                f"prefill kernel launches {flash} = {layers} x {plans}, "
+                f"{layers * (plans - base)} more than with no kill")
+        log(f"{phase}: fleet stats equal the rehearsal's: "
+            f"{ {k: v for k, v in fs.items() if v} }")
+        _check_path_counts(counts[phase],
+                           ("flash_attention", "paged_decode_attention"),
+                           phase)
+        near = _tokens_against(torch, cluster.cfg, params, params32,
+                               spec.kv_capacity, reference, report.finished,
+                               phase)
+        log(f"{phase}: {len(report.finished)} requests' tokens equal the "
+            f"no-kill run's" + (f" up to {len(near)} near-ties" if near
+                                else ""))
+        del report, cluster
+    del params32
+    log(f"cluster-fleet: phase {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def _watch_heads(attention_mod):
+    """Patch the model's kernel entries to record each call's (heads, KV
+    heads, head dim); returns (seen, restore)."""
+    plain = {n: getattr(attention_mod, n) for n in (
+        "flash_attention_cuda", "paged_decode_attention_cuda")}
+    seen = {n: set() for n in plain}
+
+    def watch(name):
+        def watched(q, k, *a, **kw):        # k: (..., KV heads, hd)
+            seen[name].add((q.shape[-2], k.shape[-2], q.shape[-1]))
+            return plain[name](q, k, *a, **kw)
+        return watched
+
+    def restore():
+        for n, fn in plain.items():
+            setattr(attention_mod, n, fn)
+
+    for n in plain:
+        setattr(attention_mod, n, watch(n))
+    return seen, restore
+
+
+def phase_minicpm(torch, dev, np):
+    """Phase 10: full-width minicpm-2b in bf16 (MHA at head dim 64, tied
+    embeddings, residual and logit scales) through the serve phase's six
+    requests, then its f32 decode-vs-prefill check; returns the serve's
+    kernel counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import init_params
+    cfg = get_config("minicpm-2b")
+    reckoned = cfg.param_count() * 2
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(6),
+                         device=dev)
+    torch.cuda.synchronize()
+    log(f"serve-minicpm: {cfg.name} full width: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+        f"hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"embeddings {cfg.tie_embeddings}, residual scale "
+        f"{cfg.residual_scale:.4f}, logit scale {cfg.logit_scale:.4f}, "
+        f"{cfg.dtype}; param_count {cfg.param_count()} x 2 bytes = "
+        f"{reckoned / 1e9:.3f} GB reckoned, {_weight_bytes(params) / 1e9:.3f}"
+        f" GB drawn in {time.perf_counter() - t0:.1f} s")
+    heads, restore = _watch_heads(attention_mod)
+    try:
+        counts, _, (rng, _, _, _) = _serve_six(
+            torch, np, cfg, params, dev, "serve-minicpm")
+    finally:
+        restore()
+    want = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    log(f"serve-minicpm: kernel calls at (heads, KV heads, hd): "
+        f"{ {n: sorted(v) for n, v in heads.items()} }")
+    for name, got in heads.items():
+        check(got == {want}, f"serve-minicpm: {name} ran at {sorted(got)}, "
+              f"not only at {want} (G 1, hd 64)")
+    _decode_vs_prefill(torch, np, cfg, params, dev, rng,
+                       "serve-minicpm consistency")
+    return counts
+
+
+def phase_sim_calibration(measured, decode_ms_8):
+    """Phase 11, on the host: the port's simulator on the cluster phase's
+    stream (its WorkloadSpec and seed) with starcoder2-3b on one modeled
+    H100 per instance, its dispatch cost set to the serve phase's decode
+    ms per step at 8 active, and again at 0 (the pure roofline); the
+    modeled TTFT/TBT/JCT beside the measured ones (iterations x the wall
+    ms per iteration of each no-kill run of phase 8).  The stream's arrival
+    at iteration i lands at i x that wall time, so both see the same
+    arrivals in seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.sim import (H100, AcceLLMPolicy, InstanceSpec, PerfModel,
+                                 SimRequest, Simulator, summarize)
+    spec, reqs = measured["spec"], measured["requests"]
+    fields = ("ttft_p50", "ttft_p99", "tbt_mean", "tbt_worst", "jct_p50",
+              "jct_p99")
+    live = summarize(reqs, spec.n_instances, measured["iterations"])
+    models = (("modeled, dispatch = serve decode step", decode_ms_8 / 1e3),
+              ("modeled, dispatch 0 (roofline)", 0.0))
+    log(f"sim-calibration: starcoder2-3b, InstanceSpec(H100, n_devices=1), "
+        f"{spec.n_instances} instances x {spec.num_slots} slots, the cluster "
+        f"phase's stream ({len(reqs)} requests); seconds, for each no-kill "
+        f"run of cluster-fleet:")
+    ratios = {name: {f: [] for f in fields} for name, _ in models}
+    for k, ms_per_it in enumerate(measured["ms_per_iteration"]):
+        s_per_it = ms_per_it / 1e3
+        rows = {"measured": {f: getattr(live, f) * s_per_it for f in fields}}
+        for name, dispatch_s in models:
+            perf = PerfModel(get_config(spec.arch),
+                             InstanceSpec(H100, n_devices=1,
+                                          dispatch_s=dispatch_s))
+            sim = Simulator(AcceLLMPolicy(
+                fuse_decode_steps=spec.fuse_decode_steps), perf,
+                n_instances=spec.n_instances, max_batch=spec.num_slots,
+                block_lines=spec.block_lines)
+            t0 = time.perf_counter()
+            done = sim.run([SimRequest(rid=r.rid, arrival=r.arrival * s_per_it,
+                                       prompt_len=r.prompt_len,
+                                       decode_len=r.max_new_tokens)
+                            for r in spec.traffic.source(seed=spec.seed)])
+            check(len(done) == len(reqs), f"sim-calibration: {name}: "
+                  f"{len(done)} of {len(reqs)} requests finished")
+            summ = summarize(sim.submitted, spec.n_instances, sim.now)
+            rows[name] = {f: getattr(summ, f) for f in fields}
+            log(f"sim-calibration: run {k + 1}: {name}: dispatch_s "
+                f"{dispatch_s:.6f}, {len(done)} requests, modeled "
+                f"{sim.now:.3f} s, simulated in "
+                f"{time.perf_counter() - t0:.2f} s")
+        log(f"sim-calibration: run {k + 1} (arrivals at iteration x "
+            f"{ms_per_it:.3f} ms):")
+        for name, row in rows.items():
+            ratio = ""
+            if name != "measured":
+                for f in fields:
+                    ratios[name][f].append(row[f] / rows["measured"][f])
+                ratio = "; modeled / measured " + ", ".join(
+                    f"{f} {ratios[name][f][-1]:.3f}" for f in fields)
+            log(f"sim-calibration: run {k + 1}: {name}: "
+                + ", ".join(f"{f} {row[f]:.4f}" for f in fields) + ratio)
+    for name, by_field in ratios.items():
+        log(f"sim-calibration: {name}: modeled / measured over "
+            f"{len(measured['ms_per_iteration'])} runs, min-max: "
+            + ", ".join(f"{f} {min(v):.3f}-{max(v):.3f}"
+                        for f, v in by_field.items()))
 
 
 def _top2_gap(logits):
@@ -988,7 +1461,7 @@ def _top2_gap(logits):
 
 
 def phase_cluster_consistency(torch, np):
-    """Phase 8, f32 at full width, T=0: a 500-token prompt's final chunk
+    """Phase 9, f32 at full width, T=0: a 500-token prompt's final chunk
     through a sarathi cluster against the whole-prompt prefill, and six
     prompts through the accellm cluster against one engine."""
     from repro_torch.api import serve
@@ -1087,7 +1560,7 @@ def _weight_bytes(params):
 
 
 def phase_hybrid(torch, dev, np):
-    """Phases 9-10 on Jamba-1.5-Large at full width, depth cut to its first
+    """Phases 12-13 on Jamba-1.5-Large at full width, depth cut to its first
     5 layers, in bf16; returns the serve phase's kernel counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts, reset_counts
@@ -1095,7 +1568,7 @@ def phase_hybrid(torch, dev, np):
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
 
-    # -- 9. serve-hybrid ---------------------------------------------------------
+    # -- 12. serve-hybrid ---------------------------------------------------------
     cfg = _depth_cut(get_config("jamba-1.5-large-398b"), 5)
     mc, moe = cfg.mamba, cfg.moe
     t0 = time.perf_counter()
@@ -1182,14 +1655,14 @@ def phase_hybrid(torch, dev, np):
     del e
     _print_breakdown(breakdown, "serve-hybrid")
 
-    # -- 10. redundancy-hybrid ---------------------------------------------------
+    # -- 13. redundancy-hybrid ---------------------------------------------------
     _redundancy("redundancy-hybrid", engine, rng.integers(
         0, cfg.vocab_size, (1, 300), dtype=np.int32), same_slot=True)
     return counts
 
 
 def phase_consistency_hybrid(torch, dev, np):
-    """Phase 11: f32 decode against a fresh prefill on Jamba's first 3
+    """Phase 14: f32 decode against a fresh prefill on Jamba's first 3
     layers (mamba; mamba + MoE; mamba) at full width, capacity factor 8
     (= experts / top-k, so no token drops)."""
     from repro_torch.configs import get_config
@@ -1293,20 +1766,27 @@ def main() -> int:
     log("kernels: " + json.dumps([r["name"] for r in kernels]))
 
     # -- 3-5. starcoder2-3b: serve, consistency, redundancy -----------------------
-    paths = {"serve": phase_dense(torch, dev, np)}
+    counts, per_step = phase_dense(torch, dev, np)
+    paths = {"serve": counts}
     _free(torch)
-    # -- 6-8. starcoder2-3b behind api.serve: cluster, cluster-chunked,
-    # cluster-consistency ----------------------------------------------------------
+    # -- 6-9. starcoder2-3b behind api.serve: cluster, cluster-chunked,
+    # cluster-fleet, cluster-consistency -------------------------------------------
     t0 = time.perf_counter()
-    paths.update(phase_cluster(torch, np))
+    counts, measured = phase_cluster(torch, np)
+    paths.update(counts)
     _free(torch)
     phase_cluster_consistency(torch, np)
     _free(torch)
     log(f"chip_smoke: cluster phases {time.perf_counter() - t0:.1f} s")
-    # -- 9-10. Jamba, depth-cut, bf16: serve-hybrid, redundancy-hybrid ------------
+    # -- 10. serve-minicpm -------------------------------------------------------
+    paths["serve-minicpm"] = phase_minicpm(torch, dev, np)
+    _free(torch)
+    # -- 11. sim-calibration (host only) ------------------------------------------
+    phase_sim_calibration(measured, per_step[8])
+    # -- 12-13. Jamba, depth-cut, bf16: serve-hybrid, redundancy-hybrid -----------
     paths["serve-hybrid"] = phase_hybrid(torch, dev, np)
     _free(torch)
-    # -- 11. consistency-hybrid (f32) --------------------------------------------
+    # -- 14. consistency-hybrid (f32) --------------------------------------------
     phase_consistency_hybrid(torch, dev, np)
     _free(torch)
 

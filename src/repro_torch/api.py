@@ -12,9 +12,10 @@ scheduling iterations, alongside SLO attainment and goodput when the
 spec carries an :class:`repro_torch.workloads.SLO`.
 
 The cluster runs on the card unless the spec asks for another device
-(``device="cpu"``).  Fleet schedules, mesh placement and the prefix
-cache wait for their slices of the port and raise
-``NotImplementedError``.
+(``device="cpu"``).  A fleet schedule (``repro_torch.fleet``) injects
+kills, joins, drains and stragglers on the iteration clock.  Mesh
+placement and the prefix cache wait for their slices of the port and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.fleet import FleetController, FleetSchedule
 from repro_torch.models import init_params
 from repro_torch.scheduling.live import LiveCluster
 from repro_torch.scheduling.registry import get_policy, policy_accepts
@@ -77,9 +79,10 @@ class ServeSpec:
     traffic: Optional[WorkloadSpec] = None
     #: latency targets in iterations; enables attainment/goodput reporting
     slo: Optional[SLO] = None
-    #: fleet fault-injection schedule (the JAX package's repro.fleet);
-    #: waits for the fleet slice of the port
-    fleet: Optional[object] = None
+    #: fleet fault-injection schedule (repro_torch.fleet): kills / joins /
+    #: drains applied between scheduler iterations on the iteration
+    #: clock; the same schedule drives the simulator in modeled seconds
+    fleet: Optional[FleetSchedule] = None
     #: tensor-parallel width per instance (the JAX package's
     #: repro.meshserve); waits for the mesh slice of the port
     mesh_tp: Optional[int] = None
@@ -120,9 +123,9 @@ class ServeReport:
 
     @property
     def fleet_stats(self) -> Optional[Dict[str, int]]:
-        """Failover/scale counters; None, since fleet events wait for the
-        fleet slice of the port."""
-        return None
+        """Failover/scale counters from the run's FleetController (None
+        when no fleet event fired)."""
+        return self.cluster.fleet.stats if self.cluster.fleet else None
 
     @property
     def all_finished(self) -> bool:
@@ -224,6 +227,9 @@ class ServeReport:
                 f"decode={util['decode']:.1%} idle={util['idle']:.1%}; "
                 f"queue depth mean={qd['mean']:.1f} peak={qd['peak']:.0f}")
         lines.append(f"stats: {self.stats}")
+        if self.fleet_stats is not None:
+            fs = {k: v for k, v in self.fleet_stats.items() if v}
+            lines.append(f"fleet: {fs or 'no events fired'}")
         return "\n".join(lines)
 
 
@@ -231,9 +237,6 @@ def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
     """Resolve config, params and policy, and return a ready cluster.
     Without ``params`` the weights are drawn by ``init_params`` from a
     ``torch.Generator`` seeded by ``spec.seed`` on ``spec.device``."""
-    if spec.fleet is not None:
-        raise NotImplementedError(
-            "fleet schedules wait for the fleet slice of the port")
     if spec.mesh_tp is not None or spec.mesh_specs is not None:
         raise NotImplementedError(
             "mesh placement waits for the mesh slice of the port")
@@ -255,12 +258,15 @@ def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
     if policy_accepts(spec.policy, "hedging"):
         kwargs.setdefault("hedging", spec.hedging)
     policy = get_policy(spec.policy, **kwargs)
+    fleet = (FleetController(spec.fleet, seed=spec.seed)
+             if spec.fleet is not None else None)
     return LiveCluster(cfg, params, spec.n_instances, spec.num_slots,
                        spec.kv_capacity, policy,
                        temperature=spec.temperature,
                        eos_token=spec.eos_token,
                        block_lines=spec.block_lines,
                        fuse_decode_steps=spec.fuse_decode_steps,
+                       fleet=fleet,
                        timeline_stride=spec.timeline_stride,
                        max_queue=spec.max_queue,
                        shed_deadline=spec.shed_deadline,

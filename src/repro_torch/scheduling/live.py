@@ -12,16 +12,17 @@ shares the one ``params`` tree.
 The clock is the scheduling iteration (one decode step per active
 instance per iteration); latency metrics are reported in iterations.
 
-The fleet paths (kills, joins, drains, degradation), mesh placement and
-the prefix cache wait for their slices of the port: their arguments and
-methods raise ``NotImplementedError``.
+Fleet events (kills, joins, drains, degradation; ``repro_torch.fleet``)
+apply between scheduling iterations.  Mesh placement and the prefix
+cache wait for their slices of the port: their arguments raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Union
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device
@@ -38,7 +39,8 @@ from repro_torch.stepplan import (Planner, PrefillPlan, decode_part,
 from repro_torch.workloads import IterationClock, TimelinePoint
 from repro_torch.workloads.spec import RequestSource
 
-FLEET_SLICE = "the fleet slice of the port"
+if TYPE_CHECKING:             # runtime import stays lazy: repro_torch.fleet
+    from repro_torch.fleet import FleetController  # imports this package
 
 
 @dataclass
@@ -200,13 +202,11 @@ class LiveCluster:
                  block_lines: Optional[int] = None,
                  fuse_decode_steps: int = 1,
                  prefix_cache: bool = False,
-                 fleet=None, mesh=None, timeline_stride: int = 1,
+                 fleet: Optional["FleetController"] = None,
+                 mesh=None, timeline_stride: int = 1,
                  max_queue: Optional[int] = None,
                  shed_deadline: Optional[float] = None,
                  device: Device = "cuda"):
-        if fleet is not None:
-            raise NotImplementedError(
-                f"fleet schedules wait for {FLEET_SLICE}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh placement waits for the mesh slice of the port")
@@ -223,20 +223,26 @@ class LiveCluster:
                 f"{n_instances} instances (need an even count)")
         self.cfg = cfg
         self.policy = policy
+        self._params = params
+        # join events build replacement engines with the original shape,
+        # on the cluster's device
+        self._engine_kwargs = dict(
+            num_slots=num_slots, kv_capacity=kv_capacity,
+            temperature=temperature, eos_token=eos_token,
+            block_lines=block_lines, device=device)
         self.engines = [
-            InstanceEngine(cfg, params, num_slots, kv_capacity,
-                           instance_id=i, temperature=temperature,
-                           eos_token=eos_token, block_lines=block_lines,
-                           device=device)
+            InstanceEngine(cfg, params, instance_id=i, **self._engine_kwargs)
             for i in range(n_instances)
         ]
-        #: fleet state per instance index, as the policy views expose it:
-        #: every instance stays alive, undrained and at nominal speed
-        #: until the fleet slice of the port can change that
+        #: fleet state per instance index (repro_torch.fleet); dead
+        #: engines stay in the list so indices remain stable
         self.alive: List[bool] = [True] * n_instances
         self.draining: List[bool] = [False] * n_instances
-        #: modeled compute slowdown factor (1.0 = nominal)
+        #: partial-failure state (repro_torch.fleet DegradeInstance):
+        #: modeled compute slowdown factor (1.0 = nominal) and link
+        #: slowdown for transfers touching this instance
         self.degrade: List[float] = [1.0] * n_instances
+        self.link_degrade: List[float] = [1.0] * n_instances
         #: health EWMA the policy views expose — THE shared arithmetic
         #: (repro_torch.scheduling.views.step_health), updated once per
         #: scheduling iteration for every alive instance, as in the JAX
@@ -251,6 +257,7 @@ class LiveCluster:
         self.shed_deadline = shed_deadline
         self.shed: List[Request] = []
         self.aborted: List[Request] = []
+        self.fleet = fleet
         self.queue: List[Tuple[Request, Optional[dict]]] = []
         self._pending: List[List[Tuple[Request, Optional[dict]]]] = [
             [] for _ in range(n_instances)]
@@ -365,6 +372,9 @@ class LiveCluster:
         self.shed.append(req)
         self._extras.pop(req.rid, None)
         self.stats["sheds"] += 1
+        ctrl = self._fleet_ctrl()
+        ctrl.note("shed", req.rid)
+        ctrl.stats["sheds"] += 1
 
     def _shed_overdue(self):
         """Deadline-aware shedding: queued requests whose wait already
@@ -450,6 +460,9 @@ class LiveCluster:
             found.phase = Phase.ABORTED
             self.aborted.append(found)
             self.stats["aborts"] += 1
+            ctrl = self._fleet_ctrl()
+            ctrl.note("abort", rid)
+            ctrl.stats["aborts"] += 1
         return found
 
     # -- decode fusing --------------------------------------------------------
@@ -480,6 +493,11 @@ class LiveCluster:
             return 1
         if self._arrival_horizon is not None:
             n = min(n, self._arrival_horizon)
+        if self.fleet is not None:
+            # a fused span must not scan past a scheduled fleet event
+            nxt = self.fleet.next_time()
+            if nxt is not None:
+                n = min(n, max(1, math.ceil(nxt - self.now)))
         rem = [r.max_new_tokens - r.generated
                for r in self._reqs.values() if r.phase is Phase.DECODE]
         if rem:
@@ -489,6 +507,13 @@ class LiveCluster:
     # -- one scheduling iteration ---------------------------------------------
     def step(self):
         self.clock.tick()
+        # fleet events apply between scheduler iterations: the view the
+        # policy reads below already reflects kills/joins/drains
+        if self.fleet is not None:
+            for ev in self.fleet.due(self.now):
+                self._apply_fleet_event(ev)
+        if any(self.draining):
+            self._settle_drains()
         # health EWMA: one update per alive instance per iteration, the
         # same cadence the simulator uses, so hedging decisions gated on
         # health replay bit-identically on both backends
@@ -696,25 +721,212 @@ class LiveCluster:
             n_decode=len(decoded - prefilled),
             n_idle=n - len(busy)))
 
-    # -- fleet mechanics -------------------------------------------------------
-    def fleet_kill(self, instance: int):
-        raise NotImplementedError(f"instance kills wait for {FLEET_SLICE}")
+    # -- fleet mechanics (repro_torch.fleet) ---------------------------------
+    def _fleet_ctrl(self) -> "FleetController":
+        if self.fleet is None:
+            # direct-driven fleet ops (tests, interactive kills) still
+            # need the shared decision planner + trace/stats home
+            from repro_torch.fleet import FleetController
+            self.fleet = FleetController()
+        return self.fleet
 
-    def fleet_join(self, instance: Optional[int] = None) -> int:
-        raise NotImplementedError(f"instance joins wait for {FLEET_SLICE}")
-
-    def fleet_drain(self, instance: int):
-        raise NotImplementedError(f"drains wait for {FLEET_SLICE}")
+    def _apply_fleet_event(self, ev):
+        from repro_torch.fleet import (DegradeInstance, Drain, JoinInstance,
+                                 KillInstance, RecoverInstance)
+        if isinstance(ev, KillInstance):
+            self.fleet_kill(ev.instance)
+        elif isinstance(ev, JoinInstance):
+            self.fleet_join(ev.instance)
+        elif isinstance(ev, Drain):
+            self.fleet_drain(ev.instance)
+        elif isinstance(ev, DegradeInstance):
+            self.fleet_degrade(ev.instance, ev.factor, ev.link_factor)
+        elif isinstance(ev, RecoverInstance):
+            self.fleet_recover(ev.instance)
+        else:
+            raise ValueError(f"unknown fleet event {ev!r}")
 
     def fleet_degrade(self, instance: int, factor: float = 4.0,
                       link_factor: float = 1.0):
-        raise NotImplementedError(f"degradation waits for {FLEET_SLICE}")
+        """Partial failure: the instance keeps serving but ``factor``x
+        slower (thermal throttling, a flapping NIC, a noisy neighbor).
+        Nothing is torn down — the health EWMA drifts up and hedging
+        kernels route decode around it."""
+        if instance >= len(self.engines) or not self.alive[instance]:
+            return
+        self.degrade[instance] = float(factor)
+        self.link_degrade[instance] = float(link_factor)
+        ctrl = self._fleet_ctrl()
+        ctrl.note("degrade", instance, float(factor), float(link_factor))
+        ctrl.stats["degrades"] += 1
 
     def fleet_recover(self, instance: int):
-        raise NotImplementedError(f"recovery waits for {FLEET_SLICE}")
+        """The degraded instance returns to nominal speed; its health
+        EWMA decays back under the hedge threshold over the next
+        iterations."""
+        if instance >= len(self.engines) or not self.alive[instance]:
+            return
+        self.degrade[instance] = 1.0
+        self.link_degrade[instance] = 1.0
+        ctrl = self._fleet_ctrl()
+        ctrl.note("recover", instance)
+        ctrl.stats["recoveries"] += 1
 
-    def _apply_fleet_event(self, ev):
-        raise NotImplementedError(f"fleet events wait for {FLEET_SLICE}")
+    def fleet_kill(self, instance: int):
+        """Abrupt instance failure: every resident byte is gone.  The
+        shared controller plans what survives — primaries with a warm
+        replica flip roles via the existing promotion machinery (rolled
+        back to the replica's synced line); everything else re-queues
+        for a full re-prefill."""
+        if instance >= len(self.engines) or not self.alive[instance]:
+            return
+        from repro_torch.fleet import reset_for_reprefill, rollback_tokens
+        ctrl = self._fleet_ctrl()
+        ctrl.note("kill", instance)
+        ctrl.stats["kills"] += 1
+        plan = ctrl.plan_failover(LiveClusterView(self), instance)
+        dead = self.engines[instance]
+        # 1. promotions: the warm replica takes over at its synced line;
+        # the unsynced tail of decode tokens re-generates there
+        for pr in plan.promotions:
+            pl = self.placements[pr.rid]
+            r_idx, r_slot = pl.replica
+            req = self._reqs[pr.rid]
+            if pr.lost_lines:
+                rollback_tokens(req, pr.lost_lines)
+                ctrl.stats["lost_lines"] += pr.lost_lines
+            self.engines[r_idx].promote_replica(r_slot, req)
+            pl.primary = (r_idx, r_slot)
+            pl.replica = None
+            ctrl.note("promote", pr.rid, pr.src, pr.dst, pr.lost_lines)
+            ctrl.stats["promotions"] += 1
+            self.stats["replica_promotions"] += 1
+        # 2. truly lost state: back to the queue head, full re-prefill
+        # (original arrival stamp kept — the TTFT damage is the metric)
+        requeued: List[Tuple[Request, Optional[dict]]] = []
+        for rid in plan.requeues:
+            req = self._reqs.pop(rid)
+            ctrl.note("requeue", rid)
+            ctrl.stats["requeues"] += 1
+            ctrl.stats["lost_decode_tokens"] += req.generated
+            ctrl.stats["reprefill_tokens"] += reset_for_reprefill(req)
+            self.planner.forget(rid)
+            del self.placements[rid]
+            requeued.append((req, self._extras.pop(rid, req.extra)))
+        # 3. replicas this instance hosted for surviving primaries
+        for rid in plan.dropped_replicas:
+            self.placements[rid].replica = None
+            ctrl.note("drop_replica", rid)
+        # 4. routed-but-unprefilled backlog re-routes (no tokens re-run)
+        for req, extra in self._pending[instance]:
+            ctrl.note("requeue", req.rid)
+            ctrl.stats["requeue_backlog"] += 1
+            requeued.append((req, extra))
+        self._pending[instance] = []
+        # 5. prompts mid-chunk lose their partial prefill work
+        for req in self._chunking[instance]:
+            ctrl.note("requeue", req.rid)
+            ctrl.stats["requeues"] += 1
+            ctrl.stats["reprefill_tokens"] += self.planner.cursor(req.rid)
+            self.planner.forget(req.rid)
+            reset_for_reprefill(req)
+            requeued.append((req, self._extras.pop(req.rid, req.extra)))
+        self._chunking[instance] = []
+        # a stamped hit referred to the dead instance's cache; the
+        # re-prefill starts clean and re-stamps wherever it lands
+        for req, _ in requeued:
+            if req.prefix_hit is not None:
+                dead.prefix_abandon(req)
+        self.queue[:0] = requeued
+        # 6. teardown: free every slot; the dead engine object stays in
+        # the list so instance indices remain stable.  The prefix cache
+        # dies with the HBM it indexed — a rejoin at this rank starts
+        # cold.
+        for slot in (list(dead.slot_req) + list(dead.replica_of)
+                     + list(dead.prefilling)):
+            dead.release(slot)
+        if dead.prefix_cache is not None:
+            dead.prefix_cache.release_all()
+        self.alive[instance] = False
+        self.draining[instance] = False
+        # partial-failure state dies with the instance: replacement
+        # hardware at this rank starts nominal
+        self.degrade[instance] = 1.0
+        self.link_degrade[instance] = 1.0
+        self.health[instance] = 1.0
+
+    def fleet_join(self, instance: Optional[int] = None) -> int:
+        """Register a fresh instance (revive a dead index, or append a
+        new one with ``None``), then let the kernel warm it with
+        replicas of resident requests BEFORE any new arrival routes
+        there."""
+        ctrl = self._fleet_ctrl()
+        if instance is not None and instance < len(self.engines):
+            if self.alive[instance]:
+                return instance           # join of a live index: no-op
+            idx = instance
+            # replacement hardware at the same rank: the torn-down
+            # engine (every slot freed at kill) is the fresh instance
+            self.alive[idx] = True
+            self.draining[idx] = False
+            self.degrade[idx] = 1.0
+            self.link_degrade[idx] = 1.0
+            self.health[idx] = 1.0
+        else:
+            idx = len(self.engines)
+            # an autoscaled join: a fresh engine of the original shape on
+            # the cluster's device, sharing the one params tree
+            self.engines.append(
+                InstanceEngine(self.cfg, self._params, instance_id=idx,
+                               **self._engine_kwargs))
+            self._pending.append([])
+            self._chunking.append([])
+            self.alive.append(True)
+            self.draining.append(False)
+            self.degrade.append(1.0)
+            self.link_degrade.append(1.0)
+            self.health.append(1.0)
+        ctrl.note("join", idx)
+        ctrl.stats["joins"] += 1
+        view = LiveClusterView(self)
+        acts = self.policy.warm_on_join(view, idx)
+        if acts:
+            self._apply_transfers(acts, view)
+            ctrl.stats["warm_streams"] += len(acts)
+        return idx
+
+    def fleet_drain(self, instance: int):
+        """Cordon: no new work routes here (``draining`` in the views);
+        the instance leaves the fleet once its residents complete."""
+        if instance >= len(self.engines) or not self.alive[instance] \
+                or self.draining[instance]:
+            return
+        ctrl = self._fleet_ctrl()
+        self.draining[instance] = True
+        ctrl.note("drain", instance)
+        ctrl.stats["drains"] += 1
+        self._settle_drains()
+
+    def _settle_drains(self):
+        for idx, draining in enumerate(self.draining):
+            if not (draining and self.alive[idx]):
+                continue
+            eng = self.engines[idx]
+            if eng.slot_req or eng.prefilling or self._pending[idx] \
+                    or self._chunking[idx]:
+                continue
+            # only replicas remain: the primaries live elsewhere, so the
+            # copies are surrendered and the instance leaves the fleet
+            for slot in list(eng.replica_of):
+                rid = eng.store.slot_rid[slot]
+                eng.release(slot)
+                pl = self.placements.get(rid)
+                if pl is not None and pl.replica is not None \
+                        and pl.replica[0] == idx:
+                    pl.replica = None
+            self.alive[idx] = False
+            self.draining[idx] = False
+            self._fleet_ctrl().note("drained", idx)
 
     # -- plan execution -------------------------------------------------------
     def _execute_prefill(self, pf: PrefillPlan,
@@ -850,6 +1062,8 @@ class LiveCluster:
             # straggler hedge, not a load-balance flip: counted apart so
             # reports can tell redundancy-as-insurance from rebalancing
             self.stats["hedges"] += 1
+            if self.fleet is not None:
+                self.fleet.stats["hedges"] += 1
 
     def _relieve_pressure(self, idx: int, view):
         """KV-pressure relief ladder (AcceLLM §4.2.5): before a decode

@@ -21,7 +21,7 @@ within 1e-4 max abs (the packages sum in different orders).
   admission, deadline shedding and aborts;
 * the hybrid stack under accellm (no chunk execution);
 * entry points raise without a card unless given ``device="cpu"``, and
-  the fleet, mesh and prefix-cache paths raise ``NotImplementedError``.
+  the mesh and prefix-cache paths raise ``NotImplementedError``.
 """
 import jax
 import numpy as np
@@ -404,23 +404,26 @@ def test_entry_points_refuse_cpu_fallback(setup, monkeypatch):
 
 def test_later_slices_raise(setup):
     _, cfg, _, params = setup
-    for kw, what in (({"fleet": object()}, "fleet"),
-                     ({"mesh": object()}, "mesh"),
+    for kw, what in (({"mesh": object()}, "mesh"),
                      ({"prefix_cache": True}, "prefix")):
         with pytest.raises(NotImplementedError, match=what):
             LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu", **kw)
-        spec_kw = {"mesh_tp": 2} if what == "mesh" else (
-            {"fleet": object()} if what == "fleet" else {"prefix_cache": True})
+        spec_kw = {"mesh_tp": 2} if what == "mesh" else {"prefix_cache": True}
         with pytest.raises(NotImplementedError, match=what):
             tapi.build_cluster(tapi.ServeSpec(device="cpu", **spec_kw),
                                cfg=cfg, params=params)
+    # the fleet slice has landed: its paths run (tests/test_torch_fleet.py
+    # holds them against the JAX package)
     cluster = LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu")
-    for call in (lambda: cluster.fleet_kill(0), lambda: cluster.fleet_join(),
-                 lambda: cluster.fleet_drain(0),
-                 lambda: cluster.fleet_degrade(0),
-                 lambda: cluster.fleet_recover(0),
-                 lambda: cluster._apply_fleet_event(None)):
-        with pytest.raises(NotImplementedError, match="fleet slice"):
-            call()
+    cluster.fleet_degrade(0)
+    cluster.fleet_recover(0)
+    cluster.fleet_kill(0)
+    assert cluster.fleet_join(0) == 0 and cluster.alive == [True, True]
+    cluster.fleet_drain(1)
+    assert cluster.alive == [True, False]
+    assert [e[0] for e in cluster.fleet.trace] == [
+        "degrade", "recover", "kill", "join", "drain", "drained"]
+    with pytest.raises(ValueError, match="unknown fleet event"):
+        cluster._apply_fleet_event(None)
     with pytest.raises(KeyError, match="scale slice"):
         LiveCluster(cfg, params, 2, 2, 16, "accellm-vec", device="cpu")

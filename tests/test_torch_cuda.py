@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and two paths through them against the CPU: the model's chunk path at
-``q_offset > 0`` and a two-instance AcceLLM cluster (equal tokens and stats).
+and three paths through them against the CPU: the model's chunk path at
+``q_offset > 0``, a two-instance AcceLLM cluster (equal tokens and stats)
+and a two-instance cluster that loses an instance mid-serve and gets it
+back (equal tokens, stats and fleet trace, under accellm and vllm).
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode).  This file imports neither JAX nor the JAX package, so it
@@ -318,3 +320,42 @@ def test_cluster_on_card_matches_cpu():
         out[dev] = ([r.output_tokens for r in reqs], dict(cluster.stats))
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][1]["mirror_syncs"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["accellm", "vllm"])
+def test_fleet_kill_and_rejoin_on_card_matches_cpu(policy):
+    """A 2-instance cluster loses instance 1 mid-serve and gets it back:
+    on the card and on the CPU the fleet trace, its stats, the cluster's
+    stats and every request's tokens are equal."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.fleet import (FixedFleet, FleetController, JoinInstance,
+                                   KillInstance)
+    from repro_torch.scheduling import LiveCluster
+    from repro_torch.serving import Request
+    cfg, p_cpu, p_card = _reduced_starcoder()
+    shapes = [(8, 14), (12, 16), (6, 15), (10, 12), (7, 16), (9, 14)]
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_card)):
+        fleet = FleetController(FixedFleet((KillInstance(5.0, 1),
+                                            JoinInstance(9.0, 1))))
+        cluster = LiveCluster(cfg, params, 2, 8, 256, policy, fleet=fleet,
+                              device=dev)
+        reqs = [Request(prompt_len=p, max_new_tokens=n, rid=i,
+                        prompt_tokens=np.random.default_rng(i).integers(
+                            0, cfg.vocab_size, (1, p), dtype=np.int32))
+                for i, (p, n) in enumerate(shapes)]
+        for r in reqs:
+            cluster.submit(r)
+        cluster.run(max_steps=300)
+        out[dev] = ([r.output_tokens for r in reqs], dict(cluster.stats),
+                    list(fleet.trace), dict(fleet.stats))
+    assert out["cuda"] == out["cpu"]
+    fs = out["cuda"][3]
+    assert fs["kills"] == fs["joins"] == 1
+    if policy == "accellm":
+        assert fs["promotions"] > 0 and fs["reprefill_tokens"] == 0
+    else:
+        assert fs["requeues"] > 0 and fs["reprefill_tokens"] > 0

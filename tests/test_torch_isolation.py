@@ -38,6 +38,27 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(_modules()) >= 20
 
 
+@pytest.mark.parametrize("module", ["repro_torch.fleet", "repro_torch.sim",
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.launch.fleet",
+                                    "repro_torch.kvstore.sim"])
+def test_fleet_sim_and_launch_import_alone(module):
+    """The fleet layer, the simulator, the launchers and the simulator's
+    store import on their own without JAX or the JAX package."""
+    assert module in _modules()
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -72,6 +93,15 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         init_state(cfg, 1, 16)
     with pytest.raises(RuntimeError, match="cuda"):
         PagedStore(cfg, 2, 16)
+    from repro_torch.fleet import FixedFleet, FleetController, KillInstance
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.scheduling.live import LiveCluster
+    with pytest.raises(RuntimeError, match="cuda"):
+        LiveCluster(cfg, params, 2, 2, 16, "accellm", fleet=FleetController(
+            FixedFleet((KillInstance(1.0, 1),))))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_main(["--arch", "starcoder2-3b", "--instances", "2",
+                    "--requests", "1"])
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
