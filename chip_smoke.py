@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs fourteen phases,
+port's kernels from ``src/repro_torch/csrc``, and runs sixteen phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -59,22 +59,45 @@ each of which exits non-zero on failure:
    plan); every request's tokens must equal the cluster serve's, unless
    the two tokens' f32 logits lie within the bf16 error measured on that
    row (printed); wall ms per iteration beside TTFT/TBT/JCT;
-9. cluster-consistency — in f32 at full width, T=0: a 500-token prompt's
+9. cluster-prefix — the cluster phase's arrival and length processes
+   with shared prompt heads (two system prompts, 80% reuse, 256-token
+   heads) served on its weights with the prefix cache off and on, beside
+   a CPU rehearsal at reduced width: every request must finish with all
+   its tokens; the cache-on serve must hit, with the rehearsal's hits,
+   hit tokens, iterations and kernel and plan traces, and the cache-off
+   serve must not; the prefill kernel must launch at ``q_offset > 0`` at
+   least once per layer per hit; stream bytes with the cache must not
+   exceed those without, and mirror and stream bytes must equal
+   ``LineCosts`` over the lines moved (adopted head lines excluded); a
+   ledger must save blocks by sharing, hold only cached blocks after the
+   drain and be whole after ``release_all``; tokens must equal the
+   cache-off serve's up to near-ties by phase 8's rule; in f32 a hit's
+   suffix prefill over the gathered head must match a whole-prompt
+   prefill within 1e-3 * max|logit|.  Prints TTFT/TBT/JCT, prefill tokens
+   computed, wall ms per iteration and ``sched_us_per_iter`` of both
+   serves, and each hit's ``copy_prefix`` bytes with the first one's
+   device time (torch.profiler);
+10. cluster-consistency — in f32 at full width, T=0: a 500-token prompt's
    final chunk (sarathi, 128-token chunks) against the whole-prompt
    prefill within 1e-3 * max|logit|, and six prompts through the accellm
    cluster against one engine: equal tokens, unless the engine's top-2
    logit gap at the differing step is under 1e-4 * max|logit| (printed);
-10. serve-minicpm — minicpm-2b at full width in bf16 (MHA at head dim
+11. serve-minicpm — minicpm-2b at full width in bf16 (MHA at head dim
     64, tied embeddings, residual and logit scales; ~5.4 GB): the serve
     phase's six requests, the prefill and paged kernels only at 36/36
     heads, hd 64, no plain call; its f32 decode-vs-prefill check as in
     phase 4;
-11. sim-calibration — on the host: the port's simulator on the cluster
+12. sim-calibration — on the host: the port's simulator on the cluster
     phase's stream with one modeled H100 per instance, its decode
     dispatch set to the serve phase's decode ms per step at 8 active and
     to 0; modeled TTFT/TBT/JCT beside the measured ones of each no-kill
     run of phase 8;
-12. serve-hybrid — Jamba-1.5-Large at full width, depth cut to its first
+13. scale — on the host: the port's simulator on the bursty llama2-70b
+    stream (4 instances, 500 s) under accellm and ulb and their ``-vec``
+    twins (the array-backed cluster state), and on phase 9's stream with
+    the prefix cache under accellm and accellm-vec: equal decision traces
+    and request outcomes; ``sched_us_per_iter`` of each;
+14. serve-hybrid — Jamba-1.5-Large at full width, depth cut to its first
     5 layers (4 mamba, MoE on 1 and 3, attention at 4; ~48 GB in bf16):
     six greedy requests (prompts 100 to 1000, 32 tokens each) through
     ``prefill_batch`` (one prompt at a time) and ``decode_multi(steps=8)``
@@ -82,15 +105,15 @@ each of which exits non-zero on failure:
     logit be finite, the scan, prefill and dense decode kernels must have
     launched and no plain version run; decode ms per step and a profiled
     breakdown;
-13. redundancy-hybrid — mirror syncs of one KV line plus the whole
+15. redundancy-hybrid — mirror syncs of one KV line plus the whole
     recurrent state each, then promotion; tokens equal a control run;
-14. consistency-hybrid — in f32 on Jamba's first 3 layers (mamba; mamba +
+16. consistency-hybrid — in f32 on Jamba's first 3 layers (mamba; mamba +
     MoE; mamba) with capacity factor 8: decode logits after 1, 8 and 16
     steps against a fresh prefill within 1e-3 * max|logit|, and each
     mamba layer's ssm state within 1e-4 relative.
 
 Each phase group's weights are freed before the next: starcoder2's after
-phases 3-5, 6-8 and 9, minicpm-2b's after 10, the bf16 Jamba weights
+phases 3-5, 6-9 and 10, minicpm-2b's after 11, the bf16 Jamba weights
 before the f32 ones.  TF32 is off for matmuls and cuDNN.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
@@ -807,8 +830,9 @@ def _redundancy(phase, engine, prompt, same_slot):
 def _record_moves(engine_cls):
     """Patch ``engine_cls`` to count what its engines move, from each
     engine's own ledger: the bytes ``LineCosts`` price for the lines each
-    replica's synced mark gained and for the lines each stream installed.
-    Returns (moved, restore)."""
+    replica's synced mark gained and for the lines each stream installed,
+    less the head lines the destination adopted from its prefix cache
+    (resident there, so not moved).  Returns (moved, restore)."""
     moved = {"mirror": 0.0, "stream": 0.0, "mirror_lines": 0,
              "stream_lines": 0}
     plain_sync, plain_import = (engine_cls.sync_replica_from,
@@ -816,7 +840,8 @@ def _record_moves(engine_cls):
 
     def sync(self, src, src_slot, dst_slot, from_line=None, to_line=None):
         rid = src._rid_at(src_slot)
-        before = self.store.synced_line(rid)
+        before = max(self.store.synced_line(rid),
+                     self.store.shared_head_lines(rid))
         out = plain_sync(self, src, src_slot, dst_slot, from_line=from_line,
                          to_line=to_line)
         delta = self.store.synced_line(rid) - before
@@ -829,8 +854,10 @@ def _record_moves(engine_cls):
         plain_import(self, slot, chunks, length, last_tok, lines, req,
                      as_replica_of=as_replica_of)
         got = self.store.lines(req.rid)
-        moved["stream"] += self.store.costs.bytes_at(got)
-        moved["stream_lines"] += got
+        head = min(got, self.store.shared_head_lines(req.rid))
+        moved["stream"] += (self.store.costs.bytes_at(got)
+                            - head * self.store.costs.line_bytes)
+        moved["stream_lines"] += got - head
 
     def restore():
         engine_cls.sync_replica_from = plain_sync
@@ -912,11 +939,12 @@ def _cluster_spec(**kw):
 
 
 def phase_cluster(torch, np):
-    """Phases 6-8: full-width starcoder2-3b in bf16 served by ``api.serve``
+    """Phases 6-9: full-width starcoder2-3b in bf16 served by ``api.serve``
     through a two-instance AcceLLM cluster, then through a sarathi cluster
     that resumes prompts chunk by chunk, then the first stream again with
-    a mid-serve kill and a rejoin; returns each phase's kernel counts and
-    the first serve's measurements."""
+    a mid-serve kill and a rejoin, then a shared-prefix stream with the
+    prefix cache off and on; returns each phase's kernel counts and the
+    serves' measurements."""
     from repro_torch.api import ServeReport, build_cluster, serve
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.models import attention as attention_mod
@@ -1055,6 +1083,9 @@ def phase_cluster(torch, np):
 
     # -- 8. cluster-fleet ------------------------------------------------------------
     counts.update(phase_cluster_fleet(torch, params, measured))
+    _free(torch)
+    # -- 9. cluster-prefix -----------------------------------------------------------
+    counts.update(phase_cluster_prefix(torch, params, measured))
     del params
     return counts, measured
 
@@ -1077,10 +1108,12 @@ def _fleet_spec(policy, kill=True, **kw):
 
 
 def _serve_traced(spec, params=None):
-    """``api.serve`` with the planner's plan trace on."""
+    """``api.serve`` with the planner's plan trace and the policy
+    kernel's decision trace on."""
     from repro_torch.api import ServeReport, build_cluster
     cluster = build_cluster(spec, params=params)
     cluster.planner.trace = []
+    cluster.policy.trace = []
     finished = cluster.run(max_steps=spec.max_steps, source=spec.traffic.source(
         seed=spec.seed, cfg=cluster.cfg))
     return ServeReport(spec=spec, cluster=cluster, finished=finished,
@@ -1329,6 +1362,297 @@ def phase_cluster_fleet(torch, params, measured):
     return counts
 
 
+#: cluster-prefix: the cluster stream with shared prompt heads (two
+#: system prompts, 80% of requests open with one).  A CPU rehearsal at
+#: reduced width gives 8 hits over 17 requests at this prefix length.
+PREFIX_REUSE = dict(pool=2, reuse=0.8, prefix_len=256)
+
+
+def _prefix_spec(prefix_cache, **kw):
+    from repro_torch.workloads import PrefixReuse
+    traffic = dataclasses.replace(
+        _light(120.0), name="light-prefix",
+        prefix_reuse=PrefixReuse(**PREFIX_REUSE))
+    return _cluster_spec(traffic=traffic, prefix_cache=prefix_cache, **kw)
+
+
+def _watch_saved(cluster_cls):
+    """Patch ``cluster_cls.step`` to record, after each scheduling step,
+    the most pool blocks any engine's ledger saves by sharing; returns
+    (per-step maxima, restore)."""
+    plain = cluster_cls.step
+    saved = []
+
+    def step(self):
+        plain(self)
+        saved.append(max(e.store.ledger.shared_saved_blocks()
+                         for e in self.engines))
+
+    def restore():
+        cluster_cls.step = plain
+
+    cluster_cls.step = step
+    return saved, restore
+
+
+def _watch_copies(torch, store_cls, lines=0):
+    """Patch ``store_cls.copy_prefix`` to record each call's (lines,
+    bytes), and to profile the first call that copies ``lines`` lines
+    (with ``lines`` > 0) in a torch.profiler window of its own
+    (:func:`_device_profile`); returns (calls, timed: {"kernels", "call":
+    that call's arguments, to replay}, restore)."""
+    plain = store_cls.copy_prefix
+    calls, timed = [], {}
+
+    def watched(self, blocks, dst_slot, n_lines):
+        if not lines or n_lines != lines or timed:
+            out = plain(self, blocks, dst_slot, n_lines)
+        else:
+            got = []
+            timed["kernels"] = _device_profile(torch, lambda: got.append(
+                plain(self, blocks, dst_slot, n_lines)))
+            timed["call"] = (self, list(blocks), dst_slot, n_lines)
+            out = got[0]
+        calls.append((n_lines, out))
+        return out
+
+    def restore():
+        store_cls.copy_prefix = plain
+
+    store_cls.copy_prefix = watched
+    return calls, timed, restore
+
+
+def _prefill_tokens(trace):
+    """Prompt tokens the prefill plans of a plan trace computed."""
+    return sum(end - start for e in trace if e[0] in ("prefill", "mixed")
+               for _, start, end in e[2][0 if e[0] == "mixed"
+                                         else slice(None)])
+
+
+def _suffix_vs_whole_f32(torch, cfg, params32, spec, requests, phase):
+    """In f32 at full width: the request of ``requests`` with the longest
+    hit, prefilled through an engine with the prefix cache (``spec``'s
+    window and blocks) after the earlier member of its group whose head
+    it adopts (its suffix at q_offset = the hit, over the gathered rows),
+    against a whole-prompt prefill of its prompt, within 1e-3 *
+    max|logit|."""
+    from repro_torch.models import init_state, prefill
+    from repro_torch.prefixcache import aligned_hit_lines
+    from repro_torch.serving import InstanceEngine, Request
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.stepplan import PrefillItem, PrefillPlan, bucket_len
+    reqs = sorted(requests, key=lambda r: r.rid)
+    target = max((r for r in reqs if r.prefix_hit),
+                 key=lambda r: (r.prefix_hit, -r.rid))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dev = _leaves(params32)[0].device
+    window = spec.kv_capacity
+    eng = InstanceEngine(cfg32, params32, num_slots=2, kv_capacity=window,
+                         block_lines=spec.block_lines, prefix_cache=True,
+                         device=dev)
+    bl = eng.store.block_lines
+    donor = next(r for r in reqs if r.rid < target.rid
+                 and r.prefix_id == target.prefix_id
+                 and aligned_hit_lines(r.prefix_len, r.prompt_len, bl)
+                 >= target.prefix_hit)
+    rows = []
+    plain = engine_mod.sample_slots
+
+    def captured(logits, *a, **kw):
+        rows.append(logits[0].float())
+        return plain(logits, *a, **kw)
+
+    engine_mod.sample_slots = captured
+    try:
+        for i, r in enumerate((donor, target)):
+            req = Request(prompt_len=r.prompt_len, max_new_tokens=1, rid=i,
+                          prompt_tokens=r.prompt_tokens,
+                          prefix_id=r.prefix_id, prefix_len=r.prefix_len)
+            hit = eng.prefix_stamp(req)
+            eng.prefill_batch(PrefillPlan(0, (PrefillItem(
+                i, req.prompt_len, hit, req.prompt_len, req=req),),
+                bucket_len(req.prompt_len, cap=window)))
+    finally:
+        engine_mod.sample_slots = plain
+    check(hit == target.prefix_hit, f"{phase}: the f32 engine hit {hit} "
+          f"lines of request {target.rid}, the serve {target.prefix_hit}")
+    toks = torch.as_tensor(target.prompt_tokens, device=dev)
+    whole, _ = prefill(cfg32, params32, {"tokens": toks},
+                       init_state(cfg32, 1, window, device=dev))
+    whole = whole[0].float()
+    err, scale = max_err(rows[-1], whole), float(whole.abs().max())
+    log(f"{phase}: f32 at full width, request {target.rid} ({target.prompt_len}"
+        f" tokens, prefix group {target.prefix_id}): suffix prefill at "
+        f"q_offset {hit} over the head gathered from request {donor.rid} "
+        f"against the whole-prompt prefill: max |difference| {err:.3e}, max "
+        f"|logit| {scale:.3f}, ratio {err / scale:.3e} (limit 1e-3)")
+    check(err <= 1e-3 * scale, f"{phase}: suffix-prefill logits differ by "
+          f"{err} against max logit {scale}")
+
+
+def phase_cluster_prefix(torch, params, measured):
+    """Phase 9: a shared-prefix stream (the cluster stream's arrival and
+    length processes with ``PREFIX_REUSE``) served on the cluster phase's
+    weights with the prefix cache off and on, each against a CPU rehearsal
+    at reduced width; returns the kernel counts of both serves.  Puts the
+    cache-on serve's ms per iteration and spec into ``measured``."""
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.kvstore import PagedStore
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.scheduling import LiveCluster
+    from repro_torch.serving import InstanceEngine
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import sampling as sampling_mod
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rehearsal = _serve_traced(_prefix_spec(True, reduced=True, device="cpu"))
+    reh = rehearsal.cluster
+    log(f"cluster-prefix: {_prefix_spec(True).traffic.describe()}; CPU "
+        f"rehearsal at reduced width in {time.perf_counter() - t0:.1f} s: "
+        f"{reh.n_iterations} iterations, prefix_hits "
+        f"{rehearsal.stats['prefix_hits']}, prefix_hit_tokens "
+        f"{rehearsal.stats['prefix_hit_tokens']}")
+    check(rehearsal.all_finished and rehearsal.stats["prefix_hits"] > 0,
+          f"cluster-prefix: the rehearsal gave no hit: "
+          f"{rehearsal.describe()}")
+    params32 = _tree_map(lambda t: t.float(), params)
+    counts, runs = {}, {}
+    for cache in (False, True):
+        phase = "cluster-prefix" + ("" if cache else " no-cache")
+        spec = _prefix_spec(cache)
+        finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
+        offsets, unwatch = _watch_offsets(attention_mod)
+        moved, unrecord = _record_moves(InstanceEngine)
+        saved, unsave = _watch_saved(LiveCluster)
+        copies, timed, uncopy = _watch_copies(
+            torch, PagedStore, PREFIX_REUSE["prefix_len"] if cache else 0)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            report = _serve_traced(spec, params=params)
+            torch.cuda.synchronize()
+        finally:
+            for undo in (uncopy, unsave, unrecord, unwatch, restore):
+                undo()
+        wall = time.perf_counter() - t0
+        counts[phase] = read_counts()
+        cluster, st = report.cluster, report.stats
+        n_it = cluster.n_iterations
+        ms_per_it = wall * 1e3 / max(1, n_it)
+        runs[cache] = report
+        log(f"{phase}: report:\n" + report.describe())
+        log(f"{phase}: serve wall {wall:.3f} s, {n_it} iterations, "
+            f"{ms_per_it:.3f} ms per iteration, sched_us_per_iter "
+            f"{report.sched_us_per_iter:.1f}; "
+            + _latency_line(report, ms_per_it))
+        log(f"{phase}: prefill tokens computed "
+            f"{_prefill_tokens(cluster.planner.trace)} of "
+            f"{sum(r.prompt_len for r in cluster._submitted)} prompt tokens; "
+            f"prefill kernel launches at q_offset > 0: "
+            f"{offsets['q_offset>0']}; launches {counts[phase]}")
+        check(report.all_finished and report.n_submitted
+              == len(rehearsal.finished), f"{phase}: not every request "
+              f"finished: {report.describe()}")
+        check(all(len(r.output_tokens) == r.max_new_tokens
+                  for r in report.finished),
+              f"{phase}: a request ended short of its max_new_tokens")
+        check(bool(torch.stack(finite).all()), f"{phase}: non-finite logits")
+        for key in ("mirror", "stream"):
+            check(st[f"{key}_bytes"] == moved[key],
+                  f"{phase}: stats {key}_bytes {st[f'{key}_bytes']} != "
+                  f"{moved[key]} priced by LineCosts over "
+                  f"{moved[key + '_lines']} lines moved")
+        log(f"{phase}: mirror_bytes {st['mirror_bytes']:.0f} over "
+            f"{moved['mirror_lines']} lines, stream_bytes "
+            f"{st['stream_bytes']:.0f} over {moved['stream_lines']} lines "
+            f"({st['stream_skipped_lines']} adopted head lines not moved): "
+            f"equal to LineCosts")
+        _check_path_counts(counts[phase],
+                           ("flash_attention", "paged_decode_attention"),
+                           phase)
+        if not cache:
+            check(st["prefix_hits"] == 0 and not copies,
+                  f"{phase}: hits with the cache off: {st}")
+            continue
+        layers = cluster.cfg.num_layers
+        check(st["prefix_hits"] > 0, f"{phase}: no prefix hit")
+        for key in ("prefix_hits", "prefix_hit_tokens"):
+            check(st[key] == rehearsal.stats[key], f"{phase}: {key} "
+                  f"{st[key]} against the rehearsal's "
+                  f"{rehearsal.stats[key]}")
+        check(n_it == reh.n_iterations
+              and cluster.planner.trace == reh.planner.trace
+              and cluster.policy.trace == reh.policy.trace,
+              f"{phase}: {n_it} iterations, the plan and the kernel traces "
+              f"against the rehearsal's {reh.n_iterations}")
+        check(offsets["q_offset>0"] >= layers * st["prefix_hits"],
+              f"{phase}: {offsets['q_offset>0']} prefill launches at "
+              f"q_offset > 0 for {st['prefix_hits']} hits x {layers} layers")
+        check(len(copies) == st["prefix_hits"], f"{phase}: "
+              f"{len(copies)} copy_prefix calls for {st['prefix_hits']} hits")
+        check(max(saved) > 0, f"{phase}: no block was ever shared")
+        for eng in cluster.engines:
+            led, pc = eng.store.ledger, eng.prefix_cache
+            check(set(led._refs) <= set(pc.index.blocks()),
+                  f"{phase}: instance {eng.instance_id}: blocks held "
+                  f"after the drain by more than the cache")
+            freed = pc.release_all()
+            check(led.free_blocks() == led.num_blocks,
+                  f"{phase}: instance {eng.instance_id}: the pool is not "
+                  f"whole after release_all")
+            log(f"{phase}: instance {eng.instance_id}: cache stats "
+                f"{pc.stats}; release_all freed {freed} blocks, the pool "
+                f"is whole ({led.num_blocks} blocks)")
+        whole = [nbytes for n, nbytes in copies
+                 if n == PREFIX_REUSE["prefix_len"]]
+        check(whole and timed, f"{phase}: no hit copied a whole "
+              f"{PREFIX_REUSE['prefix_len']}-line head")
+        b = _breakdown(1.0, timed["kernels"], top=4)
+        per_hit = [f"{n} lines {nbytes / 1e6:.3f} MB" for n, nbytes in copies]
+        log(f"{phase}: copy_prefix per hit: " + ", ".join(per_hit))
+        device = ("profiler saw no device time: not measured"
+                  if b["device_ms"] == 0 else
+                  f"{b['device_ms']:.4f} ms device time in "
+                  f"{sum(n for _, _, n in b['top'])} kernels (torch.profiler "
+                  f"window around it)")
+        # the same gather again on the drained store, on the kernels
+        # phase's clock (device time; the L2 left warm by the last call)
+        replay = time_ms(lambda: PagedStore.copy_prefix(*timed["call"]), 20)
+        log(f"{phase}: the first {PREFIX_REUSE['prefix_len']}-line copy "
+            f"({whole[0] / 1e6:.3f} MB over "
+            f"{len(cluster.engines[0].store._paths)} line leaves): {device}; "
+            f"replayed 20 times {replay:.4f} ms each (L2 warm), "
+            f"{2 * whole[0] / replay / 1e6:.1f} GB/s read and written "
+            f"(bytes bound {_bound(2 * whole[0], 0, 'bfloat16')[0]:.4f} ms)")
+        for name, ms, n in b["top"]:
+            log(f"{phase}:   {ms:9.4f} ms {n:5d} x {name[:90]}")
+        log(f"{phase}: most pool blocks saved by sharing in one engine: "
+            f"{max(saved)}; prefix stats equal the rehearsal's: "
+            f"prefix_hits {st['prefix_hits']}, prefix_hit_tokens "
+            f"{st['prefix_hit_tokens']}")
+        measured["prefix_ms_per_iteration"] = ms_per_it
+        measured["prefix_spec"] = spec
+    off, on = runs[False], runs[True]
+    check(on.stats["stream_bytes"] <= off.stats["stream_bytes"],
+          f"cluster-prefix: stream bytes {on.stats['stream_bytes']} with the "
+          f"cache against {off.stats['stream_bytes']} without")
+    phase = "cluster-prefix"
+    cfg = on.cluster.cfg
+    near = _tokens_against(torch, cfg, params, params32, on.spec.kv_capacity,
+                           {r.rid: r for r in off.finished}, on.finished,
+                           phase)
+    log(f"{phase}: {len(on.finished)} requests' tokens with the cache equal "
+        f"the cache-off serve's" + (f" up to {len(near)} near-ties" if near
+                                    else ""))
+    _suffix_vs_whole_f32(torch, cfg, params32, on.spec,
+                         on.cluster._submitted, phase)
+    del params32, runs, off, on
+    log(f"cluster-prefix: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def _watch_heads(attention_mod):
     """Patch the model's kernel entries to record each call's (heads, KV
     heads, head dim); returns (seen, restore)."""
@@ -1352,7 +1676,7 @@ def _watch_heads(attention_mod):
 
 
 def phase_minicpm(torch, dev, np):
-    """Phase 10: full-width minicpm-2b in bf16 (MHA at head dim 64, tied
+    """Phase 11: full-width minicpm-2b in bf16 (MHA at head dim 64, tied
     embeddings, residual and logit scales) through the serve phase's six
     requests, then its f32 decode-vs-prefill check; returns the serve's
     kernel counts."""
@@ -1391,7 +1715,7 @@ def phase_minicpm(torch, dev, np):
 
 
 def phase_sim_calibration(measured, decode_ms_8):
-    """Phase 11, on the host: the port's simulator on the cluster phase's
+    """Phase 12, on the host: the port's simulator on the cluster phase's
     stream (its WorkloadSpec and seed) with starcoder2-3b on one modeled
     H100 per instance, its dispatch cost set to the serve phase's decode
     ms per step at 8 active, and again at 0 (the pure roofline); the
@@ -1455,13 +1779,103 @@ def phase_sim_calibration(measured, decode_ms_8):
                         for f, v in by_field.items()))
 
 
+#: scale: the bursty llama2-70b stream of the scale layer's parity tests
+#: (4 instances, 500 s), and the kernels held against their ``-vec`` twins
+SCALE_KERNELS = ("accellm", "ulb")
+
+
+def phase_scale(measured):
+    """Phase 13, on the host: the port's simulator on the bursty llama2-70b
+    stream under each of ``SCALE_KERNELS`` and its ``-vec`` twin (the
+    array-backed cluster state), then on cluster-prefix's stream with the
+    prefix cache under accellm and accellm-vec (arrival i at i x the
+    cache-on serve's ms per iteration, one modeled H100 per instance).
+    The decision traces and the requests' outcomes must be equal; prints
+    each run's ``sched_us_per_iter``."""
+    from repro_torch.configs import get_config
+    from repro_torch.scheduling.registry import get_policy
+    from repro_torch.sim import (H100, AcceLLMPolicy, InstanceSpec, PerfModel,
+                                 SimRequest, Simulator, ULBPolicy)
+    from repro_torch.workloads import Bursty, TableLengths, WorkloadSpec
+    policies = {"accellm": AcceLLMPolicy, "ulb": ULBPolicy}
+
+    def run(name, perf, requests, horizon=float("inf"), **kw):
+        kernel = get_policy(name)
+        kernel.trace = []
+        sim = Simulator(policies[name.split("-")[0]](kernel=kernel), perf,
+                        **kw)
+        t0 = time.perf_counter()
+        if isinstance(requests, list):
+            sim.run(requests, horizon=horizon)
+        else:
+            sim.run(source=requests, horizon=horizon)
+        wall = time.perf_counter() - t0
+        out = [(r.rid, r.generated, r.finish_time, r.prefix_hit)
+               for r in sorted(sim.submitted, key=lambda r: r.rid)]
+        log(f"scale: {name}: {len(out)} requests, {sim.n_iterations} "
+            f"iterations, {len(kernel.trace)} decisions, sched_us_per_iter "
+            f"{sim.sched_us_per_iter:.2f}, simulated in {wall:.2f} s"
+            + (", array state attached" if sim.policy.arrays is not None
+               else ""))
+        return kernel.trace, out, sim
+
+    bursty = WorkloadSpec(arrival=Bursty(rate_on=12.0, duration=40.0,
+                                         rate_off=2.0, mean_on=6.0,
+                                         mean_off=4.0),
+                          lengths=TableLengths(workload="mixed"),
+                          name="bursty")
+    perf = PerfModel(get_config("llama2-70b"), InstanceSpec(H100, 4))
+    log(f"scale: llama2-70b on InstanceSpec(H100, 4) x 4 instances, "
+        f"{bursty.describe()}, horizon 500 s")
+    for name in SCALE_KERNELS:
+        tr_s, out_s, _ = run(name, perf, bursty.source(seed=0), 500.0,
+                             n_instances=4)
+        tr_v, out_v, sim = run(f"{name}-vec", perf, bursty.source(seed=0),
+                               500.0, n_instances=4)
+        check(sim.policy.arrays is not None, f"scale: {name}-vec ran "
+              f"without the array state")
+        check(len(tr_s) > 50 and tr_v == tr_s and out_v == out_s,
+              f"scale: {name}-vec's decisions or outcomes differ from "
+              f"{name}'s ({len(tr_v)} against {len(tr_s)} decisions)")
+        log(f"scale: {name}-vec: {len(tr_v)} decisions and "
+            f"{len(out_v)} request outcomes equal {name}'s")
+    spec = measured["prefix_spec"]
+    s_per_it = measured["prefix_ms_per_iteration"] / 1e3
+    perf = PerfModel(get_config(spec.arch), InstanceSpec(H100, n_devices=1))
+    reqs = list(spec.traffic.source(seed=spec.seed))
+    traces = []
+    for name in ("accellm", "accellm-vec"):
+        sim_reqs = []
+        for r in reqs:
+            q = SimRequest(rid=r.rid, arrival=r.arrival * s_per_it,
+                           prompt_len=r.prompt_len,
+                           decode_len=r.max_new_tokens)
+            q.prefix_id, q.prefix_len = r.prefix_id, r.prefix_len
+            sim_reqs.append(q)
+        tr, out, sim = run(name, perf, sim_reqs,
+                           n_instances=spec.n_instances,
+                           max_batch=spec.num_slots,
+                           block_lines=spec.block_lines, prefix_cache=True)
+        hits = sum(i.prefix_cache.stats["hits"] for i in sim.instances)
+        check(len(out) == len(reqs) and hits > 0, f"scale: {name} on the "
+              f"prefix stream: {len(out)} of {len(reqs)} requests, {hits} "
+              f"hits")
+        traces.append((tr, out, hits))
+    check(traces[1] == traces[0], "scale: accellm-vec's decisions on the "
+          "prefix stream differ from accellm's")
+    log(f"scale: cluster-prefix's stream with the prefix cache "
+        f"(arrivals at iteration x {s_per_it * 1e3:.3f} ms): accellm-vec's "
+        f"{len(traces[1][0])} decisions, outcomes and {traces[1][2]} hits "
+        f"equal accellm's")
+
+
 def _top2_gap(logits):
     top = logits.float().topk(2).values
     return float(top[0] - top[1]), float(logits.abs().max())
 
 
 def phase_cluster_consistency(torch, np):
-    """Phase 9, f32 at full width, T=0: a 500-token prompt's final chunk
+    """Phase 10, f32 at full width, T=0: a 500-token prompt's final chunk
     through a sarathi cluster against the whole-prompt prefill, and six
     prompts through the accellm cluster against one engine."""
     from repro_torch.api import serve
@@ -1560,7 +1974,7 @@ def _weight_bytes(params):
 
 
 def phase_hybrid(torch, dev, np):
-    """Phases 12-13 on Jamba-1.5-Large at full width, depth cut to its first
+    """Phases 14-15 on Jamba-1.5-Large at full width, depth cut to its first
     5 layers, in bf16; returns the serve phase's kernel counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts, reset_counts
@@ -1568,7 +1982,7 @@ def phase_hybrid(torch, dev, np):
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
 
-    # -- 12. serve-hybrid ---------------------------------------------------------
+    # -- 14. serve-hybrid ---------------------------------------------------------
     cfg = _depth_cut(get_config("jamba-1.5-large-398b"), 5)
     mc, moe = cfg.mamba, cfg.moe
     t0 = time.perf_counter()
@@ -1655,14 +2069,14 @@ def phase_hybrid(torch, dev, np):
     del e
     _print_breakdown(breakdown, "serve-hybrid")
 
-    # -- 13. redundancy-hybrid ---------------------------------------------------
+    # -- 15. redundancy-hybrid ---------------------------------------------------
     _redundancy("redundancy-hybrid", engine, rng.integers(
         0, cfg.vocab_size, (1, 300), dtype=np.int32), same_slot=True)
     return counts
 
 
 def phase_consistency_hybrid(torch, dev, np):
-    """Phase 14: f32 decode against a fresh prefill on Jamba's first 3
+    """Phase 16: f32 decode against a fresh prefill on Jamba's first 3
     layers (mamba; mamba + MoE; mamba) at full width, capacity factor 8
     (= experts / top-k, so no token drops)."""
     from repro_torch.configs import get_config
@@ -1769,8 +2183,8 @@ def main() -> int:
     counts, per_step = phase_dense(torch, dev, np)
     paths = {"serve": counts}
     _free(torch)
-    # -- 6-9. starcoder2-3b behind api.serve: cluster, cluster-chunked,
-    # cluster-fleet, cluster-consistency -------------------------------------------
+    # -- 6-10. starcoder2-3b behind api.serve: cluster, cluster-chunked,
+    # cluster-fleet, cluster-prefix, cluster-consistency ---------------------------
     t0 = time.perf_counter()
     counts, measured = phase_cluster(torch, np)
     paths.update(counts)
@@ -1778,15 +2192,17 @@ def main() -> int:
     phase_cluster_consistency(torch, np)
     _free(torch)
     log(f"chip_smoke: cluster phases {time.perf_counter() - t0:.1f} s")
-    # -- 10. serve-minicpm -------------------------------------------------------
+    # -- 11. serve-minicpm -------------------------------------------------------
     paths["serve-minicpm"] = phase_minicpm(torch, dev, np)
     _free(torch)
-    # -- 11. sim-calibration (host only) ------------------------------------------
+    # -- 12. sim-calibration (host only) ------------------------------------------
     phase_sim_calibration(measured, per_step[8])
-    # -- 12-13. Jamba, depth-cut, bf16: serve-hybrid, redundancy-hybrid -----------
+    # -- 13. scale (host only) -------------------------------------------------------
+    phase_scale(measured)
+    # -- 14-15. Jamba, depth-cut, bf16: serve-hybrid, redundancy-hybrid -----------
     paths["serve-hybrid"] = phase_hybrid(torch, dev, np)
     _free(torch)
-    # -- 14. consistency-hybrid (f32) --------------------------------------------
+    # -- 16. consistency-hybrid (f32) --------------------------------------------
     phase_consistency_hybrid(torch, dev, np)
     _free(torch)
 

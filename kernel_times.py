@@ -29,8 +29,9 @@ have one PyTorch call for the same function.  The clocks:
   call's kernels.  It is also given per kernel, so the dense kernel's
   split and merge passes show apart.
 
-It prints the card's name and power limit, each library's ptxas register
-and spill lines, a digest of each kernel function's SASS
+It prints the card's name and power limit, each library's ptxas lines
+(each kernel function's entry line, then its registers, static shared
+memory and spills), a digest of each kernel function's SASS
 (``cuobjdump -sass`` with addresses and encodings stripped, so equal
 digests mean the same instructions), and one JSON line per timing.
 """
@@ -193,7 +194,8 @@ def main() -> int:
     cuobjdump = str(Path(build.nvcc_path()).parent / "cuobjdump")
     for name in sorted(info):
         regs = [ln.strip() for ln in info[name]["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
+                if any(w in ln for w in ("entry function", "registers",
+                                         "spill"))]
         _emit(label, ptxas=name, lines=regs)
         if os.access(cuobjdump, os.X_OK):
             _emit(label, sass=name,

@@ -3,7 +3,8 @@
 A copy of the JAX package's ``repro.api`` on the port.  It builds the
 model (random weights from ``spec.seed`` on ``spec.device``), resolves
 the scheduling policy by name from ``repro_torch.scheduling.registry``
-(accellm, or the vllm / splitwise / sarathi / ulb baselines) and drives
+(accellm, the vllm / splitwise / sarathi / ulb baselines, or the
+``-vec`` variants of ``repro_torch.scale``) and drives
 a :class:`repro_torch.workloads.WorkloadSpec` traffic stream through
 :class:`repro_torch.scheduling.live.LiveCluster`.  The lifecycle is
 open-loop: requests arrive over time on the iteration clock (or
@@ -13,9 +14,10 @@ spec carries an :class:`repro_torch.workloads.SLO`.
 
 The cluster runs on the card unless the spec asks for another device
 (``device="cpu"``).  A fleet schedule (``repro_torch.fleet``) injects
-kills, joins, drains and stragglers on the iteration clock.  Mesh
-placement and the prefix cache wait for their slices of the port and
-raise ``NotImplementedError``.
+kills, joins, drains and stragglers on the iteration clock.
+``prefix_cache=True`` gives every engine a radix prefix cache.  Mesh
+placement waits for its slice of the port and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ class ServeSpec:
     #: fused decode ceiling: idle open-loop stretches run up to N decode
     #: iterations as one fused dispatch (1 = per-step decode)
     fuse_decode_steps: int = 1
-    #: refcounted radix prefix cache on every engine (the JAX package's
-    #: repro.prefixcache); waits for the prefix-cache slice of the port
+    #: refcounted radix prefix cache on every engine
+    #: (repro_torch.prefixcache): shared prompt heads prefill once and
+    #: dedup in the KV pool
     prefix_cache: bool = False
     #: cache retention cap in pool blocks (None: half of each engine's
     #: block pool)
@@ -240,9 +243,6 @@ def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
     if spec.mesh_tp is not None or spec.mesh_specs is not None:
         raise NotImplementedError(
             "mesh placement waits for the mesh slice of the port")
-    if spec.prefix_cache:
-        raise NotImplementedError(
-            "the prefix cache waits for the prefix-cache slice of the port")
     device = resolve_device(spec.device)
     if cfg is None:
         cfg = get_config(spec.arch)
@@ -266,6 +266,8 @@ def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
                        eos_token=spec.eos_token,
                        block_lines=spec.block_lines,
                        fuse_decode_steps=spec.fuse_decode_steps,
+                       prefix_cache=spec.prefix_cache,
+                       prefix_cache_blocks=spec.prefix_cache_blocks,
                        fleet=fleet,
                        timeline_stride=spec.timeline_stride,
                        max_queue=spec.max_queue,

@@ -19,7 +19,10 @@ slot) is a copy, so later in-place writes on either side never alias.
 
 :meth:`copy_lines` is the per-step redundancy mirror: only the KV rows of
 the new accounting lines move, plus the recurrent states whole, O(delta)
-per step, not O(kv_capacity).
+per step, not O(kv_capacity).  :meth:`copy_prefix` is the prefix cache's
+one-time gather of a shared head's rows from other slots' windows into a
+new request's window (``alloc(shared=)`` adopts those blocks in the
+ledger).
 """
 from __future__ import annotations
 
@@ -131,25 +134,53 @@ class PagedStore:
 
     # -- ledger ops (slot-affine) ----------------------------------------------
     def alloc(self, rid: int, slot: int, lines: int,
-              synced: Optional[int] = None) -> None:
-        """Admit ``rid`` into ``slot``'s own block region."""
+              synced: Optional[int] = None,
+              shared: Optional[List[int]] = None) -> None:
+        """Admit ``rid`` into ``slot``.  ``shared`` adopts a resident
+        prefix's blocks (anywhere in the pool) as the table head; the
+        slot's *own* region then backs only the suffix.  The dense window
+        stays self-contained, so the caller must also :meth:`copy_prefix`
+        the shared rows into the slot's window.  The slot's own blocks
+        shadowed by the shared head (logical positions ``[0,
+        len(shared))``) hold those copied rows and stay OFF the ledger:
+        the ledger is the accounting truth, and sharing is exactly the
+        memory it saves."""
         if slot in self.slot_rid:
             raise KVStoreError(f"slot {slot} already backs "
                                f"rid {self.slot_rid[slot]}")
-        self.ledger.alloc(rid, lines, block_ids=self.slot_block_ids(slot),
-                          synced=synced)
+        ids = self.slot_block_ids(slot)
+        off = 1 if self._has_fixed else 0
+        n_shared = len(shared) if shared else 0
+        if n_shared:
+            if n_shared * self.block_lines > min(lines, self.kv_capacity):
+                raise KVStoreError(
+                    f"rid {rid}: shared head {n_shared} blocks exceeds "
+                    f"{lines} lines (hits must be block-aligned)")
+            hint = ids[:off] + ids[off + n_shared:]
+        else:
+            hint = ids
+        self.ledger.alloc(rid, lines, block_ids=hint, synced=synced,
+                          shared=shared)
         self.slot_rid[slot] = rid
         self.rid_slot[rid] = slot
 
     def _grow_hint(self, rid: int) -> List[int]:
-        """Free own-region blocks for the *next* logical positions."""
+        """Free own-region blocks for the *next* logical positions of
+        ``rid``, skipping the positions shadowed by a shared head: their
+        own blocks hold the copied prefix rows and are never handed out
+        as growth."""
         ids = self.slot_block_ids(self.rid_slot[rid])
         off = 1 if self._has_fixed else 0
         return ids[off + len(self.ledger.tables[rid]):]
 
     def append_line(self, rid: int, n: int = 1) -> int:
-        return self.ledger.append_line(rid, n,
-                                       block_ids=self._grow_hint(rid))
+        out = self.ledger.append_line(rid, n,
+                                      block_ids=self._grow_hint(rid))
+        if self.ledger.last_cow is not None:
+            raise KVStoreError(
+                f"rid {rid}: copy-on-write inside the slot-affine store "
+                f"(shared heads must be block-aligned)")
+        return out
 
     def set_lines(self, rid: int, lines: int) -> int:
         cur = self.ledger.lines(rid)
@@ -263,6 +294,45 @@ class PagedStore:
             for a, b in _ring_spans(lo, hi, dst.shape[2]):
                 dst[:, dst_slot, a:b] = src_leaf[:, src_slot, a:b]
         return self.costs.mirror_bytes(max(0, to_line - from_line))
+
+    # -- prefix adoption (one-time window fill) --------------------------------
+    def copy_prefix(self, blocks: List[int], dst_slot: int,
+                    n_lines: int) -> float:
+        """Fill ``dst_slot``'s dense window rows ``[0, n_lines)`` from a
+        shared prefix run: line ``i`` comes from block
+        ``blocks[i // block_lines]``, which lives in another slot's region.
+
+        The slot-affine layout keeps each window self-contained (the
+        layers read their slot's rows directly), so adopting blocks from
+        other slots' regions is a one-time row gather inside the store:
+        data movement instead of prefill compute.  The ledger, not the
+        window, is the accounting truth: the adopted blocks stay shared
+        there and the shadowed own rows stay off it.  The row index is
+        built on the host and uploaded once; each line leaf then takes one
+        gather into a new tensor and one write, so a source row is read
+        before any destination row is written even when the two overlap.
+        Returns the bytes gathered (``line_bytes`` per line)."""
+        n_lines = min(n_lines, self.kv_capacity,
+                      len(blocks) * self.block_lines)
+        if n_lines <= 0:
+            return 0.0
+        off = 1 if self._has_fixed else 0
+        i = np.arange(n_lines)
+        head = np.asarray(blocks, np.int64)[i // self.block_lines]
+        slot, k = np.divmod(head, self.blocks_per_slot)
+        # row of the (slots * window) flattened line axis
+        rows = slot * self.kv_capacity + (k - off) * self.block_lines \
+            + i % self.block_lines
+        index = None
+        for path in self._paths:
+            if path[3] != "line":
+                continue
+            leaf = self._leaf(self.state, path)
+            if index is None:
+                index = torch.as_tensor(rows, device=leaf.device)
+            flat = leaf.view((leaf.shape[0], -1) + tuple(leaf.shape[3:]))
+            leaf[:, dst_slot, :n_lines] = flat.index_select(1, index)
+        return self.costs.line_bytes * n_lines
 
 
 def _ring_spans(lo: int, hi: int, cap: int) -> List[Tuple[int, int]]:

@@ -19,11 +19,15 @@ Usage:
       --instances 2 --requests 6 --device cpu \
       [--policy accellm|vllm|splitwise|sarathi|ulb] \
       [--no-redundancy] [--workload mixed] [--arrival poisson --rate 0.5 \
-      --duration 60] [--slo-ttft 20 --slo-tbt 4] [--fleet-mtbf 20]
+      --duration 60] [--slo-ttft 20 --slo-tbt 4] [--fleet-mtbf 20] \
+      [--prefix-cache --prefix-reuse 0.8]
 
-``--prefix-cache``, ``--prefix-cache-blocks`` and ``--mesh-tp`` wait for
-their slices of the port and raise ``NotImplementedError``; the ``-vec``
-policy names wait for the scale slice and are not offered.
+Every registered policy name is accepted, including the ``-vec``
+variants (``accellm-vec`` / ``vllm-vec`` / ``splitwise-vec`` /
+``ulb-vec``): on live engines those fall back to the identical scalar
+decision path, so they are interchangeable with the originals.
+``--mesh-tp`` waits for the mesh slice of the port and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -145,11 +149,12 @@ def main(argv=None):
                     help="disable straggler hedging in hedging-aware "
                          "policies (decode stays on degraded instances)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="refcounted radix prefix cache on every engine "
-                         "(waits for the prefix-cache slice of the port)")
+                    help="refcounted radix prefix cache on every engine: "
+                         "shared prompt heads prefill once and dedup in "
+                         "the KV pool")
     ap.add_argument("--prefix-cache-blocks", type=int, default=None,
                     help="cache retention cap in pool blocks "
-                         "(waits for the prefix-cache slice of the port)")
+                         "(default: half of each engine's block pool)")
     ap.add_argument("--prefix-reuse", type=float, default=0.0,
                     help="probability a request shares a pooled prompt "
                          "prefix (enables prefix-reuse traffic when > 0)")
@@ -169,9 +174,6 @@ def main(argv=None):
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-reduced) architecture")
     args = ap.parse_args(argv)
-    if args.prefix_cache or args.prefix_cache_blocks is not None:
-        raise NotImplementedError(
-            "the prefix cache waits for the prefix-cache slice of the port")
     if args.mesh_tp is not None:
         raise NotImplementedError(
             "mesh placement waits for the mesh slice of the port")
@@ -193,6 +195,8 @@ def main(argv=None):
         arch=args.arch, policy=args.policy, n_instances=args.instances,
         num_slots=args.slots, kv_capacity=args.kv_capacity,
         block_lines=args.block_lines, fuse_decode_steps=args.fuse_steps,
+        prefix_cache=args.prefix_cache,
+        prefix_cache_blocks=args.prefix_cache_blocks,
         redundancy=not args.no_redundancy, hedging=not args.no_hedging,
         max_queue=args.max_queue, shed_deadline=args.shed_deadline,
         reduced=not args.full_config,
@@ -200,7 +204,8 @@ def main(argv=None):
         fleet=build_fleet(args), device=args.device)
     print(f"serving {args.arch} on {args.instances} instances "
           f"with policy={args.policy}, redundancy={spec.redundancy}, "
-          f"device={args.device}")
+          f"device={args.device}"
+          + (", prefix_cache=on" if args.prefix_cache else ""))
     print(traffic.describe())
     report = serve(spec)
     print(report.describe())

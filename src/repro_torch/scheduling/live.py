@@ -13,9 +13,10 @@ The clock is the scheduling iteration (one decode step per active
 instance per iteration); latency metrics are reported in iterations.
 
 Fleet events (kills, joins, drains, degradation; ``repro_torch.fleet``)
-apply between scheduling iterations.  Mesh placement and the prefix
-cache wait for their slices of the port: their arguments raise
-``NotImplementedError``.
+apply between scheduling iterations.  ``prefix_cache=True`` gives every
+engine a radix prefix cache: a request is stamped with its hit when it is
+admitted, and prefills only its suffix.  Mesh placement waits for its
+slice of the port: its argument raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -167,8 +168,13 @@ class LiveInstanceView:
         return self._eng.store.ledger.shared_blocks_count()
 
     def prefix_hit_tokens(self, req) -> int:
-        # the prefix cache waits for its slice of the port: no hits
-        return 0
+        eng = self._eng
+        if eng.prefix_cache is None:
+            return 0
+        key = eng._prefix_key(req)
+        if not key:
+            return 0
+        return len(eng.prefix_cache.peek_blocks(key)) * eng.store.block_lines
 
 
 class LiveClusterView:
@@ -202,6 +208,7 @@ class LiveCluster:
                  block_lines: Optional[int] = None,
                  fuse_decode_steps: int = 1,
                  prefix_cache: bool = False,
+                 prefix_cache_blocks: Optional[int] = None,
                  fleet: Optional["FleetController"] = None,
                  mesh=None, timeline_stride: int = 1,
                  max_queue: Optional[int] = None,
@@ -210,10 +217,6 @@ class LiveCluster:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh placement waits for the mesh slice of the port")
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache waits for the prefix-cache slice of the "
-                "port")
         if isinstance(policy, str):
             from repro_torch.scheduling.registry import get_policy
             policy = get_policy(policy)
@@ -229,7 +232,8 @@ class LiveCluster:
         self._engine_kwargs = dict(
             num_slots=num_slots, kv_capacity=kv_capacity,
             temperature=temperature, eos_token=eos_token,
-            block_lines=block_lines, device=device)
+            block_lines=block_lines, prefix_cache=prefix_cache,
+            prefix_cache_blocks=prefix_cache_blocks, device=device)
         self.engines = [
             InstanceEngine(cfg, params, instance_id=i, **self._engine_kwargs)
             for i in range(n_instances)
@@ -569,7 +573,8 @@ class LiveCluster:
                         req, extra = self._pending[idx][0]
                         # everyone admitted this iteration takes a slot
                         # at execution, so capacity is free MINUS the
-                        # batch so far; an eviction can free one
+                        # batch so far; an eviction can free one and a
+                        # prefix-cache pin can wall off a slot region
                         # mid-loop, so re-count every admission rather
                         # than trusting n
                         taken = len(taken_now.get(idx, ()))
@@ -579,6 +584,18 @@ class LiveCluster:
                                 self._apply(act)
                         if len(eng.free_slots()) <= taken:
                             break
+                        hit = 0
+                        if eng.prefix_cache is not None:
+                            hit = eng.prefix_stamp(req)
+                            if hit and len(eng.free_slots()) <= taken:
+                                # the pin froze the last free slot's
+                                # region: admit without the hit instead
+                                # of overcommitting the batch
+                                eng.prefix_abandon(req)
+                                hit = 0
+                        if hit:
+                            self.stats["prefix_hits"] += 1
+                            self.stats["prefix_hit_tokens"] += hit
                         self._pending[idx].pop(0)
                         taken_now.setdefault(idx, []).append((req, extra))
                         self._extras[req.rid] = extra

@@ -1,9 +1,10 @@
 """Policy registry: name -> SchedulerPolicy factory.
 
-A copy of the JAX package's registry.  ``repro_torch.api.serve`` resolves
-``accellm|vllm|splitwise|sarathi|ulb`` here.  The four ``-vec`` names of
-the JAX package need its vectorized scale layer; until the port's scale
-slice lands they raise a ``KeyError`` that names it.
+A copy of the JAX package's registry.  ``repro_torch.api.serve`` and the
+launchers resolve ``--policy accellm|vllm|splitwise|sarathi|ulb`` here,
+and the vectorized variants ``accellm-vec|vllm-vec|splitwise-vec|ulb-vec``
+of ``repro_torch.scale``; registering a new policy makes it available to
+both the live cluster and the simulator front-ends.
 """
 from __future__ import annotations
 
@@ -15,14 +16,8 @@ from repro_torch.scheduling.base import SchedulerPolicy
 from repro_torch.scheduling.baselines import (SarathiScheduler,
                                               SplitwiseScheduler,
                                               VLLMScheduler)
-from repro_torch.scheduling.ulb import ULBScheduler
 
 _REGISTRY: Dict[str, Callable[..., SchedulerPolicy]] = {}
-
-#: the JAX package's vectorized variants (``repro.scale``); they wait for
-#: the port's scale slice
-SCALE_SLICE_POLICIES = ("accellm-vec", "vllm-vec", "splitwise-vec",
-                        "ulb-vec")
 
 
 def register_policy(name: str, factory: Callable[..., SchedulerPolicy]):
@@ -36,9 +31,6 @@ def get_policy(name: str, **kwargs) -> SchedulerPolicy:
 
 
 def policy_factory(name: str) -> Callable[..., SchedulerPolicy]:
-    if name in SCALE_SLICE_POLICIES:
-        raise KeyError(f"policy {name!r} needs the vectorized scale layer, "
-                       f"which waits for the scale slice of the port")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -69,4 +61,16 @@ register_policy("vllm", VLLMScheduler)
 register_policy("splitwise", SplitwiseScheduler)
 register_policy("sarathi", SarathiScheduler)
 
+# The ULB kernel and the vectorized variants (repro_torch.scale) are
+# imported at the bottom so the base names above are registered even while
+# those modules are mid-import (scale.kernels itself imports this package).
+from repro_torch.scheduling.ulb import ULBScheduler  # noqa: E402
+from repro_torch.scale.kernels import (  # noqa: E402
+    VectorAcceLLMScheduler, VectorSplitwiseScheduler, VectorULBScheduler,
+    VectorVLLMScheduler)
+
 register_policy("ulb", ULBScheduler)
+register_policy("accellm-vec", VectorAcceLLMScheduler)
+register_policy("vllm-vec", VectorVLLMScheduler)
+register_policy("splitwise-vec", VectorSplitwiseScheduler)
+register_policy("ulb-vec", VectorULBScheduler)

@@ -24,8 +24,12 @@ hybrid Mamba+attention stack) prefill one prompt at a time and decode
 dense over all slots, as in the JAX package.  Attention-only stacks
 resume a prompt chunk by chunk (``prefill_batch`` with chunk items,
 Sarathi's chunked prefill), holding the slot in ``prefilling`` between
-chunks.  The prefix cache and mesh serving wait for later slices of the
-port and raise ``NotImplementedError``.
+chunks.  With ``prefix_cache=True`` an attention-only engine keeps a
+radix prefix cache (``repro_torch.prefixcache``) over its store's ledger:
+a request whose prompt head is resident adopts those blocks, gathers
+their rows into its window once (``PagedStore.copy_prefix``) and
+prefills only its suffix, at ``q_offset`` = the hit.  Mesh serving waits
+for a later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from repro_torch.kvstore import KVStoreError, PagedStore
 from repro_torch.models import (decode_multi, decode_step, init_state, prefill,
                                 prefill_batched, prefill_chunk)
 from repro_torch.models.state import state_bytes
+from repro_torch.prefixcache import PrefixCache, aligned_hit_lines
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.sampling import gumbel_noise, sample_slots
 from repro_torch.stepplan import (DecodePlan, PrefillItem, PrefillPlan,
@@ -52,11 +57,9 @@ class InstanceEngine:
                  temperature: float = 0.0, eos_token: Optional[int] = None,
                  seed: int = 0, block_lines: Optional[int] = None,
                  paged_decode: Optional[bool] = None,
-                 prefix_cache: bool = False, mesh=None,
+                 prefix_cache: bool = False,
+                 prefix_cache_blocks: Optional[int] = None, mesh=None,
                  device: Device = "cuda"):
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache waits for a later slice of the port")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving waits for the mesh slice of the port")
@@ -78,9 +81,6 @@ class InstanceEngine:
         self.replica_of: Dict[int, Tuple[int, int]] = {}  # slot -> (inst, slot)
         # slots mid-chunked-prefill: occupied, but not yet decoding
         self.prefilling: Dict[int, Request] = {}
-        #: the radix prefix cache of the JAX package; it waits for its
-        #: slice of the port, so an engine never has one
-        self.prefix_cache = None
         #: sampling iterations consumed so far: iteration ``i`` draws its
         #: noise from a generator seeded by (seed, instance_id, i)
         self.draws = 0
@@ -99,6 +99,17 @@ class InstanceEngine:
         #: decode through the paged kernel with the batch compacted to the
         #: active primary slots (vs the dense full-window oracle path)
         self.use_paged_decode = paged_decode and self.supports_paged_decode
+        #: radix prefix cache over the store's ledger (suffix-only prefill
+        #: rides the chunk path, so attention-only stacks only)
+        self.prefix_cache: Optional[PrefixCache] = None
+        if prefix_cache and self.supports_chunked_prefill:
+            if prefix_cache_blocks is None:
+                prefix_cache_blocks = (num_slots
+                                       * self.store.line_blocks_per_slot) // 2
+            self.prefix_cache = PrefixCache(
+                self.store.ledger, capacity_blocks=prefix_cache_blocks)
+        #: pinned hit runs awaiting their prefill's first chunk
+        self._hit_runs: Dict[int, List[int]] = {}
 
     @property
     def supports_chunked_prefill(self) -> bool:
@@ -119,12 +130,21 @@ class InstanceEngine:
     # -- capacity ------------------------------------------------------------
     def free_slots(self) -> List[int]:
         """Slots usable for a fresh admission: unoccupied (no primary, no
-        replica, no prompt mid-chunk) and with no block of their region
-        still referenced."""
+        replica, no prompt mid-chunk) AND with an allocatable own block
+        region.  A released slot whose blocks live on under the prefix
+        cache alone still counts (``_clean_slot`` evicts those entries on
+        take); one kept alive by another table's shared reference, or by
+        a pinned hit, does not: its rows are live data."""
         used = (set(self.slot_req) | set(self.replica_of)
                 | set(self.prefilling))
-        return [s for s in range(self.num_slots)
-                if s not in used and not self.store.slot_used_blocks(s)]
+        cache = self.prefix_cache
+        cached = set(cache.index.blocks()) if cache is not None else set()
+        pinned = cache.pinned() if cache is not None else set()
+        led = self.store.ledger
+        return [s for s in range(self.num_slots) if s not in used
+                and all(led.refcount(b) == 1 and b in cached
+                        and b not in pinned
+                        for b in self.store.slot_used_blocks(s))]
 
     def active_slots(self) -> List[int]:
         return sorted(self.slot_req)
@@ -160,21 +180,66 @@ class InstanceEngine:
         return self.store.slot_rid[slot]
 
     # -- prefix cache ----------------------------------------------------------
+    def _prefix_key(self, req: Request) -> List[int]:
+        """Radix key for ``req``'s shareable prompt head: its token ids,
+        trimmed to the block-aligned usable hit length.  Empty when the
+        request declares no sharing (the index only ever sees declared
+        prefixes, exactly like the token-free simulator's).  Prompt tokens
+        are host arrays, so the key costs no device sync."""
+        if (self.prefix_cache is None or req.prefix_id is None
+                or req.extra or req.prompt_tokens is None):
+            return []
+        n = aligned_hit_lines(req.prefix_len, req.prompt_len,
+                              self.store.block_lines)
+        if n <= 0:
+            return []
+        return np.asarray(req.prompt_tokens)[0, :n].tolist()
+
     def prefix_stamp(self, req: Request) -> int:
-        """Stamp ``req.prefix_hit`` once, when its prefill is first
-        scheduled.  With no prefix cache the hit is always 0."""
-        if req.prefix_hit is None:
-            req.prefix_hit = 0
+        """Consult the index once, when the prefill is first scheduled:
+        stamps ``req.prefix_hit`` (the planner prices the suffix from it)
+        and pins the hit run so eviction cannot release it before the
+        first chunk adopts it.  Idempotent across re-planning; with no
+        prefix cache the hit is always 0."""
+        if req.prefix_hit is not None:
+            return req.prefix_hit
+        key = self._prefix_key(req)
+        blocks = (self.prefix_cache.lookup_pin(req.rid, key)
+                  if key else [])
+        if blocks:
+            self._hit_runs[req.rid] = blocks
+        req.prefix_hit = len(blocks) * self.store.block_lines
         return req.prefix_hit
 
     def prefix_abandon(self, req: Request):
-        """The stamped prefill will not run here after all: drop the
-        stamp so the next placement consults its own instance."""
+        """The stamped prefill will not run here after all (requeued or
+        its instance died): drop the pin and the stamp so the next
+        placement consults its own instance's cache."""
+        self._hit_runs.pop(req.rid, None)
+        if self.prefix_cache is not None:
+            self.prefix_cache.unpin(req.rid)
         req.prefix_hit = None
 
+    def _prefix_insert(self, req: Request):
+        """Index the just-prefilled request's shareable head (its table's
+        leading blocks gain a cache reference)."""
+        key = self._prefix_key(req)
+        if not key:
+            return
+        k = len(key) // self.store.block_lines
+        self.prefix_cache.insert(key, self.store.ledger.tables[req.rid][:k])
+
     def _clean_slot(self, slot: int) -> int:
-        if self.store.slot_used_blocks(slot):
-            raise KVStoreError(f"slot {slot} region still referenced")
+        """Make ``slot``'s own block region allocatable, evicting the
+        cache entries that are its only remaining referents."""
+        used = self.store.slot_used_blocks(slot)
+        if used:
+            if self.prefix_cache is None:
+                raise KVStoreError(f"slot {slot} region still referenced")
+            self.prefix_cache.evict_obstructing(set(used))
+            if self.store.slot_used_blocks(slot):
+                raise KVStoreError(f"slot {slot} region still referenced "
+                                   f"after the cache purge")
         return slot
 
     # -- sampling --------------------------------------------------------------
@@ -267,6 +332,8 @@ class InstanceEngine:
             self.store.set_lines(req.rid, req.total_len)
         else:
             self.store.alloc(req.rid, slot, lines=req.total_len)
+        if self.prefix_cache is not None:
+            self._prefix_insert(req)
 
     def _prefill_single(self, req: Request) -> int:
         """Unpadded single-prompt path (prompts beyond the bucket, and
@@ -332,15 +399,28 @@ class InstanceEngine:
                 f"chunked prefill of a {req.prompt_len}-token prompt "
                 f"would wrap the {self.kv_capacity}-line cache window")
         if req.rid not in self.store.rid_slot:
-            # first chunk: admit the request with an empty ledger entry
-            if req.prefix_hit:
-                raise NotImplementedError(
-                    "a prefix-cache hit waits for the prefix-cache slice "
-                    "of the port")
+            # first chunk: admit the request.  A prefix-cache hit adopts
+            # the cached run as the table head (ledger: suffix blocks
+            # only) and gathers the hit rows into this slot's window once;
+            # the chunk below then resumes past the hit, never
+            # recomputing it.
+            hit = int(req.prefix_hit or 0)
+            run = self._hit_runs.get(req.rid)
+            if hit and (run is None or it.start != hit):
+                raise KVStoreError(
+                    f"rid {req.rid}: stamped hit {hit} has no pinned run "
+                    f"or its chunk starts at {it.start}")
+            self._hit_runs.pop(req.rid, None)
             slot = self._take_slot()
             self.prefilling[slot] = req
             req.phase = Phase.PREFILL
-            self.store.alloc(req.rid, slot, lines=0)
+            if hit:
+                self.store.alloc(req.rid, slot, lines=hit, shared=run)
+                self.store.copy_prefix(run, slot, hit)
+                self.prefix_cache.unpin(req.rid)
+                self.lengths[slot] = hit
+            else:
+                self.store.alloc(req.rid, slot, lines=0)
         else:
             slot = self.store.rid_slot[req.rid]
             if self.prefilling.get(slot) is not req:
@@ -517,9 +597,16 @@ class InstanceEngine:
     def import_stream(self, slot: int, chunks: Iterable, length: int,
                       last_tok: int, lines: int, req: Request,
                       as_replica_of: Optional[Tuple[int, int]] = None):
-        """Install a per-layer streamed export chunk by chunk."""
+        """Install a per-layer streamed export chunk by chunk.  When this
+        instance's prefix cache already holds the request's prompt head,
+        the new table adopts those blocks: a shared-prefix replica costs
+        only its unique suffix in pool blocks."""
         self._clean_slot(slot)
-        self.store.alloc(req.rid, slot, lines=lines)
+        run = None
+        if self.prefix_cache is not None:
+            key = self._prefix_key(req)
+            run = self.prefix_cache.peek_blocks(key) if key else None
+        self.store.alloc(req.rid, slot, lines=lines, shared=run or None)
         for path, chunk in chunks:
             self.store.import_chunk(slot, path, chunk)
         self._install(slot, length, last_tok, req, as_replica_of)
@@ -564,6 +651,8 @@ class InstanceEngine:
             to_line = src.store.lines(rid)
         if from_line is None:
             from_line = self.store.synced_line(rid)
+        # lines inside an adopted shared head are already resident here:
+        # a catch-up sync never moves them again
         from_line = max(from_line, self.store.shared_head_lines(rid))
         to_line = max(to_line, from_line)
         moved = self.store.copy_lines(src.store, src_slot, dst_slot,

@@ -67,12 +67,28 @@ class SimInstance:
     #: block-table accounting ledger (repro_torch.kvstore) — the same
     #: arithmetic the live PagedStore runs; (re)built in __post_init__
     store: Optional[SimStore] = None
+    #: radix prefix cache over the ledger (None: disabled).  The SAME
+    #: ``repro_torch.prefixcache.PrefixCache`` class the live engine runs —
+    #: only the token alphabet differs (``(prefix_id, pos)`` pairs here)
+    prefix_cache: Optional[object] = None
+    #: rid -> cached block run its ledger table adopts as a shared head
+    #: on (re)alloc; pruned to resident rids at each reconcile
+    shared_runs: Dict[int, List[int]] = field(default_factory=dict)
+    #: pinned hit runs awaiting their prefill's completion
+    hit_runs: Dict[int, List[int]] = field(default_factory=dict)
 
     def __post_init__(self):
         if self.store is None:
             self.store = SimStore(self.perf.line_costs,
                                   self.perf.kv_capacity_bytes,
                                   block_lines=self.block_lines)
+
+    def enable_prefix_cache(self, capacity_blocks: Optional[int] = None):
+        from repro_torch.prefixcache import PrefixCache
+        if capacity_blocks is None:
+            capacity_blocks = self.store.ledger.num_blocks // 2
+        self.prefix_cache = PrefixCache(self.store.ledger,
+                                        capacity_blocks=capacity_blocks)
 
     def synced_store(self) -> SimStore:
         """The ledger, reconciled to the current resident sets.  The
@@ -83,12 +99,24 @@ class SimInstance:
         resident = {rid: r.total_len for rid, r in self.decode_batch.items()}
         for rid, r in self.replicas.items():
             resident.setdefault(rid, r.total_len)
-        return self.store.reconcile(resident)
+        if self.shared_runs:
+            # a request that left residency re-stamps (and re-adopts)
+            # fresh if it ever returns — stale runs must not leak into
+            # a later realloc of the same rid
+            for rid in list(self.shared_runs):
+                if rid not in resident:
+                    del self.shared_runs[rid]
+        return self.store.reconcile(resident, shared=self.shared_runs)
 
     def state_bytes(self) -> float:
         # direct line-exact sum (== the ledger's used_bytes, same
         # LineCosts): byte reads are hot (note_peak per event, can_admit
         # per routing decision) and need no ledger reconcile
+        arrays = self.__dict__.get("_arrays")
+        if arrays is not None:
+            # array state attached: the incremental aggregates hold the
+            # same exact-integer sum
+            return arrays.recs[self.iid].state_bytes()
         costs = self.store.costs
         return (sum(costs.bytes_at(r.total_len)
                     for r in self.decode_batch.values())
@@ -103,6 +131,22 @@ class SimInstance:
 
     def note_peak(self):
         self.peak_state_bytes = max(self.peak_state_bytes, self.state_bytes())
+
+    _OBSERVED = frozenset(
+        ("decode_batch", "replicas", "prefill_queue", "alive", "draining"))
+
+    def __setattr__(self, name, value):
+        # when an ArrayClusterState (repro_torch.scale) is attached,
+        # container rebinds (``inst.prefill_queue = [...]`` in the
+        # compile/fleet paths) are re-wrapped in observing containers and
+        # fleet-state flips invalidate the usable mask — existing mutation
+        # sites stay coherent without being edited (untracked attributes
+        # skip the hook call: this intercepts every SimInstance setattr)
+        if name in SimInstance._OBSERVED:
+            arrays = self.__dict__.get("_arrays")
+            if arrays is not None:
+                value = arrays.on_setattr(self, name, value)
+        object.__setattr__(self, name, value)
 
 
 class Policy:
@@ -131,6 +175,17 @@ class Policy:
         resources without scanning global history)."""
         pass
 
+    def note_decode_advance(self, inst: SimInstance, rids, steps: int):
+        """The decode span over snapshot ``rids`` generated ``steps``
+        tokens per still-resident member — the bulk-update hook the
+        array-backed state (repro_torch.scale) uses instead of per-token
+        bookkeeping.  ``rids`` is the batch snapshot; consumers filter
+        to survivors (``rid in inst.decode_batch``) themselves, since
+        handoffs may have added non-snapshot residents mid-span and
+        finished requests already left.  Dict-backed policies need
+        nothing here."""
+        pass
+
     def on_fleet_event(self, ev, ctrl):
         """Apply a :mod:`repro_torch.fleet` event (kill / join / drain /
         degrade / recover).  ``ctrl`` is the run's ``FleetController`` —
@@ -141,7 +196,7 @@ class Policy:
 
     def abort_request(self, rid: int) -> Optional[SimRequest]:
         """Tear down every trace of ``rid`` (queue entry, decode
-        residency, replica, planner cursor); returns the
+        residency, replica, planner cursor, prefix pins); returns the
         request record if it was found, None otherwise."""
         raise NotImplementedError(
             f"policy {self.name} has no abort support")
@@ -164,13 +219,10 @@ class Simulator:
     def __init__(self, policy: Policy, perf, n_instances: int,
                  max_batch: int = 64, block_lines: int = 16,
                  prefix_cache: bool = False,
+                 prefix_cache_blocks: Optional[int] = None,
                  timeline_stride: int = 1,
                  max_queue: Optional[int] = None,
                  shed_deadline: Optional[float] = None):
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache waits for the prefix-cache slice of the "
-                "port")
         # ``perf`` is one PerfModel for a homogeneous pod, or a sequence
         # of n_instances models for a heterogeneous one (e.g. H100-class
         # and 910B2-class slices scheduled by the same kernel)
@@ -187,9 +239,14 @@ class Simulator:
         # original shape (mirrors LiveCluster._engine_kwargs)
         self.max_batch = max_batch
         self.block_lines = block_lines
+        self.prefix_cache = prefix_cache
+        self.prefix_cache_blocks = prefix_cache_blocks
         self.fleet = None            # FleetController of the active run
         self.instances = [SimInstance(i, perfs[i], max_batch, block_lines)
                           for i in range(n_instances)]
+        if prefix_cache:
+            for inst in self.instances:
+                inst.enable_prefix_cache(prefix_cache_blocks)
         self.policy = policy
         policy.bind(self)
         self.clock = ModeledSecondsClock()
@@ -408,6 +465,11 @@ class Simulator:
                         del inst.decode_batch[rid]
             self._sched_begin()
             try:
+                # the snapshot's still-resident members advanced exactly
+                # `steps` tokens; the policy filters survivors itself so
+                # dict-backed policies (a no-op hook) pay nothing
+                self.policy.note_decode_advance(inst, batch_snapshot,
+                                                steps)
                 self.policy.on_decode_done(inst, finished_now)
             finally:
                 self._sched_end()
@@ -431,6 +493,7 @@ class Simulator:
                     reset_for_reprefill(req)
             else:
                 reset_for_reprefill(req)
+            req.prefix_hit = None    # re-stamps wherever it re-routes
             self.push(self.now, "arrival", req)
             return
         inst.decode_batch[req.rid] = req

@@ -58,6 +58,23 @@ __all__ = ["AcceLLMPolicy", "VLLMPolicy", "SplitwisePolicy", "SarathiPolicy",
            "MAX_PREFILL_BATCH"]
 
 
+def sim_prefix_key(inst: SimInstance, req) -> list:
+    """The simulator's radix key for a request's shareable prompt head.
+
+    The sim is token-free, so the alphabet is ``(prefix_id, pos)``
+    pairs: two requests collide on exactly the chunks where their
+    declared shared prefix overlaps — the same hit lengths the live
+    engine computes over real token ids (group tokens are identical
+    across a prefix group there)."""
+    if (inst.prefix_cache is None
+            or getattr(req, "prefix_id", None) is None):
+        return []
+    from repro_torch.prefixcache import aligned_hit_lines
+    n = aligned_hit_lines(req.prefix_len, req.prompt_len,
+                          inst.block_lines)
+    return [(req.prefix_id, j) for j in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Views: the simulator's cost model behind the scheduling protocols
 # ---------------------------------------------------------------------------
@@ -141,9 +158,11 @@ class SimInstanceView:
 
     def prefill_backlog_tokens(self) -> int:
         # planner feedback, same as the live view: prompts mid-chunk
-        # count only their remaining (cursor-adjusted) tokens
+        # count only their remaining (cursor-adjusted) tokens, and a
+        # stamped prefix-cache hit starts the count past the hit
         cursor = self._planner.cursor if self._planner else (lambda rid: 0)
-        return sum(r.prompt_len - cursor(r.rid)
+        return sum(r.prompt_len - max(cursor(r.rid),
+                                      getattr(r, "prefix_hit", 0) or 0)
                    for r in self._i.prefill_queue)
 
     def decode_weights(self) -> Dict[int, float]:
@@ -175,7 +194,13 @@ class SimInstanceView:
         return self._i.synced_store().ledger.shared_blocks_count()
 
     def prefix_hit_tokens(self, req) -> int:
-        return 0        # no prefix cache until its slice of the port
+        cache = self._i.prefix_cache
+        if cache is None:
+            return 0
+        key = sim_prefix_key(self._i, req)
+        if not key:
+            return 0
+        return len(cache.peek_blocks(key)) * self._i.block_lines
 
 
 class SimClusterView:
@@ -211,6 +236,9 @@ class KernelPolicy(Policy):
     def __init__(self, kernel: SchedulerPolicy, fuse_decode_steps: int = 1):
         self.kernel = kernel
         self.placement = {}
+        #: array-backed cluster state (repro_torch.scale), attached at
+        #: bind time when the kernel declares ``vectorized = True``
+        self.arrays = None
         #: same configuration rule as the live executor: the kernel
         #: declares mixing/chunking, the planner shapes iterations
         self.planner = Planner.for_policy(kernel)
@@ -230,17 +258,30 @@ class KernelPolicy(Policy):
     def bind(self, sim: Simulator):
         super().bind(sim)
         if getattr(self.kernel, "vectorized", False):
-            raise NotImplementedError(
-                "the array-backed cluster state waits for the scale slice "
-                "of the port")
+            # lazy import: repro_torch.sim must stay importable without the
+            # scale layer in the loop (no cycle at module load)
+            from repro_torch.scale.state import ArrayClusterState
+            self.arrays = ArrayClusterState(sim, self.placement,
+                                            self.planner)
+            # the adapter's ledger becomes the observed dict so every
+            # placement write lands in the replica arrays
+            self.placement = self.arrays.placement
 
     def view(self) -> SimClusterView:
+        if self.arrays is not None:
+            return self.arrays.cluster_view()
         return SimClusterView(self.sim, self.placement, self.planner)
 
     def _inst_view(self, inst: SimInstance) -> SimInstanceView:
-        """A single instance's view (pair-local admission/eviction
-        decisions)."""
+        """A single instance's view, from the persistent array views
+        when attached (pair-local admission/eviction decisions)."""
+        if self.arrays is not None:
+            return self.arrays.cluster_view().instances()[inst.iid]
         return SimInstanceView(inst, self.placement, self.planner)
+
+    def note_decode_advance(self, inst, rids, steps):
+        if self.arrays is not None:
+            self.arrays.note_decode_advance(inst, rids, steps)
 
     def route(self, req: SimRequest) -> Optional[SimInstance]:
         idx = self.kernel.route(self.view(), req)
@@ -256,8 +297,12 @@ class KernelPolicy(Policy):
         nxt = self.sim.next_arrival()
         if nxt is None:
             return None
-        lengths = tuple(sorted(r.total_len
-                               for r in inst.decode_batch.values()))
+        if self.arrays is not None:
+            lens, _ = self._inst_view(inst).decode_plan_stats()
+            lengths = tuple(sorted(lens))
+        else:
+            lengths = tuple(sorted(r.total_len
+                                   for r in inst.decode_batch.values()))
         t1 = inst.perf.plan_time(DecodePlan(
             inst.iid, lengths=lengths, block_lines=inst.block_lines))
         if t1 <= 0:
@@ -294,9 +339,59 @@ class KernelPolicy(Policy):
         return in_prog, fresh
 
     def _prefill_actions(self, inst: SimInstance, reqs) -> List[Action]:
+        for r in reqs:
+            self._prefix_stamp(inst, r)
         return [Prefill(r.rid, inst.iid, r.prompt_len, req=r) for r in reqs]
 
-    # -- fleet mechanics (repro_torch.fleet) ----------------------------------------
+    # -- prefix cache ---------------------------------------------------------
+    def _prefix_stamp(self, inst: SimInstance, r: SimRequest):
+        """Consult the instance's prefix index once, when the prefill is
+        first scheduled (same stamp point as the live executor): the
+        planner then prices the PrefillItem at its unique suffix, and
+        the pinned run survives eviction until :meth:`_note_prefilled`
+        adopts it.  Idempotent across re-planning."""
+        cache = inst.prefix_cache
+        if cache is None or getattr(r, "prefix_hit", None) is not None:
+            return
+        key = sim_prefix_key(inst, r)
+        blocks = cache.lookup_pin(r.rid, key) if key else []
+        if blocks:
+            inst.hit_runs[r.rid] = blocks
+        r.prefix_hit = len(blocks) * inst.block_lines
+
+    def _note_prefilled(self, inst: SimInstance, r: SimRequest):
+        """Prefill of ``r`` completed on ``inst``: adopt the pinned hit
+        run as the resident table's shared head and index the new
+        prompt's shareable head — mirror of the live engine's
+        first-chunk adoption + ``_prefix_insert``.
+
+        A request that was handed off after prefill (Splitwise-style:
+        never resident here) still seeds the cache: its head blocks are
+        allocated, retained by the index, and the unique suffix is
+        returned to the pool at once — the live engine's
+        release-after-stream, where the cache alone keeps the prompt
+        head alive on the prefill instance."""
+        cache = inst.prefix_cache
+        if cache is None:
+            return
+        run = inst.hit_runs.pop(r.rid, None)
+        resident = r.rid in inst.decode_batch or r.rid in inst.replicas
+        if resident and (getattr(r, "prefix_hit", None) or 0) and run:
+            inst.shared_runs[r.rid] = run
+        cache.unpin(r.rid)
+        key = sim_prefix_key(inst, r)
+        if not key:
+            return
+        led = inst.synced_store().ledger
+        k = len(key) // inst.block_lines
+        if resident:
+            cache.insert(key, led.tables[r.rid][:k])
+        elif r.rid not in led.tables:
+            led.alloc(r.rid, r.total_len, shared=run)
+            cache.insert(key, led.tables[r.rid][:k])
+            led.free(r.rid)
+
+    # -- fleet mechanics (repro_torch.fleet) ----------------------------------
     def on_fleet_event(self, ev, ctrl: FleetController):
         if isinstance(ev, KillInstance):
             self._fleet_kill(ev.instance, ctrl)
@@ -340,7 +435,7 @@ class KernelPolicy(Policy):
     # -- abort lifecycle / deadline shedding ----------------------------------
     def abort_request(self, rid: int) -> Optional[SimRequest]:
         """First-class cancel: remove every trace of ``rid`` — queue
-        entry, decode residency, replica + lag marks,
+        entry, decode residency, replica + lag marks, prefix pins,
         planner cursor, placement — on every instance.  The ledgers
         reconcile to the shrunken resident sets on next read, so the
         blocks are freed with zero leakage."""
@@ -359,6 +454,10 @@ class KernelPolicy(Policy):
             if r is not None:
                 found = found or r
             inst.synced_marks.pop(rid, None)
+            inst.hit_runs.pop(rid, None)
+            inst.shared_runs.pop(rid, None)
+            if inst.prefix_cache is not None:
+                inst.prefix_cache.unpin(rid)
         self.placement.pop(rid, None)
         self.planner.forget(rid)
         if found is not None:
@@ -379,6 +478,10 @@ class KernelPolicy(Policy):
         gone = {r.rid for r in overdue}
         inst.prefill_queue = [r for r in inst.prefill_queue
                               if r.rid not in gone]
+        for r in overdue:
+            inst.hit_runs.pop(r.rid, None)
+            if inst.prefix_cache is not None:
+                inst.prefix_cache.unpin(r.rid)
         return overdue
 
     def _rebind_topology(self):
@@ -430,6 +533,7 @@ class KernelPolicy(Policy):
             ctrl.stats["requeues"] += 1
             ctrl.stats["lost_decode_tokens"] += r.generated
             ctrl.stats["reprefill_tokens"] += reset_for_reprefill(r)
+            r.prefix_hit = None     # re-stamps wherever it re-routes
             self.planner.forget(rid)
             old = self.placement.pop(rid, (None, None))
             if old[1] is not None and old[1] != iid:
@@ -459,6 +563,7 @@ class KernelPolicy(Policy):
         for r in fresh:
             ctrl.note("requeue", r.rid)
             ctrl.stats["requeue_backlog"] += 1
+            r.prefix_hit = None
             sim.push(sim.now, "arrival", r)
         for r in mid:
             ctrl.note("requeue", r.rid)
@@ -466,10 +571,17 @@ class KernelPolicy(Policy):
             ctrl.stats["reprefill_tokens"] += self.planner.cursor(r.rid)
             self.planner.forget(r.rid)
             reset_for_reprefill(r)
+            r.prefix_hit = None
             sim.push(sim.now, "arrival", r)
         inst.prefill_queue = []
         inst.replicas.clear()
         inst.synced_marks.clear()
+        # the prefix cache dies with the HBM it indexed (rejoin at this
+        # rank starts cold) — same teardown as the live executor
+        inst.hit_runs.clear()
+        inst.shared_runs.clear()
+        if inst.prefix_cache is not None:
+            inst.prefix_cache.release_all()
         inst.alive = False
         inst.draining = False
         for other in sim.instances:
@@ -487,6 +599,8 @@ class KernelPolicy(Policy):
         else:
             inst = SimInstance(len(sim.instances), sim.perf, sim.max_batch,
                                sim.block_lines)
+            if sim.prefix_cache:
+                inst.enable_prefix_cache(sim.prefix_cache_blocks)
             sim.instances.append(inst)
         ctrl.note("join", inst.iid)
         ctrl.stats["joins"] += 1
@@ -564,6 +678,7 @@ class VLLMPolicy(KernelPolicy):
                 self.sim.finished.append(r)
             else:
                 inst.decode_batch[r.rid] = r
+            self._note_prefilled(inst, r)
         inst.note_peak()
 
 
@@ -641,6 +756,7 @@ class SplitwisePolicy(KernelPolicy):
             if r.done:
                 r.finish_time = self.sim.now
                 self.sim.finished.append(r)
+                self._note_prefilled(inst, r)
                 continue
             actions = self.kernel.place_after_prefill(self.view(), inst.iid,
                                                       r)
@@ -651,6 +767,9 @@ class SplitwisePolicy(KernelPolicy):
             # a browned-out link (DegradeInstance.link_factor) stretches
             # the un-overlapped KV handoff
             dt *= inst.link_degrade
+            # the request leaves for its decode instance: the prefill
+            # instance's cache still indexes the prompt head it computed
+            self._note_prefilled(inst, r)
             self.sim.push(self.sim.now + dt, "join_decode", (act.dst, r))
 
 
@@ -773,6 +892,18 @@ class AcceLLMPolicy(KernelPolicy):
             if rep_iid is not None:
                 self.sim.instances[rep_iid].replicas[r.rid] = r
             self.placement[r.rid] = (dst_iid, rep_iid)
+            self._note_prefilled(inst, r)
+            # the copy landing on the OTHER instance adopts ITS cache's
+            # resident head, if any (the live engine's import_stream
+            # peek): a shared-prefix replica holds only its unique
+            # suffix in new pool blocks
+            for iid in {dst_iid, rep_iid} - {inst.iid, None}:
+                other = self.sim.instances[iid]
+                key = sim_prefix_key(other, r)
+                if key and other.prefix_cache is not None:
+                    run2 = other.prefix_cache.peek_blocks(key)
+                    if run2:
+                        other.shared_runs[r.rid] = run2
             dst.note_peak()
             if rep_iid is not None:
                 self.sim.instances[rep_iid].note_peak()

@@ -21,7 +21,9 @@ within 1e-4 max abs (the packages sum in different orders).
   admission, deadline shedding and aborts;
 * the hybrid stack under accellm (no chunk execution);
 * entry points raise without a card unless given ``device="cpu"``, and
-  the mesh and prefix-cache paths raise ``NotImplementedError``.
+  the mesh path raises ``NotImplementedError`` (the prefix cache and the
+  ``-vec`` policies run: ``tests/test_torch_prefixcache.py`` and
+  ``tests/test_torch_scale.py``).
 """
 import jax
 import numpy as np
@@ -404,14 +406,21 @@ def test_entry_points_refuse_cpu_fallback(setup, monkeypatch):
 
 def test_later_slices_raise(setup):
     _, cfg, _, params = setup
-    for kw, what in (({"mesh": object()}, "mesh"),
-                     ({"prefix_cache": True}, "prefix")):
-        with pytest.raises(NotImplementedError, match=what):
-            LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu", **kw)
-        spec_kw = {"mesh_tp": 2} if what == "mesh" else {"prefix_cache": True}
-        with pytest.raises(NotImplementedError, match=what):
-            tapi.build_cluster(tapi.ServeSpec(device="cpu", **spec_kw),
-                               cfg=cfg, params=params)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu",
+                    mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tapi.build_cluster(tapi.ServeSpec(device="cpu", mesh_tp=2),
+                           cfg=cfg, params=params)
+    # the prefix-cache slice has landed: every engine gets a cache
+    # (tests/test_torch_prefixcache.py holds it against the JAX package)
+    cluster = LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu",
+                          prefix_cache=True)
+    assert all(e.prefix_cache is not None for e in cluster.engines)
+    cluster = tapi.build_cluster(tapi.ServeSpec(
+        device="cpu", prefix_cache=True, n_instances=2, num_slots=2,
+        kv_capacity=16), cfg=cfg, params=params)
+    assert all(e.prefix_cache is not None for e in cluster.engines)
     # the fleet slice has landed: its paths run (tests/test_torch_fleet.py
     # holds them against the JAX package)
     cluster = LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu")
@@ -425,5 +434,7 @@ def test_later_slices_raise(setup):
         "degrade", "recover", "kill", "join", "drain", "drained"]
     with pytest.raises(ValueError, match="unknown fleet event"):
         cluster._apply_fleet_event(None)
-    with pytest.raises(KeyError, match="scale slice"):
-        LiveCluster(cfg, params, 2, 2, 16, "accellm-vec", device="cpu")
+    # the scale slice has landed: a -vec kernel runs on the live executor
+    # through its scalar parent (tests/test_torch_scale.py)
+    assert LiveCluster(cfg, params, 2, 2, 16, "accellm-vec",
+                       device="cpu").policy.name == "accellm-vec"

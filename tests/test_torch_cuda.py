@@ -359,3 +359,42 @@ def test_fleet_kill_and_rejoin_on_card_matches_cpu(policy):
         assert fs["promotions"] > 0 and fs["reprefill_tokens"] == 0
     else:
         assert fs["requeues"] > 0 and fs["reprefill_tokens"] > 0
+
+
+@pytest.mark.cuda
+def test_prefix_cache_serve_on_card_matches_cpu():
+    """A 2-instance accellm cluster with the prefix cache serves a
+    shared-prefix stream on the card as on the CPU: equal hits, stats and
+    plan trace; and in f32 its tokens equal the same serve's with the cache
+    off (a hit's suffix prefill runs the prefill kernel at q_offset = hit
+    over rows gathered from other slots)."""
+    _need_cuda()
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.scheduling import LiveCluster
+    from repro_torch.workloads import (Poisson, PrefixReuse, UniformLengths,
+                                       WorkloadSpec)
+    cfg, p_cpu, p_card = _reduced_starcoder()
+    spec = WorkloadSpec(arrival=Poisson(rate=0.6, duration=14.0),
+                        lengths=UniformLengths(prompt=(20, 40),
+                                               decode=(3, 6)),
+                        name="prefix-heavy",
+                        prefix_reuse=PrefixReuse(pool=2, reuse=0.8,
+                                                 prefix_len=16))
+    out = {}
+    for dev, params, cache in (("cpu", p_cpu, True), ("cuda", p_card, True),
+                               ("cuda", p_card, False)):
+        cluster = LiveCluster(cfg, params, 2, 4, 64, "accellm",
+                              block_lines=8, prefix_cache=cache, device=dev)
+        cluster.planner.trace = []
+        reset_counts()
+        done = cluster.run(max_steps=300,
+                           source=spec.source(seed=3, cfg=cfg))
+        out[dev, cache] = (
+            {r.rid: r.output_tokens for r in done}, dict(cluster.stats),
+            cluster.planner.trace, read_counts()["flash_attention"])
+    on_cpu, on_card, off_card = (out["cpu", True], out["cuda", True],
+                                 out["cuda", False])
+    assert on_card[1]["prefix_hits"] > 0 and off_card[1]["prefix_hits"] == 0
+    assert on_card[1:3] == on_cpu[1:3]
+    assert on_card[0] == on_cpu[0] == off_card[0]
+    assert on_card[3]["launches"] > 0 and on_card[3]["plain_calls"] == 0

@@ -25,6 +25,7 @@ from repro.stepplan import PrefillItem as RPrefillItem
 from repro.stepplan import PrefillPlan as RPrefillPlan
 import repro_torch.configs as tcfg
 from repro_torch.bridge import params_from_numpy
+from repro_torch.kvstore import KVStoreError
 from repro_torch.serving import InstanceEngine, Request
 from repro_torch.serving.sampling import sample_slots
 from repro_torch.stepplan import PrefillItem, PrefillPlan
@@ -306,22 +307,23 @@ def test_sample_slots_invariant_to_batch_composition():
 
 def test_later_slices_raise(setup):
     _, cfg, _, params = setup
-    with pytest.raises(NotImplementedError):
-        _engine(cfg, params, prefix_cache=True)
+    # the prefix-cache slice has landed (tests/test_torch_prefixcache.py)
+    assert _engine(cfg, params, prefix_cache=True).prefix_cache is not None
     with pytest.raises(NotImplementedError):
         _engine(cfg, params, mesh=object())
     eng = _engine(cfg, params)
     # chunk resume and streamed exports run since the cluster slice; a
-    # chunk of a prompt that would wrap the 16-line window, a prefix-cache
-    # hit and a streamed encoder memory still wait for later slices
+    # chunk of a prompt that would wrap the 16-line window and a streamed
+    # encoder memory still wait for later slices
     req = _mk(cfg, 0, 20)
     chunk = PrefillPlan(0, (PrefillItem(req.rid, 20, 0, 8, req=req),), 16)
     with pytest.raises(NotImplementedError):
         eng.prefill_batch(chunk)
+    # a stamped hit with no pinned run behind it is refused
     hit = _mk(cfg, 2, 12)
     hit.prefix_hit = 8
     chunk = PrefillPlan(0, (PrefillItem(hit.rid, 12, 8, 12, req=hit),), 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KVStoreError):
         eng.prefill_batch(chunk)
     slot = eng.prefill_request(_mk(cfg, 1, 5))
     with pytest.raises(NotImplementedError):

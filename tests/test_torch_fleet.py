@@ -571,9 +571,18 @@ def test_launch_serve_runs_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--prefix-cache"], "prefix-cache slice"),
-    (["--prefix-cache-blocks", "8"], "prefix-cache slice"),
+    (["--prefix-cache"], None),
+    (["--prefix-cache-blocks", "8"], None),
     (["--mesh-tp", "2"], "mesh slice")])
-def test_launch_serve_later_slices_raise(flags, what):
-    with pytest.raises(NotImplementedError, match=what):
-        tlserve.main(["--arch", "starcoder2-3b", "--device", "cpu"] + flags)
+def test_launch_serve_later_slices_raise(flags, what, capsys):
+    """``--mesh-tp`` waits for its slice; the prefix-cache flags serve
+    since the prefix-cache slice."""
+    argv = ["--arch", "starcoder2-3b", "--device", "cpu"] + flags
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=what):
+            tlserve.main(argv)
+        return
+    assert tlserve.main(argv + ["--instances", "2", "--requests", "3",
+                                "--slots", "4", "--kv-capacity", "64",
+                                "--scale", "0.02"]) == 0
+    assert "stats:" in capsys.readouterr().out

@@ -41,10 +41,17 @@ def test_every_module_imports_without_jax_or_repro():
 @pytest.mark.parametrize("module", ["repro_torch.fleet", "repro_torch.sim",
                                     "repro_torch.launch.serve",
                                     "repro_torch.launch.fleet",
-                                    "repro_torch.kvstore.sim"])
+                                    "repro_torch.kvstore.sim",
+                                    "repro_torch.prefixcache",
+                                    "repro_torch.prefixcache.index",
+                                    "repro_torch.scale",
+                                    "repro_torch.scale.state",
+                                    "repro_torch.scheduling.registry"])
 def test_fleet_sim_and_launch_import_alone(module):
-    """The fleet layer, the simulator, the launchers and the simulator's
-    store import on their own without JAX or the JAX package."""
+    """The fleet layer, the simulator, the launchers, the simulator's
+    store, the prefix cache and the scale layer (whose kernels the
+    registry imports) import on their own without JAX or the JAX
+    package."""
     assert module in _modules()
     code = (
         "import importlib, sys\n"

@@ -238,15 +238,19 @@ def test_sim_store_ledger_matches_reference():
 
 
 def test_later_slices_raise():
+    """The prefix-cache and scale slices have landed: the simulator takes
+    ``prefix_cache=True`` and attaches the array state for a vectorized
+    kernel (``tests/test_torch_prefixcache.py``,
+    ``tests/test_torch_scale.py``)."""
     perf = _perf(_PORT)
-    with pytest.raises(NotImplementedError, match="prefix-cache slice"):
-        tsim.Simulator(tsim.AcceLLMPolicy(), perf, n_instances=2,
-                       prefix_cache=True)
+    sim = tsim.Simulator(tsim.AcceLLMPolicy(), perf, n_instances=2,
+                         prefix_cache=True, prefix_cache_blocks=8)
+    assert all(i.prefix_cache.capacity_blocks == 8 for i in sim.instances)
     kernel = AcceLLMScheduler()
     kernel.vectorized = True
-    with pytest.raises(NotImplementedError, match="scale slice"):
-        tsim.Simulator(tsim.AcceLLMPolicy(kernel=kernel), perf,
-                       n_instances=2)
+    sim = tsim.Simulator(tsim.AcceLLMPolicy(kernel=kernel), perf,
+                         n_instances=2)
+    assert sim.policy.arrays is not None
 
 
 # ---------------------------------------------------------------------------
