@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs sixteen phases,
+port's kernels from ``src/repro_torch/csrc``, and runs twenty phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -110,11 +110,40 @@ each of which exits non-zero on failure:
 16. consistency-hybrid — in f32 on Jamba's first 3 layers (mamba; mamba +
     MoE; mamba) with capacity factor 8: decode logits after 1, 8 and 16
     steps against a fresh prefill within 1e-3 * max|logit|, and each
-    mamba layer's ssm state within 1e-4 relative.
+    mamba layer's ssm state within 1e-4 relative;
+17. serve-deepseek — deepseek-v3-671b at its published widths, depth cut
+    to layers 0-3 (three dense layers, the first MoE layer: 256 experts
+    top-8 and a shared one) with the MTP head's weights (~30.9 GB in
+    bf16): the serve phase's six requests behind one 8-slot engine with a
+    1024-line window (bucketed prefill, dense absorbed-latent decode);
+    decode ms per step at 1, 4 and 8 active, prefill tokens/s and a
+    profiled decode plan.  MLA computes outside every kernel, as in the
+    JAX package: no kernel may launch and no plain version run;
+18. cluster-deepseek — the same weights through ``api.serve`` with the
+    cluster phase's spec and stream, MoE dispatch dropless (capacity
+    factor 32): every request must finish, mirror syncs and a promotion
+    must happen, mirror and stream bytes must equal ``LineCosts`` over
+    the lines moved (4 x 1,152 B a line), tokens must equal one 8-slot
+    engine's on the same requests up to near-ties (phase 8's rule, the
+    f32 rows in 128-token chunks on an f32 redraw); then sarathi with
+    128-token chunks over 60 iterations: chunks must resume and the MLA
+    layer expand cached latent rows (history > 0); no kernel launched;
+19. consistency-deepseek — in f32 at full width on one dense and one MoE
+    layer, dropless (~57 GB): absorbed decode after 1, 8 and 16 steps
+    against a fresh materialized prefill, and a prompt's final chunk (at
+    history 128) against the whole prompt, within 1e-3 * max|logit|;
+20. serve-xlstm — xlstm-1.3b at full width and depth (48 blocks, 42 mLSTM
+    and 6 sLSTM) in bf16 through the serve phase's six requests (one
+    prompt at a time, dense decode; no kernel launched), then in f32 16
+    decode steps against fresh prefills within 1e-3 * max|logit| (a
+    200-token prompt: the stepwise mLSTM), and the chunkwise mLSTM against
+    the stepwise one on a 256-token prompt (printed).
 
 Each phase group's weights are freed before the next: starcoder2's after
 phases 3-5, 6-9 and 10, minicpm-2b's after 11, the bf16 Jamba weights
-before the f32 ones.  TF32 is off for matmuls and cuDNN.
+before the f32 ones, deepseek's bf16 weights before its f32 ones, and
+xlstm-1.3b's bf16 weights once upcast.  TF32 is off for matmuls and
+cuDNN.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
 """
@@ -599,17 +628,32 @@ def _check_path_counts(counts, path_kernels, phase):
               f"{c['plain_calls']} times on the main path")
 
 
-def _serve_six(torch, np, cfg, params, dev, phase):
+#: the kernels of an attention-only GQA engine's serve
+PAGED_PATH = ("flash_attention", "paged_decode_attention")
+
+
+def _check_no_kernel(counts, phase):
+    """A path that computes outside every kernel of the port (MLA, xLSTM)
+    launches none of them and runs none of their plain versions."""
+    for name, c in counts.items():
+        check(c == {"launches": 0, "plain_calls": 0},
+              f"{phase}: {name} ran on a path that reaches no kernel: {c}")
+
+
+def _serve_six(torch, np, cfg, params, dev, phase, window=512,
+               path_kernels=PAGED_PATH):
     """Six greedy requests (prompts 100 to 500, 32 tokens each) behind one
-    8-slot engine with a 512-line window: bucketed ``prefill_batch``,
+    8-slot engine with a ``window``-line window: bucketed (or, for a
+    recurrent stack, one-prompt) ``prefill_batch``,
     ``decode_multi(steps=8)`` and the ring wrap; every request must finish,
-    every logit be finite, the prefill and paged decode kernels must
-    launch and no plain version run.  Then decode ms per step at 1, 4 and
-    8 active.  Returns (counts, per_step, (rng, request, engine, admit))."""
+    every logit be finite, the ``path_kernels`` must launch and no plain
+    version run (with no path kernels: no kernel may launch at all).  Then
+    decode ms per step at 1, 4 and 8 active.  Returns (counts, per_step,
+    (rng, request, engine, admit))."""
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
-    helpers = _serving(cfg, params, dev, np, 0, 512)
+    helpers = _serving(cfg, params, dev, np, 0, window)
     _, request, engine, admit = helpers
 
     finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
@@ -640,8 +684,9 @@ def _serve_six(torch, np, cfg, params, dev, phase):
     check(all(len(r.output_tokens) == 32 for r in reqs),
           f"{phase}: output lengths {[len(r.output_tokens) for r in reqs]}")
     check(bool(torch.stack(finite).all()), f"{phase}: non-finite logits")
-    _check_path_counts(counts, ("flash_attention", "paged_decode_attention"),
-                       phase)
+    _check_path_counts(counts, path_kernels, phase)
+    if not path_kernels:
+        _check_no_kernel(counts, phase)
     log(f"{phase}: 6 requests x 32 tokens done; prefill {sum(prompts)} tokens "
         f"in {prefill_s * 1e3:.1f} ms = "
         f"{sum(prompts) / prefill_s:.0f} tokens/s; {decode_steps} "
@@ -665,19 +710,22 @@ def _serve_six(torch, np, cfg, params, dev, phase):
     return counts, per_step, helpers
 
 
-def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase):
-    """In f32: 16 greedy decode steps through the paged kernel after a
-    200-token prompt, the logits after steps 1, 8 and 16 against a fresh
-    prefill (through the prefill kernel) over the prompt plus the
-    generated tokens, within 1e-3 * max|logit|."""
-    from repro_torch.models import decode_step_paged, init_state, prefill
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = _tree_map(lambda t: t.float(), params)
-    log(f"{phase}: f32 weights {_weight_bytes(params32) / 1e9:.3f} GB")
+def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase, paged=True):
+    """In f32 (weights of another dtype are upcast first): 16 greedy
+    decode steps after a 200-token prompt, through the paged kernel or,
+    with ``paged`` off, dense; the logits after steps 1, 8 and 16 against
+    a fresh prefill over the prompt plus the generated tokens, within
+    1e-3 * max|logit|.  Returns the prompt."""
+    from repro_torch.models import (decode_step, decode_step_paged,
+                                    init_state, prefill)
+    if cfg.dtype != "float32":
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = _tree_map(lambda t: t.float(), params)
+        log(f"{phase}: f32 weights {_weight_bytes(params) / 1e9:.3f} GB")
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
                                           dtype=np.int32), device=dev)
-    state = init_state(cfg32, 1, 256, device=dev)
-    logits, state = prefill(cfg32, params32, {"tokens": prompt}, state)
+    state = init_state(cfg, 1, 256, device=dev)
+    logits, state = prefill(cfg, params, {"tokens": prompt}, state)
     tables = torch.arange(256 // 16, dtype=torch.int32, device=dev)[None]
     slots = torch.zeros((1,), dtype=torch.int32, device=dev)
     gen_toks, dec_logits = [], {}
@@ -685,20 +733,24 @@ def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase):
         tok = logits.argmax(-1).to(torch.int32)
         gen_toks.append(tok)
         t = torch.full((1,), 200 + step - 1, dtype=torch.int32, device=dev)
-        logits, state = decode_step_paged(cfg32, params32, tok[:, None], state,
-                                          t, slots, tables, 16)
+        if paged:
+            logits, state = decode_step_paged(cfg, params, tok[:, None],
+                                              state, t, slots, tables, 16)
+        else:
+            logits, state = decode_step(cfg, params, tok[:, None], state, t)
         if step in (1, 8, 16):
             dec_logits[step] = logits
     for step, dl in dec_logits.items():
         toks = torch.cat([prompt, torch.stack(gen_toks[:step], dim=1)], dim=1)
-        fresh = init_state(cfg32, 1, 256, device=dev)
-        pl, _ = prefill(cfg32, params32, {"tokens": toks}, fresh)
+        fresh = init_state(cfg, 1, 256, device=dev)
+        pl, _ = prefill(cfg, params, {"tokens": toks}, fresh)
         err = max_err(dl, pl)
         scale = float(pl.abs().max())
         log(f"{phase}: step {step}: max |decode - prefill| {err:.3e}, "
             f"max |logit| {scale:.3f}, ratio {err / scale:.3e} (limit 1e-3)")
         check(err <= 1e-3 * scale, f"{phase}: step {step} differs by "
               f"{err} against max logit {scale}")
+    return prompt
 
 
 def phase_dense(torch, dev, np):
@@ -1161,15 +1213,11 @@ def _tie_limit(row16, row32):
     return 2.0 * float((row16 - row32).abs().max())
 
 
-def _tokens_against(torch, cfg, params, params32, window, reference,
-                    requests, phase):
-    """Each request's tokens against the same request's in ``reference``
-    (rid -> Request), at T = 0.  Where they first differ, the prompt and
-    the common tokens go through one fresh prefill in bf16 and one in f32:
-    the pair is a near-tie (printed) when its f32 gap is within
-    :func:`_tie_limit` of that row, and a fault otherwise."""
-    dev = _leaves(params)[0].device
-    near, faults = [], []
+def _first_differences(requests, reference, phase):
+    """(request, step, its token, the reference's token) where each
+    request's tokens first differ from the same request's in
+    ``reference`` (rid -> Request)."""
+    out = []
     for r in requests:
         ref = reference[r.rid]
         check(bool((ref.prompt_tokens == r.prompt_tokens).all()),
@@ -1177,24 +1225,51 @@ def _tokens_against(torch, cfg, params, params32, window, reference,
         j = next((j for j, (a, b) in enumerate(zip(r.output_tokens,
                                                   ref.output_tokens))
                   if a != b), None)
-        if j is None:
-            continue
-        toks = torch.as_tensor(r.prompt_tokens, device=dev)
-        if j:
-            toks = torch.cat([toks, torch.tensor([r.output_tokens[:j]],
-                                                 dtype=toks.dtype,
-                                                 device=dev)], dim=1)
-        row16, row32 = _rows16_32(cfg, params, params32, window, toks)
-        a, b = int(r.output_tokens[j]), int(ref.output_tokens[j])
+        if j is not None:
+            out.append((r, j, int(r.output_tokens[j]),
+                        int(ref.output_tokens[j])))
+    return out
+
+
+def _with_outputs(torch, r, j, dev):
+    """Request ``r``'s prompt followed by its first ``j`` tokens, (1, S)."""
+    toks = torch.as_tensor(r.prompt_tokens, device=dev)
+    if not j:
+        return toks
+    return torch.cat([toks, torch.tensor([r.output_tokens[:j]],
+                                         dtype=toks.dtype, device=dev)], dim=1)
+
+
+def _judge_ties(rows, phase):
+    """Each differing pair (rid, step, token, reference token, its row's
+    bf16 and f32 logits) is a near-tie (printed) when the two tokens' f32
+    gap is within :func:`_tie_limit` of that row, and a fault otherwise;
+    returns the near-ties."""
+    near, faults = [], []
+    for rid, j, a, b, row16, row32 in rows:
         gap, limit = abs(float(row32[a] - row32[b])), _tie_limit(row16, row32)
-        (near if gap <= limit else faults).append((r.rid, j, a, b, gap,
-                                                   limit))
+        (near if gap <= limit else faults).append((rid, j, a, b, gap, limit))
     for rid, j, a, b, gap, limit in near + faults:
         log(f"{phase}: request {rid} step {j}: token {a}, reference {b}; "
             f"f32 gap {gap:.3e}, bf16 limit on this row {limit:.3e} "
             f"({'near-tie' if gap <= limit else 'FAULT'})")
     check(not faults, f"{phase}: tokens differ beyond a near-tie: {faults}")
     return near
+
+
+def _tokens_against(torch, cfg, params, params32, window, reference,
+                    requests, phase):
+    """Each request's tokens against the same request's in ``reference``
+    (rid -> Request), at T = 0.  Where they first differ, the prompt and
+    the common tokens go through one fresh prefill in bf16 and one in f32,
+    and :func:`_judge_ties` judges the pair."""
+    dev = _leaves(params)[0].device
+    rows = []
+    for r, j, a, b in _first_differences(requests, reference, phase):
+        row16, row32 = _rows16_32(cfg, params, params32, window,
+                                  _with_outputs(torch, r, j, dev))
+        rows.append((r.rid, j, a, b, row16, row32))
+    return _judge_ties(rows, phase)
 
 
 def _tie_limits(torch, cfg, params, params32, window, requests, phase):
@@ -2127,6 +2202,385 @@ def phase_consistency_hybrid(torch, dev, np):
               f"states differ by {rels} relative")
 
 
+# ---------------------------------------------------------------------------
+# 17-20: deepseek-v3-671b (MLA) and xlstm-1.3b, outside every kernel
+# ---------------------------------------------------------------------------
+
+
+def _deepseek(layers=4, dropless=False, **kw):
+    """deepseek-v3-671b at its published widths, depth cut to its first
+    ``layers`` layers; ``dropless`` sets the capacity factor to experts /
+    top-k, so that no expert assignment is ever dropped and a token's
+    output does not depend on its batch neighbours."""
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-v3-671b")
+    moe = kw.pop("moe", full.moe)
+    if dropless:
+        moe = dataclasses.replace(moe, capacity_factor=moe.num_experts
+                                  / moe.top_k)
+    return _depth_cut(full, layers, moe=moe, **kw)
+
+
+def _describe_mla(cfg):
+    m, moe = cfg.mla, cfg.moe
+    return (f"{cfg.name} full width, depth cut to layers "
+            f"0-{cfg.num_layers - 1} (MoE on "
+            f"{[i for i in range(cfg.num_layers) if cfg.layer_is_moe(i)]}): "
+            f"d_model {cfg.d_model}, {cfg.num_heads} heads, MLA q rank "
+            f"{m.q_lora_rank}, kv rank {m.kv_lora_rank}, qk "
+            f"{m.qk_nope_head_dim}+{m.qk_rope_head_dim}, v {m.v_head_dim}; "
+            f"dense d_ff {moe.first_dense_d_ff}, {moe.num_experts} experts "
+            f"top-{moe.top_k} d_ff {moe.expert_d_ff} + "
+            f"{moe.num_shared_experts} shared, capacity factor "
+            f"{moe.capacity_factor}; MTP depth {cfg.mtp_depth}; vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}")
+
+
+def _draw(torch, cfg, seed, dev, phase):
+    """Random weights for ``cfg`` from ``seed`` on the card, logged with
+    their bytes and the seconds the draw took."""
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    torch.cuda.synchronize()
+    log(f"{phase}: weights {_weight_bytes(params) / 1e9:.3f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s (param_count {cfg.param_count()})")
+    return params
+
+
+def _watch_history(attention_mod):
+    """Patch the MLA layer to count the calls that expand cached latent
+    rows (``history > 0``, a chunk resume); returns (counter, restore)."""
+    plain = attention_mod.mla_forward
+    calls = {"history>0": 0}
+
+    def watched(cfg, params, x, **kw):
+        if kw.get("history", 0) > 0:
+            calls["history>0"] += 1
+        return plain(cfg, params, x, **kw)
+
+    def restore():
+        attention_mod.mla_forward = plain
+
+    attention_mod.mla_forward = watched
+    return calls, restore
+
+
+def _mla_near_ties(torch, cfg, held, seed, diffs, window, phase):
+    """Phase 8's near-tie rule for the depth-cut deepseek, whose weights do
+    not fit on the card twice: each differing row's bf16 logits first,
+    then the bf16 weights are freed and the same draw is made in f32 and
+    rounded to the bf16 values (the router stays f32, as in the bf16
+    model); the f32 row is prefilled in 128-token chunks, so the dropless
+    dispatch buffer stays small beside 62 GB of weights.  A pair is a
+    near-tie when its f32 gap is within twice the row's max |bf16 - f32|.
+    ``held`` is a one-element list holding the last reference to the bf16
+    weights, which this empties."""
+    from repro_torch.models import init_state, prefill, prefill_chunk
+    params = held.pop()
+    dev = _leaves(params)[0].device
+    rows16 = []
+    for r, j, a, b in diffs:
+        logits, _ = prefill(cfg, params, {"tokens": _with_outputs(
+            torch, r, j, dev)}, init_state(cfg, 1, window, device=dev))
+        rows16.append(logits[0].float())
+    dtypes = [t.dtype for t in _leaves(params)]
+    del params
+    _free(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _draw(torch, cfg32, seed, dev, f"{phase} near-tie check")
+    for t, dt in zip(_leaves(params32), dtypes):
+        if dt != torch.float32:
+            t.copy_(t.to(dt).float())
+    rows = []
+    for (r, j, a, b), row16 in zip(diffs, rows16):
+        toks = _with_outputs(torch, r, j, dev)
+        state = init_state(cfg32, 1, window, device=dev)
+        for lo in range(0, toks.shape[1], 128):
+            logits, state = prefill_chunk(cfg32, params32,
+                                          toks[:, lo: lo + 128], state,
+                                          history=lo)
+        rows.append((r.rid, j, a, b, row16, logits[0]))
+    return _judge_ties(rows, phase)
+
+
+def phase_deepseek(torch, dev, np):
+    """Phases 17-18 on deepseek-v3-671b at full width, depth cut to layers
+    0-3 (three dense layers, the first 256-expert MoE layer), in bf16:
+    serve-deepseek, then cluster-deepseek on the same weights; returns
+    each path's kernel counts."""
+    from repro_torch.api import ServeReport, build_cluster, serve
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.kvstore import LineCosts
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.serving import InstanceEngine, Request
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import sampling as sampling_mod
+
+    # -- 17. serve-deepseek -----------------------------------------------------
+    t_phase = time.perf_counter()
+    seed = 7
+    cfg = _deepseek()
+    costs = LineCosts.from_config(cfg)
+    log(f"serve-deepseek: {_describe_mla(cfg)}; a latent line is "
+        f"{costs.line_bytes:.0f} B ({cfg.num_layers} layers x "
+        f"{costs.line_bytes / cfg.num_layers:.0f})")
+    params = _draw(torch, cfg, seed, dev, "serve-deepseek")
+    counts = {}
+    counts["serve-deepseek"], per_step, (_, request, engine, admit) = \
+        _serve_six(torch, np, cfg, params, dev, "serve-deepseek",
+                   window=1024, path_kernels=())
+    e = engine()
+    check(e.supports_chunked_prefill and not e.supports_paged_decode,
+          "serve-deepseek: an MLA engine must chunk and never page")
+    # where the time goes: one fused plan of 8 active x 8 steps
+    admit(e, [request(256, 40) for _ in range(8)])
+    e.decode_multi(steps=2)
+    wall = _wall_ms(torch, lambda: e.decode_multi(steps=8))
+    _print_breakdown({"decode 8 active x 8 steps": _breakdown(
+        wall, _device_profile(torch, lambda: e.decode_multi(steps=8)))},
+        "serve-deepseek")
+    del e
+    log(f"serve-deepseek: phase {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 18. cluster-deepseek ---------------------------------------------------
+    t_phase = time.perf_counter()
+    # the same weights behind api.serve, dispatch dropless: with capacity
+    # factor 1.25 a decode step's 8 rows get 1 slot per expert, and which
+    # assignment drops depends on the batch, so no two schedules agree
+    ccfg = _deepseek(dropless=True)
+    spec = _cluster_spec(arch=cfg.name, traffic=_light(120.0))
+    n_req = len(list(spec.traffic.source(seed=spec.seed)))
+    log(f"cluster-deepseek: {spec.arch} cut as serve-deepseek, capacity "
+        f"factor {ccfg.moe.capacity_factor} (dropless), policy "
+        f"{spec.policy}, {spec.n_instances} instances x {spec.num_slots} "
+        f"slots, window {spec.kv_capacity}, fuse {spec.fuse_decode_steps}; "
+        f"traffic {spec.traffic.describe()}: {n_req} requests")
+    finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
+    moved, unrecord = _record_moves(InstanceEngine)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    report = serve(spec, cfg=ccfg, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["cluster-deepseek"] = read_counts()
+    unrecord()
+    restore()
+    n_it = report.cluster.n_iterations
+    log("cluster-deepseek: report:\n" + report.describe())
+    log(f"cluster-deepseek: serve wall {wall:.3f} s, {n_it} iterations, "
+        f"{wall * 1e3 / max(1, n_it):.3f} ms per iteration, "
+        f"sched_us_per_iter {report.sched_us_per_iter:.1f}; launches "
+        f"{counts['cluster-deepseek']}")
+    check(report.all_finished and report.n_submitted == n_req,
+          f"cluster-deepseek: not every request finished: "
+          f"{report.describe()}")
+    check(all(len(r.output_tokens) == r.max_new_tokens
+              for r in report.finished),
+          "cluster-deepseek: a request ended short of its max_new_tokens")
+    check(bool(torch.stack(finite).all()), "cluster-deepseek: non-finite "
+          "logits")
+    st = report.stats
+    check(st["mirror_syncs"] > 0, "cluster-deepseek: no mirror sync")
+    check(st["replica_promotions"] > 0, "cluster-deepseek: no promotion")
+    for key in ("mirror", "stream"):
+        check(st[f"{key}_bytes"] == moved[key],
+              f"cluster-deepseek: stats {key}_bytes {st[f'{key}_bytes']} "
+              f"!= {moved[key]} priced by LineCosts over "
+              f"{moved[key + '_lines']} lines")
+    log(f"cluster-deepseek: mirror_bytes {st['mirror_bytes']:.0f} = "
+        f"{costs.line_bytes:.0f} B x {moved['mirror_lines']} mirrored lines; "
+        f"stream_bytes {st['stream_bytes']:.0f} = {costs.line_bytes:.0f} B "
+        f"x {moved['stream_lines']} streamed lines")
+    _check_no_kernel(counts["cluster-deepseek"], "cluster-deepseek")
+    served = list(report.cluster._submitted)
+    del report
+
+    # the same requests through one 8-slot engine, each prefilled alone at
+    # its bucket as the cluster's plans prefill it
+    eng = InstanceEngine(ccfg, params, num_slots=8, kv_capacity=1024,
+                         block_lines=16, device=dev)
+    pending = [Request(prompt_len=r.prompt_len, max_new_tokens=r.max_new_tokens,
+                       rid=r.rid, prompt_tokens=np.asarray(r.prompt_tokens))
+               for r in served]
+    alone = {r.rid: r for r in pending}
+    t0 = time.perf_counter()
+    while pending or eng.slot_req:
+        while pending and eng.free_slots():
+            eng.prefill_request(pending.pop(0))
+        if eng.slot_req:
+            eng.decode_multi(steps=8)
+    log(f"cluster-deepseek: one engine served the {len(alone)} requests in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del eng
+    diffs = _first_differences(served, alone, "cluster-deepseek")
+
+    # -- 18b. cluster-deepseek-chunked: latent rows expanded at history > 0
+    spec = _cluster_spec(arch=cfg.name, policy="sarathi",
+                         policy_kwargs={"chunk_tokens": 128},
+                         traffic=_light(60.0))
+    n_req = len(list(spec.traffic.source(seed=spec.seed)))
+    chunked = build_cluster(spec, cfg=ccfg, params=params)
+    chunked.planner.trace = []
+    resumes, restore = _watch_history(attention_mod)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    finished = chunked.run(max_steps=spec.max_steps, source=spec.traffic.source(
+        seed=spec.seed, cfg=chunked.cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["cluster-deepseek-chunked"] = read_counts()
+    restore()
+    report = ServeReport(spec=spec, cluster=chunked, finished=finished,
+                         n_submitted=len(chunked._submitted))
+    resumed = [it for e in chunked.planner.trace
+               if e[0] in ("prefill", "mixed")
+               for it in e[2][0 if e[0] == "mixed" else slice(None)]
+               if it[1] > 0]
+    log("cluster-deepseek-chunked: sarathi, chunk_tokens 128; report:\n"
+        + report.describe())
+    log(f"cluster-deepseek-chunked: serve wall {wall:.3f} s, "
+        f"{chunked.n_iterations} iterations, "
+        f"{wall * 1e3 / max(1, chunked.n_iterations):.3f} ms per iteration, "
+        f"sched_us_per_iter {report.sched_us_per_iter:.1f}; {len(resumed)} "
+        f"resumed chunks; MLA calls at history > 0: "
+        f"{resumes['history>0']}; launches "
+        f"{counts['cluster-deepseek-chunked']}")
+    check(report.all_finished and len(finished) == n_req,
+          f"cluster-deepseek-chunked: not every request finished: "
+          f"{report.describe()}")
+    check(resumed and resumes["history>0"] >= cfg.num_layers * len(resumed),
+          "cluster-deepseek-chunked: no latent rows expanded at history > 0")
+    _check_no_kernel(counts["cluster-deepseek-chunked"],
+                     "cluster-deepseek-chunked")
+    del chunked, report, finished, engine, admit, request
+
+    # tokens: the cluster's against the engine's, up to measured near-ties;
+    # the check frees the bf16 weights, so it takes the last reference
+    held = [params]
+    del params
+    near = (_mla_near_ties(torch, ccfg, held, seed, diffs, 1024,
+                           "cluster-deepseek") if diffs else [])
+    log(f"cluster-deepseek: {len(served)} requests, cluster against one "
+        f"engine: tokens equal"
+        + (f" up to {len(near)} near-ties" if near else " bitwise")
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_consistency_deepseek(torch, dev, np):
+    """Phase 19, f32 at full width on deepseek's layers 0-1 cut as one dense
+    and one MoE layer (``first_dense_layers = 1``), dropless: absorbed
+    decode against the materialized prefill, and a prompt in chunks (the
+    latent rows expanded at history 128) against the whole prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_state, prefill, prefill_chunk
+    t_phase = time.perf_counter()
+    full = get_config("deepseek-v3-671b")
+    cfg = _deepseek(2, dropless=True, dtype="float32", moe=dataclasses.replace(
+        full.moe, first_dense_layers=1))
+    log(f"consistency-deepseek: {_describe_mla(cfg)}")
+    params = _draw(torch, cfg, 9, dev, "consistency-deepseek")
+    prompt = _decode_vs_prefill(torch, np, cfg, params, dev,
+                                np.random.default_rng(10),
+                                "consistency-deepseek", paged=False)
+    whole, _ = prefill(cfg, params, {"tokens": prompt},
+                       init_state(cfg, 1, 256, device=dev))
+    state = init_state(cfg, 1, 256, device=dev)
+    for lo, hi in ((0, 128), (128, 200)):
+        logits, state = prefill_chunk(cfg, params, prompt[:, lo:hi], state,
+                                      history=lo)
+    err, scale = max_err(logits, whole), float(whole.abs().max())
+    log(f"consistency-deepseek: 200-token prompt in chunks of 128 and 72 "
+        f"(the second at history 128): max |chunked - whole| {err:.3e}, max "
+        f"|logit| {scale:.3f}, ratio {err / scale:.3e} (limit 1e-3); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    check(err <= 1e-3 * scale, f"consistency-deepseek: chunked logits differ "
+          f"by {err} against max logit {scale}")
+
+
+def phase_xlstm(torch, dev, np):
+    """Phase 20: xlstm-1.3b at full width and depth in bf16 through the
+    serve phase's six requests (one prompt at a time, dense decode), then
+    its f32 decode-vs-prefill check; returns the serve's kernel counts."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("xlstm-1.3b")
+    xc = cfg.xlstm
+    log(f"serve-xlstm: {cfg.name} full width and depth: {cfg.num_layers} "
+        f"blocks ({cfg.block_pattern.count('mlstm')} mLSTM, "
+        f"{cfg.block_pattern.count('slstm')} sLSTM), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, mLSTM projection {xc.proj_factor_mlstm}, "
+        f"sLSTM {xc.proj_factor_slstm}, conv {xc.conv1d_kernel_size}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}")
+    params = _draw(torch, cfg, 8, dev, "serve-xlstm")
+    counts, _, (_, request, engine, admit) = _serve_six(
+        torch, np, cfg, params, dev, "serve-xlstm", path_kernels=())
+    e = engine()
+    check(not (e.supports_paged_decode or e.supports_chunked_prefill),
+          "serve-xlstm: an xLSTM engine must neither page nor chunk")
+    # where the time goes: one fused plan of 8 active x 8 steps
+    admit(e, [request(64, 40) for _ in range(8)])
+    e.decode_multi(steps=2)
+    wall = _wall_ms(torch, lambda: e.decode_multi(steps=8))
+    _print_breakdown({"decode 8 active x 8 steps": _breakdown(
+        wall, _device_profile(torch, lambda: e.decode_multi(steps=8)))},
+        "serve-xlstm")
+    del e, engine, admit, request
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    del params
+    _free(torch)
+    log(f"serve-xlstm consistency: f32 weights "
+        f"{_weight_bytes(params32) / 1e9:.3f} GB")
+    # a 200-token prompt and its extensions all run the stepwise mLSTM
+    _decode_vs_prefill(torch, np, cfg32, params32, dev,
+                       np.random.default_rng(11), "serve-xlstm consistency",
+                       paged=False)
+    # measured, not gated: the chunkwise mLSTM (256 = 4 chunks of 64)
+    # against the stepwise one on one prompt; the JAX package's two forms
+    # part by ~1e-3 of max|logit| over 48 random-weight blocks as well
+    from repro_torch.models import init_state, prefill
+    from repro_torch.models import xlstm as xlstm_mod
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (1, 256), dtype=np.int32), device=dev)
+    rows = []
+    for chunk in (xlstm_mod.MLSTM_CHUNK, 1 << 30):
+        plain, xlstm_mod.MLSTM_CHUNK = xlstm_mod.MLSTM_CHUNK, chunk
+        try:
+            logits, _ = prefill(cfg32, params32, {"tokens": toks},
+                                init_state(cfg32, 1, 256, device=dev))
+        finally:
+            xlstm_mod.MLSTM_CHUNK = plain
+        rows.append(logits)
+    err, scale = max_err(rows[0], rows[1]), float(rows[1].abs().max())
+    log(f"serve-xlstm consistency: 256-token prefill, chunkwise against "
+        f"stepwise mLSTM: max |difference| {err:.3e}, max |logit| "
+        f"{scale:.3f}, ratio {err / scale:.3e} (measured, not gated)")
+    # the same two forms on the first block alone: what one block adds
+    from repro_torch.models.common import rms_norm
+    block = _tree_map(lambda t: t[0], params32["segments"][0]["p0"])
+    x = rms_norm(params32["embed"][toks.long()], block["norm1"],
+                 cfg.rms_norm_eps)
+    outs = []
+    for chunk in (xlstm_mod.MLSTM_CHUNK, 1 << 30):
+        plain, xlstm_mod.MLSTM_CHUNK = xlstm_mod.MLSTM_CHUNK, chunk
+        try:
+            outs.append(xlstm_mod.mlstm_forward(cfg32, block["mixer"], x,
+                                                mode="full")[0])
+        finally:
+            xlstm_mod.MLSTM_CHUNK = plain
+    err, scale = max_err(outs[0], outs[1]), float(outs[1].abs().max())
+    log(f"serve-xlstm consistency: block 0 alone, chunkwise against "
+        f"stepwise: max |difference| {err:.3e}, max |output| {scale:.3f}, "
+        f"ratio {err / scale:.3e} (measured, not gated)")
+    log(f"serve-xlstm: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2204,6 +2658,16 @@ def main() -> int:
     _free(torch)
     # -- 16. consistency-hybrid (f32) --------------------------------------------
     phase_consistency_hybrid(torch, dev, np)
+    _free(torch)
+    # -- 17-18. deepseek-v3-671b, depth-cut, bf16: serve-deepseek,
+    # cluster-deepseek ----------------------------------------------------------
+    paths.update(phase_deepseek(torch, dev, np))
+    _free(torch)
+    # -- 19. consistency-deepseek (f32) -------------------------------------------
+    phase_consistency_deepseek(torch, dev, np)
+    _free(torch)
+    # -- 20. serve-xlstm -----------------------------------------------------------
+    paths["serve-xlstm"] = phase_xlstm(torch, dev, np)
     _free(torch)
 
     for r in kernels:

@@ -7,7 +7,8 @@ a leading repeat dim, weights as ``(in, out)`` for ``x @ w``, KV state
 state ``conv``/``ssm`` and MoE expert leaves ``(repeats, E, ...)``.  Each
 leaf keeps its own dtype; a cast to another model dtype leaves the f32
 leaves of the JAX package (Mamba's ``A_log``, ``D``, ``dt_b``, the MoE
-``router``, the ``ssm`` state) in f32.  A caller
+``router``, the xLSTM gate leaves, the ``ssm`` state and every xLSTM
+state leaf) in f32.  A caller
 turns a JAX tree into numpy first (``jax.tree_util.tree_map(np.asarray,
 tree)``); this module never sees a JAX object.  Arrays are copied, so a
 read-only numpy buffer never backs a tensor the port writes in place.
@@ -38,11 +39,17 @@ def _tensor(a, dev: torch.device, dtype: Optional[torch.dtype]):
 
 
 #: leaves the JAX package keeps in f32 whatever the model dtype
-F32_LEAVES = frozenset({"A_log", "D", "dt_b", "router", "ssm"})
+F32_LEAVES = frozenset({"A_log", "D", "dt_b", "router", "ssm",
+                        "w_i", "b_i", "w_f", "b_f", "w_o", "b"})
+#: a state dict holding one of these keys is an xLSTM state: all f32 (the
+#: mLSTM's ``conv`` window too, unlike Mamba's)
+XLSTM_STATE_KEYS = frozenset({"C", "c"})
 
 
 def _convert(tree, dev, dtype, key=None):
     if isinstance(tree, dict):
+        if XLSTM_STATE_KEYS & set(tree):
+            dtype = None
         return {k: _convert(v, dev, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_convert(v, dev, dtype, key) for v in tree]

@@ -9,10 +9,12 @@ layer stack's state layout is untouched while allocation and headroom are
 block-granular.  :meth:`decode_block_tables` feeds the paged decode kernel
 (``repro_torch.kernels.decode_attention``), which gathers K/V through them.
 
-Leaves are classified as in the JAX package: attention ``k``/``v`` are
-*line* leaves (indexed by KV line, axis 2 of the stacked leaf), and every
-leaf of a recurrent mixer (Mamba's ``conv`` and ``ssm``) is a *recurrent*
-leaf, a constant-size per-request state that moves whole.
+Leaves are classified as in the JAX package: attention ``k``/``v`` (GQA)
+and ``c_kv``/``k_rope`` (the MLA latent, with no head axis) are *line*
+leaves (indexed by KV line, axis 2 of the stacked leaf), and every leaf of
+a recurrent mixer (Mamba's ``conv`` and ``ssm``, the mLSTM's ``C``, ``n``,
+``m`` and ``conv``, the sLSTM's ``c``, ``n``, ``h`` and ``m``) is a
+*recurrent* leaf, a constant-size per-request state that moves whole.
 
 The state is updated in place.  Whatever leaves the store (an exported
 slot) is a copy, so later in-place writes on either side never alias.
@@ -38,7 +40,7 @@ from repro_torch.models import init_state
 from repro_torch.models.blocks import layer_specs, plan_segments
 
 #: attention-state keys indexed by KV line (axis 2 of the stacked leaf)
-LINE_KEYS = ("k", "v")
+LINE_KEYS = ("k", "v", "c_kv", "k_rope")
 
 
 def pick_block_lines(kv_capacity: int, requested: int = 16) -> int:

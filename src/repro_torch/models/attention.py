@@ -1,4 +1,5 @@
-"""GQA attention (RoPE, optional sliding window) on tensors.
+"""Attention: GQA (RoPE, optional sliding window) and MLA (DeepSeek's
+multi-head latent attention), on tensors.
 
 Three execution modes of :func:`gqa_forward`, as in the JAX package:
   * full          — prefill over S tokens through the prefill kernel
@@ -15,6 +16,13 @@ Three execution modes of :func:`gqa_forward`, as in the JAX package:
                     decode kernel (the path of engines that do not page:
                     the hybrid stack, and the oracle of paged engines).
 
+:func:`mla_forward` computes MLA as the JAX package does, outside any
+kernel: in full mode it expands the latent into per-head K/V (qk head dim
+192, v 128) and attends through the plain chunked online softmax
+:func:`flash_attention`; in decode mode it scores and reads in latent
+space (the absorbed path, in f32).  Its cache holds the latent ``c_kv``
+and the shared roped key ``k_rope`` per line, and it never pages.
+
 Caches are updated in place: a state leaf handed in is the leaf that comes
 back, written.  KV caches use ring-buffer indexing when the capacity is
 smaller than the number of positions.
@@ -30,9 +38,100 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 Clock = Union[int, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _pick_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target."""
+    c = min(n, target)
+    while n % c:
+        c -= 1
+    return c
+
+
+def flash_attention(
+    q: torch.Tensor,     # (B, Sq, H, hd)
+    k: torch.Tensor,     # (B, Skv, KVH, hd)
+    v: torch.Tensor,     # (B, Skv, KVH, dv)
+    *,
+    causal: bool,
+    scale: float,
+    window: Optional[int] = None,
+    q_offset: int = 0,   # absolute position of q[0] relative to k[0]
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over q and kv chunks in f32, the JAX
+    package's model-level ``flash_attention``: a score tensor never exceeds
+    ``(B, H, q_chunk, kv_chunk)``.  The value head dim may differ from the
+    query's (MLA: qk 192, v 128).  Under a causal mask the q blocks are
+    grouped into at most 8 bands, and each band's blocks visit only the kv
+    blocks the band can see.  Returns (B, Sq, H, dv) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    dv = v.shape[3]
+    G = H // KVH
+    qc = _pick_chunk(Sq, q_chunk)
+    kc = _pick_chunk(Skv, kv_chunk)
+    nq, nk = Sq // qc, Skv // kc
+    dev = q.device
+    arange_q = torch.arange(qc, device=dev)
+    arange_k = torch.arange(kc, device=dev)
+
+    def kv_block(t: torch.Tensor, j: int) -> torch.Tensor:
+        # (B, kc, KVH, d) -> (B, H, kc, d) in f32: the GQA broadcast
+        blk = t[:, j * kc: (j + 1) * kc].float()
+        if G > 1:
+            blk = blk.repeat_interleave(G, dim=2)
+        return blk.transpose(1, 2)
+
+    def q_block(i: int, kv_lo: int, kv_hi: int) -> torch.Tensor:
+        qb = q[:, i * qc: (i + 1) * qc].float().transpose(1, 2)
+        qp = q_offset + i * qc + arange_q
+        m = torch.full((B, H, qc), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, qc, dv), dtype=torch.float32, device=dev)
+        for j in range(kv_lo, kv_hi):
+            s = (qb @ kv_block(k, j).transpose(-1, -2)) * scale
+            kp = j * kc + arange_k
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= qp[:, None] >= kp[None, :]
+            if window is not None:
+                mask &= qp[:, None] - kp[None, :] < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ kv_block(v, j)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B, H, qc, dv)
+        return out.transpose(1, 2)                          # (B, qc, H, dv)
+
+    outs = []
+    if causal and nq > 1:
+        n_bands = min(nq, 8)
+        per = -(-nq // n_bands)
+        for b0 in range(0, nq, per):
+            b1 = min(nq, b0 + per)
+            kv_hi = min(nk, -(-(q_offset + b1 * qc) // kc))
+            kv_lo = 0
+            if window is not None:
+                kv_lo = max(0, (q_offset + b0 * qc - window + 1) // kc)
+            outs += [q_block(i, kv_lo, kv_hi) for i in range(b0, b1)]
+    else:
+        outs = [q_block(i, 0, nk) for i in range(nq)]
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 class PagedDecode:
@@ -77,6 +176,18 @@ def ring_write(cache: torch.Tensor, values: torch.Tensor, t: Clock,
         pos = (t.long()[:, None] + offsets[None]) % capacity
         cache[torch.arange(B, device=dev)[:, None], pos] = values
     return cache
+
+
+def ring_valid(t_next: Clock, capacity: int) -> torch.Tensor:
+    """Valid-line mask after ``t_next`` tokens were written into a ring of
+    ``capacity`` lines: a scalar clock gives (capacity,), a (B,) clock
+    (B, capacity)."""
+    t_next = torch.as_tensor(t_next)
+    lines = torch.arange(capacity, device=t_next.device)
+    n_valid = torch.clamp(t_next, max=capacity)
+    if n_valid.dim() == 0:
+        return lines < n_valid
+    return lines[None] < n_valid[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -183,3 +294,153 @@ def gqa_forward(
 
     out = out.reshape(B, S, h * hd) @ params["wo"]
     return out, state
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
+             device):
+    m = cfg.mla
+    d, h, r = cfg.d_model, cfg.num_heads, repeats
+    nope, vd = m.qk_nope_head_dim, m.v_head_dim
+    return {
+        "wq_a": dense_init(gen, (r, d, m.q_lora_rank), dtype, device),
+        "q_norm": torch.ones((r, m.q_lora_rank), dtype=dtype, device=device),
+        "wq_b": dense_init(gen, (r, m.q_lora_rank, h * m.qk_head_dim), dtype,
+                           device),
+        "wkv_a": dense_init(gen, (r, d, m.kv_lora_rank + m.qk_rope_head_dim),
+                            dtype, device),
+        "kv_norm": torch.ones((r, m.kv_lora_rank), dtype=dtype,
+                              device=device),
+        "wkv_b": dense_init(gen, (r, m.kv_lora_rank, h * (nope + vd)), dtype,
+                            device),
+        "wo": dense_init(gen, (r, h * vd, d), dtype, device),
+    }
+
+
+def _mla_qkv_latent(cfg: ModelConfig, params, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """The shared projections: roped q split into (nope, rope), the normed
+    latent and the roped shared key-rope."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.rms_norm_eps)
+    q = (q @ params["wq_b"]).reshape(B, S, cfg.num_heads, m.qk_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ params["wkv_a"]
+    c_kv = rms_norm(kv[..., :m.kv_lora_rank], params["kv_norm"],
+                    cfg.rms_norm_eps)
+    k_rope = apply_rope(kv[..., m.kv_lora_rank:][:, :, None], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _expand_latent(params, c_kv: torch.Tensor, k_rope: torch.Tensor, h: int,
+                   nope: int):
+    """Per-head K (nope from the latent, rope shared by every head) and V
+    from latent rows (B, S, rank) and (B, S, rope)."""
+    B, S = c_kv.shape[:2]
+    kvb = (c_kv @ params["wkv_b"]).reshape(B, S, h, -1)
+    k = torch.cat([kvb[..., :nope],
+                   k_rope[:, :, None].expand(B, S, h, k_rope.shape[-1])], -1)
+    return k, kvb[..., nope:]
+
+
+def mla_forward(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,                 # (B, S, D)
+    *,
+    mode: str,                       # "full" | "decode"
+    positions: torch.Tensor,
+    state=None,                      # {"c_kv": (B, W, rank), "k_rope": (B, W, rope)}
+    t: Optional[Clock] = None,
+    window: Optional[int] = None,
+    update_cache: bool = False,
+    causal: bool = True,
+    history: int = 0,
+    paged: Optional[PagedDecode] = None,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    if paged is not None:
+        raise ValueError("paged decode gathers per-head K/V blocks; the MLA "
+                         "latent cache decodes through the absorbed dense "
+                         "path")
+    m = cfg.mla
+    B, S, _ = x.shape
+    h = cfg.num_heads
+    nope, vd = m.qk_nope_head_dim, m.v_head_dim
+    scale = 1.0 / math.sqrt(m.qk_head_dim)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(cfg, params, x, positions)
+
+    if mode == "full":
+        # materialized path: expand the latent into per-head K/V
+        k, v = _expand_latent(params, c_kv, k_rope, h, nope)
+        if history:
+            # chunk resume: expand the cached latent rows [0, history)
+            # (already normed and roped) the same way
+            if state is None or not causal:
+                raise ValueError("a chunk resume needs a cache and causal "
+                                 "attention")
+            k_h, v_h = _expand_latent(
+                params, state["c_kv"][:, :history].to(c_kv.dtype),
+                state["k_rope"][:, :history].to(k_rope.dtype), h, nope)
+            k = torch.cat([k_h, k], dim=1)
+            v = torch.cat([v_h, v], dim=1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q, k, v, causal=causal, scale=scale,
+                              window=window, q_offset=history)
+        if update_cache and state is not None:
+            cap = state["c_kv"].shape[1]
+            t0 = t if t is not None else 0
+            ring_write(state["c_kv"], c_kv, t0, cap)
+            ring_write(state["k_rope"], k_rope, t0, cap)
+    elif mode == "decode":
+        # absorbed path: score and read in latent space, in f32
+        if state is None or t is None:
+            raise ValueError("decode needs a state and a clock")
+        if S != 1:
+            raise ValueError("MLA decode takes one token per request")
+        cap = state["c_kv"].shape[1]
+        ckv = ring_write(state["c_kv"], c_kv, t, cap).float()
+        krope = ring_write(state["k_rope"], k_rope, t, cap).float()
+        valid = ring_valid(torch.as_tensor(t, device=x.device) + S, cap)
+        if valid.dim() == 1:
+            valid = valid[None]
+        wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, h, nope + vd).float()
+        w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+        # absorb W_UK into q: (B, 1, H, nope) x (rank, H, nope) -> (B, H, rank)
+        q_lat = torch.einsum("bshn,lhn->bhl", q_nope.float(), w_uk)
+        s = torch.einsum("bhl,bwl->bhw", q_lat, ckv)
+        s = s + torch.einsum("bshr,bwr->bhw", q_rope.float(), krope)
+        s = torch.where(valid[:, None, :], s * scale, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx_lat = torch.einsum("bhw,bwl->bhl", p, ckv)
+        out = torch.einsum("bhl,lhv->bhv", ctx_lat, w_uv)
+        out = out[:, None].to(x.dtype)                      # (B, 1, H, vd)
+    else:
+        raise ValueError(mode)
+
+    out = out.reshape(B, S, h * vd) @ params["wo"]
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# Unified entry
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, repeats: int,
+                   dtype, device):
+    if cfg.attention_kind == "mla":
+        return init_mla(gen, cfg, repeats, dtype, device)
+    return init_gqa(gen, cfg, repeats, dtype, device)
+
+
+def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, **kw):
+    if cfg.attention_kind == "mla":
+        return mla_forward(cfg, params, x, **kw)
+    return gqa_forward(cfg, params, x, **kw)

@@ -7,9 +7,9 @@ along a leading repeat dim, the layout the JAX package scans over.  Here a
 Python loop walks the repeat dim; each step indexes views of the stacked
 leaves, so cache writes land in the stacked state in place.
 
-The port runs attention and Mamba mixers with dense or MoE FFNs; xLSTM
-blocks and cross attention raise ``NotImplementedError`` naming their
-slice.
+The port runs attention (GQA or MLA), Mamba, mLSTM and sLSTM mixers with
+dense or MoE FFNs; cross attention raises ``NotImplementedError`` naming
+its slice.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba as mamba_mod
-from repro_torch.models.attention import gqa_forward, init_gqa
+from repro_torch.models import xlstm as xlstm_mod
+from repro_torch.models.attention import attention_forward, init_attention
 from repro_torch.models.common import rms_norm
 from repro_torch.models.ffn import dense_ffn, init_dense_ffn
 from repro_torch.models.moe import init_moe, moe_forward
@@ -72,9 +73,6 @@ def plan_segments(specs: List[LayerSpec], max_period: int = 16) -> List[Segment]
 
 
 def check_supported(spec: LayerSpec):
-    if spec.block not in ("attn", "mamba"):
-        raise NotImplementedError(
-            f"{spec.block!r} blocks wait for the xLSTM slice of the port")
     if spec.cross:
         raise NotImplementedError(
             "cross attention waits for the encoder-decoder slice of the port")
@@ -92,10 +90,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     d = cfg.d_model
     p: Dict[str, Any] = {
         "norm1": torch.ones((repeats, d), dtype=dtype, device=device)}
-    if spec.block == "attn":
-        p["mixer"] = init_gqa(gen, cfg, repeats, dtype, device)
-    else:
-        p["mixer"] = mamba_mod.init_mamba(gen, cfg, repeats, dtype, device)
+    init = {"attn": init_attention, "mamba": mamba_mod.init_mamba,
+            "mlstm": xlstm_mod.init_mlstm, "slstm": xlstm_mod.init_slstm}
+    p["mixer"] = init[spec.block](gen, cfg, repeats, dtype, device)
     if spec.d_ff or spec.is_moe:
         p["norm2"] = torch.ones((repeats, d), dtype=dtype, device=device)
         if spec.is_moe:
@@ -115,17 +112,18 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x: torch.Tensor,
     rs = cfg.residual_scale
     aux = 0.0
     h_in = rms_norm(x, params["norm1"], cfg.rms_norm_eps)
+    kw = dict(mode=ctx["mode"], state=state, update_cache=ctx["update_cache"])
     if spec.block == "attn":
-        h, state = gqa_forward(
-            cfg, params["mixer"], h_in, mode=ctx["mode"], state=state,
-            update_cache=ctx["update_cache"], positions=ctx["positions"],
+        h, state = attention_forward(
+            cfg, params["mixer"], h_in, positions=ctx["positions"],
             t=ctx.get("t"), window=ctx.get("window"),
             causal=ctx.get("causal", True), history=ctx.get("history", 0),
-            paged=ctx.get("paged"))
+            paged=ctx.get("paged"), **kw)
     else:
-        h, state = mamba_mod.mamba_forward(
-            cfg, params["mixer"], h_in, mode=ctx["mode"], state=state,
-            update_cache=ctx["update_cache"])
+        forward = {"mamba": mamba_mod.mamba_forward,
+                   "mlstm": xlstm_mod.mlstm_forward,
+                   "slstm": xlstm_mod.slstm_forward}[spec.block]
+        h, state = forward(cfg, params["mixer"], h_in, **kw)
     x = x + rs * h
     if spec.d_ff or spec.is_moe:
         f_in = rms_norm(x, params["norm2"], cfg.rms_norm_eps)

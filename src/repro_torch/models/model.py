@@ -12,9 +12,12 @@ Functional API on nested-dict params, mirroring the JAX package's:
   decode_multi(...)                                    -> (tokens, state, emitted)
 
 The state is updated in place; the returned state is the one passed in.
-The port runs decoder-only stacks of GQA attention and Mamba mixers with
-dense or MoE FFNs.  The router's aux loss is summed by ``apply_stack`` as
-in the JAX package; serving ignores it.
+The port runs decoder-only stacks of GQA or MLA attention, Mamba, mLSTM
+and sLSTM mixers with dense or MoE FFNs.  The router's aux loss is summed
+by ``apply_stack`` as in the JAX package; serving ignores it.  A
+multi-token-prediction head (DeepSeek-V3's ``mtp``) is built with the
+params, so both packages hold the same tree, but only training reads it:
+:func:`forward_mtp` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.models.attention import PagedDecode
-from repro_torch.models.blocks import (apply_stack, init_stack,
+from repro_torch.models.blocks import (LayerSpec, _at, apply_stack,
+                                       init_layer, init_stack,
                                        init_stack_state, layer_specs,
                                        plan_segments)
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
@@ -39,14 +43,10 @@ def _segs(cfg: ModelConfig):
 def check_config(cfg: ModelConfig):
     """Raise for what this slice of the port does not run yet."""
     later = []
-    if cfg.attention_kind != "gqa":
-        later.append(f"{cfg.attention_kind} attention (MLA slice)")
     if cfg.is_encoder_decoder or cfg.frontend is not None:
         later.append("encoder / modality front ends (encoder-decoder slice)")
     if cfg.abs_pos != "none":
         later.append(f"{cfg.abs_pos} absolute positions")
-    if cfg.mtp_depth:
-        later.append("multi-token prediction (training slice)")
     if later:
         raise NotImplementedError(f"{cfg.name}: " + "; ".join(later)
                                   + " wait for later slices of the port")
@@ -60,9 +60,11 @@ def check_config(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Device = "cuda"):
     """Random weights at the JAX package's scales and dtypes (fan-in
-    normal, embedding std 0.02; Mamba's ``A_log``, ``D`` and ``dt_b`` and
-    the MoE router in f32), drawn from ``generator`` (which must live on
-    ``device``)."""
+    normal, embedding std 0.02; Mamba's ``A_log``, ``D`` and ``dt_b``, the
+    xLSTM gate leaves and the MoE router in f32), drawn from ``generator``
+    (which must live on ``device``).  With ``mtp_depth`` the tree holds
+    the multi-token-prediction head as the JAX package's does: a norm, the
+    combine projection and one attention layer with a dense FFN."""
     check_config(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -74,7 +76,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model,
                                                    cfg.vocab_size), dtype, dev)
+    if cfg.mtp_depth:
+        layer = init_layer(generator, cfg, LayerSpec("attn", False, cfg.d_ff,
+                                                     False), 1, dtype, dev)
+        params["mtp"] = {
+            "norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+            "combine": dense_init(generator, (2 * cfg.d_model, cfg.d_model),
+                                  dtype, dev),
+            "layer": _at(layer, 0)}
     return params
+
+
+def forward_mtp(cfg: ModelConfig, params, batch):
+    """DeepSeek-V3's multi-token-prediction logits, a training loss term.
+    Serving never reads the head."""
+    raise NotImplementedError(
+        "multi-token prediction is a training loss; it waits for the "
+        "training slice of the port")
 
 
 # ---------------------------------------------------------------------------

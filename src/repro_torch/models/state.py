@@ -1,5 +1,5 @@
-"""Serving-state trees: attention KV caches (dense / ring-buffer) and Mamba
-states.
+"""Serving-state trees: attention KV caches (dense / ring-buffer / MLA
+latent), Mamba states and xLSTM states.
 
 States are nested dicts of tensors, laid out as in the JAX package so the
 two can be compared leaf by leaf.  Every state dict carries only tensors;
@@ -7,8 +7,15 @@ the scalar clock ``t`` lives in the engine, passed per call.
 
 Layout (R = segment repeat dim, added by the layer stack):
   attention KV : k,v          (R, B, W, KVH, HD)    W = cache window capacity
+  MLA latent   : c_kv         (R, B, W, kv_lora_rank)
+                 k_rope       (R, B, W, qk_rope_head_dim)
   mamba        : conv         (R, B, d_conv, d_in)  model dtype
                  ssm          (R, B, d_in, d_state) f32
+  mlstm        : C            (R, B, H, DK, DV)     f32
+                 n            (R, B, H, DK)         f32
+                 m            (R, B, H)             f32
+                 conv         (R, B, ksize, d_in)   f32
+  slstm        : c,n,h,m      (R, B, d_model)       f32
 """
 from __future__ import annotations
 
@@ -27,10 +34,13 @@ def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_attn_kv(cfg: ModelConfig, repeats: int, batch: int, capacity: int,
                  dtype, device):
-    if cfg.attention_kind != "gqa":
-        raise NotImplementedError(
-            f"{cfg.attention_kind} attention state waits for the MLA slice "
-            f"of the port")
+    if cfg.attention_kind == "mla":
+        m = cfg.mla
+        lead = (repeats, batch, capacity)
+        return {"c_kv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
+                                    device=device),
+                "k_rope": torch.zeros(lead + (m.qk_rope_head_dim,),
+                                      dtype=dtype, device=device)}
     shape = (repeats, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -58,6 +68,23 @@ def xlstm_dims(cfg: ModelConfig, kind: str):
     return d_in, head_dim
 
 
+def init_mlstm_state(cfg: ModelConfig, repeats: int, batch: int, device):
+    d_in, hd = xlstm_dims(cfg, "mlstm")
+    h, lead = cfg.num_heads, (repeats, batch)
+    ks = cfg.xlstm.conv1d_kernel_size
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros(lead + (h, hd, hd), **f32),
+            "n": torch.zeros(lead + (h, hd), **f32),
+            "m": torch.zeros(lead + (h,), **f32),
+            "conv": torch.zeros(lead + (ks, d_in), **f32)}
+
+
+def init_slstm_state(cfg: ModelConfig, repeats: int, batch: int, device):
+    shape = (repeats, batch, cfg.d_model)
+    return {k: torch.zeros(shape, dtype=torch.float32, device=device)
+            for k in ("c", "n", "h", "m")}
+
+
 def init_layer_state(cfg: ModelConfig, kind: str, repeats: int, batch: int,
                      capacity: int, dtype, device):
     """State for one position of a segment, stacked over its repeats."""
@@ -65,8 +92,11 @@ def init_layer_state(cfg: ModelConfig, kind: str, repeats: int, batch: int,
         return init_attn_kv(cfg, repeats, batch, capacity, dtype, device)
     if kind == "mamba":
         return init_mamba_state(cfg, repeats, batch, dtype, device)
-    raise NotImplementedError(
-        f"{kind!r} block state waits for the xLSTM slice of the port")
+    if kind == "mlstm":
+        return init_mlstm_state(cfg, repeats, batch, device)
+    if kind == "slstm":
+        return init_slstm_state(cfg, repeats, batch, device)
+    raise ValueError(kind)
 
 
 def state_bytes(state) -> int:

@@ -1,10 +1,11 @@
-"""The port's copies of the remaining GQA configs held against the JAX
-package's on the CPU.
+"""The port's copies of the remaining GQA configs, and of the MLA and xLSTM
+ones, held against the JAX package's on the CPU.
 
 starcoder2-7b, phi3-medium-14b, minicpm-2b (MHA at head dim 64, tied
 embeddings, residual and logit scales), llama2-70b (the paper's
-evaluation model) and arctic-480b (128-expert top-2 MoE beside a dense
-residual MLP): each ``ModelConfig`` equals ``repro``'s field by field,
+evaluation model), arctic-480b (128-expert top-2 MoE beside a dense
+residual MLP), deepseek-v3-671b (MLA, a shared expert) and xlstm-1.3b
+(mLSTM and sLSTM blocks): each ``ModelConfig`` equals ``repro``'s field by field,
 full and ``.reduced()``, and at ``.reduced()`` in f32, with the JAX
 package's weights bridged through numpy, a prefill and four greedy decode
 steps give logits within 1e-4 and equal tokens.
@@ -25,7 +26,7 @@ from repro_torch.bridge import params_from_numpy
 
 TOL = 1e-4
 ARCHS = ["starcoder2-7b", "phi3-medium-14b", "minicpm-2b", "llama2-70b",
-         "arctic-480b"]
+         "arctic-480b", "deepseek-v3-671b", "xlstm-1.3b"]
 
 
 def test_registry_lists_every_ported_config():
@@ -35,7 +36,7 @@ def test_registry_lists_every_ported_config():
     for arch in archs:
         assert tcfg.get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown arch"):
-        tcfg.get_config("deepseek-v3-671b")
+        tcfg.get_config("seamless-m4t-large-v2")
 
 
 @pytest.mark.parametrize("reduced", [False, True])

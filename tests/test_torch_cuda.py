@@ -2,7 +2,9 @@
 and three paths through them against the CPU: the model's chunk path at
 ``q_offset > 0``, a two-instance AcceLLM cluster (equal tokens and stats)
 and a two-instance cluster that loses an instance mid-serve and gets it
-back (equal tokens, stats and fleet trace, under accellm and vllm).
+back (equal tokens, stats and fleet trace, under accellm and vllm).  The
+reduced deepseek-v3-671b (MLA) and xlstm-1.3b, which reach no kernel,
+give the CPU's logits on the card within 1e-3 * max|logit|.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode).  This file imports neither JAX nor the JAX package, so it
@@ -260,15 +262,15 @@ def _reduced_starcoder():
     from repro_torch.models import init_params
     cfg = get_config("starcoder2-3b").reduced()
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, cpu, _to_card(cpu)
 
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_card(v) for v in tree]
-        return tree.to("cuda")
 
-    return cfg, cpu, to_card(cpu)
+def _to_card(tree):
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v) for v in tree]
+    return tree.to("cuda")
 
 
 @pytest.mark.cuda
@@ -398,3 +400,47 @@ def test_prefix_cache_serve_on_card_matches_cpu():
     assert on_card[1:3] == on_cpu[1:3]
     assert on_card[0] == on_cpu[0] == off_card[0]
     assert on_card[3]["launches"] > 0 and on_card[3]["plain_calls"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-1.3b"])
+def test_reduced_model_on_card_matches_cpu(arch):
+    """The reduced model in f32 with the same weights on the card and on
+    the CPU: a 24-token prompt (for deepseek in chunks of 16 and 8, a
+    resume at history 16) and four greedy decode steps; the logits of each
+    within 1e-3 * max|logit|, and no kernel of the port launched."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import (decode_step, init_params, init_state,
+                                    prefill, prefill_chunk)
+    cfg = get_config(arch).reduced()
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_card = _to_card(p_cpu)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 24), dtype=np.int32))
+    reset_counts()
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_card)):
+        st = init_state(cfg, 2, 64, device=dev)
+        if cfg.attention_kind == "mla":
+            for lo, hi in ((0, 16), (16, 24)):
+                logits, st = prefill_chunk(cfg, params, toks[:, lo:hi].to(dev),
+                                           st, history=lo)
+        else:
+            logits, st = prefill(cfg, params, {"tokens": toks.to(dev)}, st)
+        rows = [logits.cpu()]
+        t = torch.full((2,), 24, dtype=torch.int32, device=dev)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        for _ in range(4):
+            logits, st = decode_step(cfg, params, tok, st, t)
+            rows.append(logits.cpu())
+            tok, t = logits.argmax(-1).to(torch.int32)[:, None], t + 1
+        out[dev] = rows
+    torch.cuda.synchronize()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    assert all(c == {"launches": 0, "plain_calls": 0}
+               for c in read_counts().values())

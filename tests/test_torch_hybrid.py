@@ -304,8 +304,9 @@ def test_moe_shared_and_dense_residual(setup):
 
 
 def test_unported_blocks_raise():
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        check_supported(LayerSpec("mlstm", False, 0, False))
+    # the xLSTM blocks run since the xLSTM slice (tests/test_torch_xlstm.py)
+    for block in ("mlstm", "slstm"):
+        check_supported(LayerSpec(block, False, 0, False))
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         check_supported(LayerSpec("attn", False, 256, True))
     for fn in (t_moe._routed_psum, t_moe._routed_a2a):
