@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs twenty phases,
+port's kernels from ``src/repro_torch/csrc``, and runs twenty-three phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -21,7 +21,14 @@ each of which exits non-zero on failure:
    16 at B 2, and S = 0 (h_final equals h0); its bound counts its
    exponentials at the SFU rate; prefill and paged decode attention are
    also checked and timed at minicpm-2b's served shape (36/36 heads, hd
-   64: G = 1);
+   64: G = 1); the prefill kernel non-causal at seamless-m4t's encoder
+   shape (1 x 4096 x 4096, 16/16 heads, hd 64) and at ragged Sq != Skv
+   (bf16 held to 0.05 x the RMS of the plain output as well: every row
+   averages all Skv keys, so outputs are ~sqrt(e / Skv) and 2e-2 alone
+   would pass a dropped key tile), causal at internvl2-1b's 256 patches + 300 tokens (14/2 heads: G = 7),
+   and dense decode at hd 64 with G = 1 (W 512) and G = 7 (W 1024), lengths
+   on each side of a split boundary, each checked as above and the main
+   ones timed;
 3. serve — full-width starcoder2-3b in bf16 (random weights from a seed)
    behind one ``InstanceEngine``: six greedy requests admitted by
    ``prefill_batch`` and decoded by ``decode_multi(steps=8)``; every
@@ -137,12 +144,42 @@ each of which exits non-zero on failure:
     prompt at a time, dense decode; no kernel launched), then in f32 16
     decode steps against fresh prefills within 1e-3 * max|logit| (a
     200-token prompt: the stepwise mLSTM), and the chunkwise mLSTM against
-    the stepwise one on a 256-token prompt (printed).
+    the stepwise one on a 256-token prompt (printed);
+21. serve-seamless — seamless-m4t-large-v2 whole at full width in bf16
+    (a 24-layer encoder over 4096 frames, a 24-layer decoder with cross
+    attention; ~3.7 GB): the serve phase's six requests, each with its
+    frames from ``default_extras``, prefilled one prompt at a time into a
+    scratch of the whole window and decoded dense; every request must
+    finish, every logit be finite, the prefill kernel launch non-causal
+    (encoder) and causal (decoder) and the dense decode kernel launch, all
+    at 16/16 heads, hd 64, with no plain version run.  Prints encoder ms
+    per request, prefill ms per request, decode ms per step at 1, 4 and 8
+    active, a profiled decode plan and the cross attention's share of a
+    step; then in f32, decode logits after 1, 8 and 16 steps against a
+    fresh prefill within 1e-3 * max|logit|;
+22. cluster-seamless — those weights through ``api.serve`` with the
+    cluster phase's spec and arrivals under accellm, lengths scaled by 0.2
+    (8 requests, ~140 iterations): every request must
+    finish, mirror syncs and a promotion or rebalance happen, the stream
+    bytes equal ``LineCosts`` over the lines moved plus the 411,041,792 B
+    of static state (encoder memory and cross K/V) per streamed request,
+    the mirror bytes only KV lines, and the tokens equal one 8-slot
+    engine's on the same requests up to near-ties (phase 8's rule, each
+    row replayed on the engine's clock);
+23. serve-internvl — internvl2-1b whole at full width in bf16 (~1 GB)
+    with 256-patch payloads: the serve phase's six requests through one
+    engine, then the cluster stream through ``api.serve`` under accellm,
+    with the checks of phases 21-22 (the prefill kernel causal only, both
+    kernels at 14/2 heads: G = 7, hd 64; no static byte); then in f32 the
+    model's decode at t = P + S against a fresh prefill, and printed, not
+    gated, the same step at t = S: the clock the engine keeps, as the JAX
+    package's engine does.
 
 Each phase group's weights are freed before the next: starcoder2's after
 phases 3-5, 6-9 and 10, minicpm-2b's after 11, the bf16 Jamba weights
-before the f32 ones, deepseek's bf16 weights before its f32 ones, and
-xlstm-1.3b's bf16 weights once upcast.  TF32 is off for matmuls and
+before the f32 ones, deepseek's bf16 weights before its f32 ones,
+xlstm-1.3b's bf16 weights once upcast, seamless-m4t's after 22 and
+internvl2-1b's after 23.  TF32 is off for matmuls and
 cuDNN.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
@@ -208,6 +245,32 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def _time_flash(torch, flash_mod, randn, flush, B, Sq, Skv, H, KVH, hd,
+                window, causal=True):
+    """One bf16 prefill-attention instance timed: the kernel, its plain
+    version and SDPA, beside its bound (each input read once, the output
+    written once; the flops of the (query, key) pairs the mask keeps, with
+    no window narrower than the prompt)."""
+    q, k, v = (randn((B, Sq, H, hd), torch.bfloat16),
+               randn((B, Skv, KVH, hd), torch.bfloat16),
+               randn((B, Skv, KVH, hd), torch.bfloat16))
+    kw = dict(causal=causal, window=window)
+    ms = time_ms(lambda: flash_mod.flash_attention_cuda(q, k, v, **kw), 20,
+                 flush)
+    plain = time_ms(lambda: flash_mod.flash_attention_torch(q, k, v, **kw),
+                    5, flush)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 20, flush)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    bound, by = _bound(2 * (2 * B * Sq * H * hd + 2 * B * Skv * KVH * hd),
+                       4 * B * H * hd * pairs, "bfloat16")
+    return {"shape": f"q {B}x{Sq}x{H}x{hd}, kv {Skv} x {KVH} heads, "
+                     f"{'causal' if causal else 'non-causal'}, bf16",
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib}
+
+
 def phase_kernels(torch, flash_mod, paged_mod, flush):
     """Kernel vs plain on the card; returns the per-kernel records."""
     dev = "cuda"
@@ -248,27 +311,11 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
                   f"error {err} above {tol[dtype]}")
             flash_err = max(flash_err, err)
 
-    def time_flash(B, S, H, KVH, hd, window):
-        q, k, v = (randn((B, S, H, hd), torch.bfloat16),
-                   randn((B, S, KVH, hd), torch.bfloat16),
-                   randn((B, S, KVH, hd), torch.bfloat16))
-        ms = time_ms(lambda: flash_mod.flash_attention_cuda(
-            q, k, v, causal=True, window=window), 20, flush)
-        plain = time_ms(lambda: flash_mod.flash_attention_torch(
-            q, k, v, causal=True, window=window), 5, flush)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20, flush)
-        pairs = S * (S + 1) // 2          # window None or > S hides none
-        bound, by = _bound(2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd),
-                           4 * B * H * hd * pairs, "bfloat16")
-        return {"shape": f"q {B}x{S}x{H}x{hd}, kv {KVH} heads, causal, bf16",
-                "ms": ms, "plain_ms": plain, "bound_ms": bound,
-                "bound_by": by, "library_ms": lib}
-
-    f_main = time_flash(8, 512, 24, 2, 128, 4096)
+    f_main = _time_flash(torch, flash_mod, randn, flush, 8, 512, 512, 24, 2,
+                         128, 4096)
     # minicpm-2b's served prefill: MHA (G = 1) at head dim 64, no window
-    f_hd64 = time_flash(8, 512, 36, 36, 64, None)
+    f_hd64 = _time_flash(torch, flash_mod, randn, flush, 8, 512, 512, 36, 36,
+                         64, None)
 
     # -- paged decode attention ----------------------------------------------
     # (lengths as a function of the case's span of lines per split, H, KVH,
@@ -354,12 +401,14 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:119",
          "launches": 0, "max_abs_err": flash_err,
-         **{k: f_main[k] for k in TIMING_KEYS}, "hd64": f_hd64},
+         **{k: f_main[k] for k in TIMING_KEYS},
+         "instances": {"minicpm-2b hd 64": f_hd64}},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:233",
          "launches": 0, "max_abs_err": paged_err,
-         **{k: p_main[k] for k in TIMING_KEYS}, "hd64": p_hd64},
+         **{k: p_main[k] for k in TIMING_KEYS},
+         "instances": {"minicpm-2b hd 64": p_hd64}},
     ]
     return records
 
@@ -441,6 +490,34 @@ def _sfu_ms(n, sms):
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0])
     return n / (SFU_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6) * 1e3
+
+
+def _time_dense(torch, dense_mod, randn, flush, lengths, W, H, KVH, hd):
+    """One bf16 dense-decode instance timed: a row per length over a
+    ``W``-line cache; the kernel, its plain version and SDPA with a
+    boolean mask, beside its bound (q and out, the live K and V lines and
+    the lengths, each moved once)."""
+    dev = "cuda"
+    B = len(lengths)
+    q = randn((B, 1, H, hd), torch.bfloat16)
+    kc, vc = (randn((B, W, KVH, hd), torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: dense_mod.decode_attention_cuda(q, kc, vc, lens),
+                 50, flush)
+    plain = time_ms(lambda: dense_mod.decode_attention_torch(q, kc, vc, lens),
+                    20, flush)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(W, device=dev)[None] < lens[:, None])[:, None, None]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 50, flush)
+    nbytes = (2 * (2 * B * H * hd)                # q in, out
+              + 2 * 2 * sum(lengths) * KVH * hd   # live K and V lines
+              + 4 * B)                            # lengths
+    bound, by = _bound(nbytes, 4 * H * hd * sum(lengths), "bfloat16")
+    return {"shape": f"{B} rows, lengths {lengths}, W {W}, {H}/{KVH} heads, "
+                     f"hd {hd}, bf16",
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib}
 
 
 def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
@@ -537,30 +614,15 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
                       "decode_attention: a length-0 row must give 0")
             dense_err = max(dense_err, err)
     lengths = dense_cases[0][0]
-    q, kc, vc, lens = dense_inputs(lengths, torch.bfloat16)
-    d_ms = time_ms(lambda: dense_mod.decode_attention_cuda(q, kc, vc, lens),
-                   50, flush)
-    d_plain = time_ms(lambda: dense_mod.decode_attention_torch(q, kc, vc,
-                                                               lens), 20,
-                      flush)
-    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    mask = (torch.arange(W, device=dev)[None] < lens[:, None])[:, None, None]
-    d_lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), 50, flush)
-    Bd = len(lengths)
-    d_bytes = (2 * (2 * Bd * H * hd)               # q in, out
-               + 2 * 2 * sum(lengths) * KVH * hd   # live K and V lines
-               + 4 * Bd)                           # lengths
-    d_flops = 4 * H * hd * sum(lengths)
-    d_bound, d_by = _bound(d_bytes, d_flops, "bfloat16")
+    d_main = _time_dense(torch, dense_mod, randn, flush, lengths, W, H, KVH,
+                         hd)
 
     records = [
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:120",
-         "launches": 0, "max_abs_err": dense_err, "ms": d_ms,
-         "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by,
-         "library_ms": d_lib},
+         "launches": 0, "max_abs_err": dense_err,
+         **{k: d_main[k] for k in TIMING_KEYS}, "instances": {}},
         {"name": "mamba_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:84",
@@ -578,9 +640,8 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
 
 def _log_records(records, lib_name):
     for r in records:
-        for what, t in (("", r), (" at minicpm-2b's hd 64", r.get("hd64"))):
-            if t is None:
-                continue
+        for what, t in [("", r)] + [(f" at {k}", v) for k, v in
+                                    r.get("instances", {}).items()]:
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f} ms ({lib_name})")
             log(f"kernels: {r['name']}{what}: kernel {t['ms']:.4f} ms, plain "
@@ -710,12 +771,15 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
     return counts, per_step, helpers
 
 
-def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase, paged=True):
+def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase, paged=True,
+                       extra=None, offset=0, window=256):
     """In f32 (weights of another dtype are upcast first): 16 greedy
     decode steps after a 200-token prompt, through the paged kernel or,
     with ``paged`` off, dense; the logits after steps 1, 8 and 16 against
     a fresh prefill over the prompt plus the generated tokens, within
-    1e-3 * max|logit|.  Returns the prompt."""
+    1e-3 * max|logit|.  ``extra`` (device tensors) joins every prefill's
+    batch; a vision prefix of ``offset`` patches moves the decode clock
+    to ``offset`` + 200.  Returns the prompt."""
     from repro_torch.models import (decode_step, decode_step_paged,
                                     init_state, prefill)
     if cfg.dtype != "float32":
@@ -724,15 +788,17 @@ def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase, paged=True):
         log(f"{phase}: f32 weights {_weight_bytes(params) / 1e9:.3f} GB")
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
                                           dtype=np.int32), device=dev)
-    state = init_state(cfg, 1, 256, device=dev)
-    logits, state = prefill(cfg, params, {"tokens": prompt}, state)
-    tables = torch.arange(256 // 16, dtype=torch.int32, device=dev)[None]
+    extra = extra or {}
+    state = init_state(cfg, 1, window, device=dev)
+    logits, state = prefill(cfg, params, {"tokens": prompt, **extra}, state)
+    tables = torch.arange(window // 16, dtype=torch.int32, device=dev)[None]
     slots = torch.zeros((1,), dtype=torch.int32, device=dev)
     gen_toks, dec_logits = [], {}
     for step in range(1, 17):
         tok = logits.argmax(-1).to(torch.int32)
         gen_toks.append(tok)
-        t = torch.full((1,), 200 + step - 1, dtype=torch.int32, device=dev)
+        t = torch.full((1,), offset + 200 + step - 1, dtype=torch.int32,
+                       device=dev)
         if paged:
             logits, state = decode_step_paged(cfg, params, tok[:, None],
                                               state, t, slots, tables, 16)
@@ -742,8 +808,8 @@ def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase, paged=True):
             dec_logits[step] = logits
     for step, dl in dec_logits.items():
         toks = torch.cat([prompt, torch.stack(gen_toks[:step], dim=1)], dim=1)
-        fresh = init_state(cfg, 1, 256, device=dev)
-        pl, _ = prefill(cfg, params, {"tokens": toks}, fresh)
+        fresh = init_state(cfg, 1, window, device=dev)
+        pl, _ = prefill(cfg, params, {"tokens": toks, **extra}, fresh)
         err = max_err(dl, pl)
         scale = float(pl.abs().max())
         log(f"{phase}: step {step}: max |decode - prefill| {err:.3e}, "
@@ -804,15 +870,20 @@ def phase_dense(torch, dev, np):
 def _serving(cfg, params, dev, np, seed, kv_capacity):
     """(rng, request, engine, admit): the helpers of one model's serve
     phases, after a warm-up (cuBLAS handles, allocator pools, kernel
-    libraries)."""
+    libraries).  Each request carries the modality payload that
+    ``default_extras`` draws for its config (none for a text-only one)."""
     from repro_torch.serving import InstanceEngine, Request
     from repro_torch.stepplan import PrefillItem, PrefillPlan, bucket_len
+    from repro_torch.workloads import default_extras
     rng = np.random.default_rng(seed)
+    drawn = [0]
 
     def request(plen, new):
+        drawn[0] += 1
         return Request(prompt_len=plen, max_new_tokens=new,
                        prompt_tokens=rng.integers(0, cfg.vocab_size,
-                                                  (1, plen), dtype=np.int32))
+                                                  (1, plen), dtype=np.int32),
+                       extra=default_extras(cfg, seed, drawn[0]))
 
     def engine(**kw):
         kw.setdefault("num_slots", 8)
@@ -884,9 +955,10 @@ def _record_moves(engine_cls):
     engine's own ledger: the bytes ``LineCosts`` price for the lines each
     replica's synced mark gained and for the lines each stream installed,
     less the head lines the destination adopted from its prefix cache
-    (resident there, so not moved).  Returns (moved, restore)."""
+    (resident there, so not moved), and the streams installed.  Returns
+    (moved, restore)."""
     moved = {"mirror": 0.0, "stream": 0.0, "mirror_lines": 0,
-             "stream_lines": 0}
+             "stream_lines": 0, "streams": 0}
     plain_sync, plain_import = (engine_cls.sync_replica_from,
                                 engine_cls.import_stream)
 
@@ -910,6 +982,7 @@ def _record_moves(engine_cls):
         moved["stream"] += (self.store.costs.bytes_at(got)
                             - head * self.store.costs.line_bytes)
         moved["stream_lines"] += got - head
+        moved["streams"] += 1
 
     def restore():
         engine_cls.sync_replica_from = plain_sync
@@ -1728,16 +1801,20 @@ def phase_cluster_prefix(torch, params, measured):
     return counts
 
 
-def _watch_heads(attention_mod):
-    """Patch the model's kernel entries to record each call's (heads, KV
-    heads, head dim); returns (seen, restore)."""
-    plain = {n: getattr(attention_mod, n) for n in (
-        "flash_attention_cuda", "paged_decode_attention_cuda")}
+def _watch_heads(attention_mod, names=("flash_attention_cuda",
+                                       "paged_decode_attention_cuda")):
+    """Patch the model's kernel entries ``names`` to record each call's
+    (heads, KV heads, head dim), and for the prefill kernel whether it was
+    causal; returns (seen, restore)."""
+    plain = {n: getattr(attention_mod, n) for n in names}
     seen = {n: set() for n in plain}
 
     def watch(name):
         def watched(q, k, *a, **kw):        # k: (..., KV heads, hd)
-            seen[name].add((q.shape[-2], k.shape[-2], q.shape[-1]))
+            key = (q.shape[-2], k.shape[-2], q.shape[-1])
+            if name == "flash_attention_cuda":
+                key += (kw.get("causal", True),)
+            seen[name].add(key)
             return plain[name](q, k, *a, **kw)
         return watched
 
@@ -1779,11 +1856,12 @@ def phase_minicpm(torch, dev, np):
     finally:
         restore()
     want = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-    log(f"serve-minicpm: kernel calls at (heads, KV heads, hd): "
+    log(f"serve-minicpm: kernel calls at (heads, KV heads, hd[, causal]): "
         f"{ {n: sorted(v) for n, v in heads.items()} }")
     for name, got in heads.items():
-        check(got == {want}, f"serve-minicpm: {name} ran at {sorted(got)}, "
-              f"not only at {want} (G 1, hd 64)")
+        w = want + (True,) if name == "flash_attention_cuda" else want
+        check(got == {w}, f"serve-minicpm: {name} ran at {sorted(got)}, "
+              f"not only at {w} (G 1, hd 64)")
     _decode_vs_prefill(torch, np, cfg, params, dev, rng,
                        "serve-minicpm consistency")
     return counts
@@ -2581,6 +2659,463 @@ def phase_xlstm(torch, dev, np):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 21-23: seamless-m4t-large-v2 (encoder-decoder) and internvl2-1b (vision)
+# ---------------------------------------------------------------------------
+
+#: the kernels of an engine that neither pages nor chunks (the
+#: encoder-decoder and vision-prefix stacks): prefill and dense decode
+DENSE_PATH = ("flash_attention", "decode_attention")
+#: the kernel entries the enc-dec and vision phases watch
+DENSE_ENTRIES = ("flash_attention_cuda", "decode_attention_cuda")
+
+
+def phase_encdec_kernels(torch, flash_mod, dense_mod, flush):
+    """The prefill and dense decode kernels at the enc-dec and vision
+    paths' shapes against their plain versions (bf16 2e-2, f32 1e-4 max
+    abs): the prefill kernel non-causal at seamless' encoder shape and at
+    ragged Sq != Skv, causal at internvl2-1b's G = 7, hd 64; dense decode
+    at hd 64, G = 1 and G = 7, lengths on each side of a split boundary.
+    Non-causal bf16 is also held to 0.05 x RMS of the plain output: each
+    output averages all Skv values, so its scale is ~sqrt(e / Skv) (0.026
+    at 4096), and a kernel that dropped one 64-key tile would move it by
+    about a tenth of that, within 2e-2 but not within this limit.
+    Returns ((flash max err, timed instances), (dense max err, timed
+    instances))."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    flash_cases = [  # (B, Sq, Skv, H, KVH, hd, causal, what)
+        (1, 4096, 4096, 16, 16, 64, False,
+         "seamless encoder: non-causal over 4096 frames, 16/16 heads, hd 64"),
+        (2, 77, 300, 16, 16, 64, False,
+         "non-causal, Sq 77 < Skv 300, edges off the tiles"),
+        (2, 300, 131, 14, 2, 64, False,
+         "non-causal, Sq 300 > Skv 131, G 7, edges off the tiles"),
+        (1, 556, 556, 14, 2, 64, True,
+         "internvl2-1b: 256 patches + 300 tokens, causal, G 7, hd 64"),
+    ]
+    flash_err = 0.0
+    for B, Sq, Skv, H, KVH, hd, causal, what in flash_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (randn((B, Sq, H, hd), dtype),
+                       randn((B, Skv, KVH, hd), dtype),
+                       randn((B, Skv, KVH, hd), dtype))
+            out = flash_mod.flash_attention_cuda(q, k, v, causal=causal)
+            exp = flash_mod.flash_attention_torch(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = max_err(out, exp)
+            lim, rms = tol[dtype], float(exp.float().pow(2).mean().sqrt())
+            if dtype == torch.bfloat16 and not causal:
+                lim = min(lim, 0.05 * rms)
+            log(f"kernels: flash_attention {what} {str(dtype)[6:]}: "
+                f"max_abs_err {err:.3e}, RMS of the plain output {rms:.3e} "
+                f"(limit {lim:.3e})")
+            check(err <= lim, f"flash_attention {what} {dtype}: "
+                  f"error {err} above {lim}")
+            flash_err = max(flash_err, err)
+            del q, k, v, out, exp
+    flash_inst = {
+        "seamless encoder, non-causal": _time_flash(
+            torch, flash_mod, randn, flush, 1, 4096, 4096, 16, 16, 64, None,
+            causal=False),
+        "internvl2-1b prefill, G 7": _time_flash(
+            torch, flash_mod, randn, flush, 1, 556, 556, 14, 2, 64, None)}
+
+    dense_err, dense_inst = 0.0, {}
+    for H, KVH, W, label, timed in (
+            (16, 16, 512, "seamless decode, G 1",
+             [116, 144, 216, 272, 400, 512, 1, 1]),
+            (14, 2, 1024, "internvl2-1b decode, G 7",
+             [116, 272, 316, 528, 716, 1016, 1, 1])):
+        splits, chunk = dense_mod.split_plan(8, KVH, H // KVH, W, sms)
+        lengths = [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, W - 1,
+                   W]
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (randn((8, 1, H, 64), dtype), randn((8, W, KVH, 64), dtype),
+                    randn((8, W, KVH, 64), dtype),
+                    torch.tensor(lengths, dtype=torch.int32, device=dev))
+            out = dense_mod.decode_attention_cuda(*args)
+            exp = dense_mod.decode_attention_torch(*args)
+            torch.cuda.synchronize()
+            err = max_err(out, exp)
+            log(f"kernels: decode_attention {label}: 8 rows, {H}/{KVH} heads, "
+                f"hd 64, W {W}, {splits} splits of {chunk} lines, lengths "
+                f"{lengths} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol "
+                f"{tol[dtype]:.0e})")
+            check(err <= tol[dtype], f"decode_attention {label} {dtype}: "
+                  f"error {err} above {tol[dtype]}")
+            check(float(out[0].abs().max()) == 0.0,
+                  "decode_attention: a length-0 row must give 0")
+            dense_err = max(dense_err, err)
+        dense_inst[label] = _time_dense(torch, dense_mod, randn, flush, timed,
+                                        W, H, KVH, 64)
+    return (flash_err, flash_inst), (dense_err, dense_inst)
+
+
+def _check_modes(heads, want, phase):
+    """The prefill kernel ran at ``want`` heads both causal and not (an
+    encoder and a decoder), or causal only when ``want`` says so; the dense
+    decode kernel at the same heads."""
+    modes = want["modes"]
+    log(f"{phase}: kernel calls at (heads, KV heads, hd[, causal]): "
+        f"{ {n: sorted(v) for n, v in heads.items()} }")
+    check(heads["flash_attention_cuda"] == {want["heads"] + (m,)
+                                            for m in modes},
+          f"{phase}: prefill kernel calls {heads['flash_attention_cuda']}, "
+          f"expected heads {want['heads']} with causal in {modes}")
+    check(heads["decode_attention_cuda"] == {want["heads"]},
+          f"{phase}: dense decode kernel calls "
+          f"{heads['decode_attention_cuda']}, expected {want['heads']}")
+
+
+def _extra_on(torch, extra, dev):
+    return {k: torch.as_tensor(v, device=dev) for k, v in (extra or {}).items()}
+
+
+def _replay_rows(torch, cfg, params, params32, window, r, j, dev):
+    """Request ``r``'s logits before its token ``j`` as an engine computes
+    them: a prefill over its prompt and payload, then ``j`` decode steps on
+    the engine's clock (``prompt_len + i``) fed its own tokens; in bf16 and
+    with the weights upcast to f32."""
+    from repro_torch.models import decode_step, init_state, prefill
+    batch = {"tokens": torch.as_tensor(r.prompt_tokens, device=dev),
+             **_extra_on(torch, r.extra, dev)}
+    rows = []
+    for c, p in ((cfg, params),
+                 (dataclasses.replace(cfg, dtype="float32"), params32)):
+        logits, state = prefill(c, p, batch, init_state(c, 1, window,
+                                                        device=dev))
+        for i in range(j):
+            tok = torch.tensor([[int(r.output_tokens[i])]], dtype=torch.int32,
+                               device=dev)
+            t = torch.tensor([r.prompt_len + i], dtype=torch.int32,
+                             device=dev)
+            logits, state = decode_step(c, p, tok, state, t)
+        rows.append(logits[0].float())
+        del state
+    return rows
+
+
+def _short_light():
+    """The cluster phase's arrivals (Poisson, 0.1 per iteration over 120
+    iterations: 8 requests at seed 0) with Table 2 "light" lengths scaled
+    by 0.2 (prompts and decodes 4-100 tokens): ~140 iterations."""
+    from repro_torch.workloads import Poisson, TableLengths, WorkloadSpec
+    return WorkloadSpec(arrival=Poisson(rate=0.1, duration=120.0),
+                        lengths=TableLengths("light", scale=0.2),
+                        name="light-short")
+
+
+def _cluster_and_engine(torch, np, cfg, params, dev, phase, heads_want):
+    """The cluster phase's spec through ``api.serve`` under accellm on
+    ``cfg``'s weights with a short stream (:func:`_short_light`), each
+    request carrying its ``default_extras`` payload, then the same
+    requests through one
+    8-slot engine: every request must finish with all its tokens, every
+    logit be finite, mirror syncs and a promotion or rebalance happen,
+    the stream bytes equal ``LineCosts`` over the lines moved plus the
+    static state of each streamed request, the mirror bytes the lines
+    alone, the prefill and dense decode kernels launch (no plain version)
+    at the config's heads, and the tokens equal the engine's up to
+    near-ties (phase 8's rule on rows replayed as an engine computes
+    them).  Returns the serve's kernel counts."""
+    from repro_torch.api import serve
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.kvstore import LineCosts
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.serving import InstanceEngine, Request
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import sampling as sampling_mod
+    t_phase = time.perf_counter()
+    costs = LineCosts.from_config(cfg)
+    spec = _cluster_spec(arch=cfg.name, traffic=_short_light())
+    n_req = len(list(spec.traffic.source(seed=spec.seed)))
+    log(f"{phase}: {spec.arch}, policy {spec.policy}, {spec.n_instances} "
+        f"instances x {spec.num_slots} slots, window {spec.kv_capacity}, "
+        f"fuse {spec.fuse_decode_steps}; traffic {spec.traffic.describe()}: "
+        f"{n_req} requests, payloads from default_extras")
+    finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
+    moved, unrecord = _record_moves(InstanceEngine)
+    heads, unwatch = _watch_heads(attention_mod, DENSE_ENTRIES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        report = serve(spec, cfg=cfg, params=params)
+        torch.cuda.synchronize()
+    finally:
+        unwatch()
+        unrecord()
+        restore()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_it = report.cluster.n_iterations
+    log(f"{phase}: report:\n" + report.describe())
+    log(f"{phase}: serve wall {wall:.3f} s, {n_it} iterations, "
+        f"{wall * 1e3 / max(1, n_it):.3f} ms per iteration, "
+        f"sched_us_per_iter {report.sched_us_per_iter:.1f}; launches {counts}")
+    check(report.all_finished and report.n_submitted == n_req,
+          f"{phase}: not every request finished: {report.describe()}")
+    check(all(len(r.output_tokens) == r.max_new_tokens
+              for r in report.finished),
+          f"{phase}: a request ended short of its max_new_tokens")
+    check(bool(torch.stack(finite).all()), f"{phase}: non-finite logits")
+    st = report.stats
+    check(st["mirror_syncs"] > 0, f"{phase}: no mirror sync")
+    check(st["replica_promotions"] + st["rebalances"] > 0,
+          f"{phase}: no promotion or rebalance")
+    want_stream = (costs.line_bytes * moved["stream_lines"]
+                   + costs.static_bytes * moved["streams"])
+    check(st["stream_bytes"] == moved["stream"] == want_stream,
+          f"{phase}: stream_bytes {st['stream_bytes']} against {moved['stream']}"
+          f" priced by LineCosts, {want_stream} = {costs.line_bytes:.0f} B x "
+          f"{moved['stream_lines']} lines + {costs.static_bytes} B x "
+          f"{moved['streams']} streams")
+    check(st["mirror_bytes"] == moved["mirror"]
+          == costs.line_bytes * moved["mirror_lines"],
+          f"{phase}: mirror_bytes {st['mirror_bytes']} carry more than "
+          f"{moved['mirror_lines']} KV lines")
+    log(f"{phase}: stream_bytes {st['stream_bytes']:.0f} = "
+        f"{costs.line_bytes:.0f} B x {moved['stream_lines']} lines + "
+        f"{costs.static_bytes} B static x {moved['streams']} streams; "
+        f"mirror_bytes {st['mirror_bytes']:.0f} = {costs.line_bytes:.0f} B x "
+        f"{moved['mirror_lines']} lines, no static byte")
+    _check_path_counts(counts, DENSE_PATH, phase)
+    _check_modes(heads, heads_want, phase)
+    served = list(report.cluster._submitted)
+    del report
+
+    eng = InstanceEngine(cfg, params, num_slots=8, kv_capacity=1024,
+                         block_lines=16, device=dev)
+    pending = [Request(prompt_len=r.prompt_len, max_new_tokens=r.max_new_tokens,
+                       rid=r.rid, prompt_tokens=np.asarray(r.prompt_tokens),
+                       extra=r.extra) for r in served]
+    alone = {r.rid: r for r in pending}
+    t0 = time.perf_counter()
+    while pending or eng.slot_req:
+        while pending and eng.free_slots():
+            eng.prefill_request(pending.pop(0))
+        if eng.slot_req:
+            eng.decode_multi(steps=8)
+    log(f"{phase}: one engine served the {len(alone)} requests in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del eng
+    diffs = _first_differences(served, alone, phase)
+    near = []
+    if diffs:
+        params32 = _tree_map(lambda t: t.float(), params)
+        rows = [(r.rid, j, a, b) + tuple(_replay_rows(
+            torch, cfg, params, params32, 1024, r, j, dev))
+            for r, j, a, b in diffs]
+        near = _judge_ties(rows, phase)
+        del params32
+    log(f"{phase}: {len(served)} requests, cluster against one engine: "
+        f"tokens equal" + (f" up to {len(near)} near-ties" if near
+                           else " bitwise")
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _prefill_ms(torch, request, engine, n=3):
+    """Mean wall ms of one 256-token request's prefill (its payload
+    included) into an empty 8-slot engine."""
+    e = engine()
+    total = 0.0
+    for _ in range(n):
+        r = request(256, 8)
+        total += _wall_ms(torch, lambda: e.prefill_request(r))
+        e.release(e.store.rid_slot[r.rid])
+    return total / n
+
+
+def _profile_decode(torch, request, engine, admit, phase):
+    """Where a dense decode plan's time goes: 8 active x 8 steps, wall
+    unprofiled, device time from torch.profiler; returns the engine."""
+    e = engine()
+    admit(e, [request(256, 40) for _ in range(8)])
+    e.decode_multi(steps=2)
+    wall = _wall_ms(torch, lambda: e.decode_multi(steps=8))
+    _print_breakdown({"decode 8 active x 8 steps": _breakdown(
+        wall, _device_profile(torch, lambda: e.decode_multi(steps=8)))},
+        phase)
+    return e
+
+
+def phase_seamless(torch, dev, np):
+    """Phases 21-22: seamless-m4t-large-v2 whole in bf16 behind one engine
+    (serve-seamless, with its f32 check), then through the cluster
+    (cluster-seamless); returns each path's kernel counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kvstore import LineCosts
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.blocks import _at
+    from repro_torch.workloads import default_extras
+
+    # -- 21. serve-seamless --------------------------------------------------
+    t_phase = time.perf_counter()
+    cfg = get_config("seamless-m4t-large-v2")
+    enc, costs = cfg.encoder, LineCosts.from_config(cfg)
+    log(f"serve-seamless: {cfg.name} whole: a {enc.num_layers}-layer "
+        f"encoder over {enc.max_source_positions} frames of "
+        f"{cfg.frontend.embed_dim}, a {cfg.num_layers}-layer decoder with "
+        f"cross attention; d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff} ({cfg.activation}), {cfg.abs_pos} positions, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}; a KV line {costs.line_bytes:.0f} B, "
+        f"static state {costs.static_bytes} B a request")
+    check(costs.static_bytes == 411_041_792 and costs.line_bytes == 98_304,
+          f"serve-seamless: LineCosts {costs}")
+    params = _draw(torch, cfg, 13, dev, "serve-seamless")
+    want = {"heads": (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+            "modes": (False, True)}
+    heads, unwatch = _watch_heads(attention_mod, DENSE_ENTRIES)
+    try:
+        counts = {}
+        counts["serve-seamless"], per_step, (rng, request, engine, admit) = \
+            _serve_six(torch, np, cfg, params, dev, "serve-seamless",
+                       path_kernels=DENSE_PATH)
+    finally:
+        unwatch()
+    _check_modes(heads, want, "serve-seamless")
+    frames = torch.as_tensor(default_extras(cfg, 0, 0)["frames"], device=dev)
+    model_mod._encode(cfg, params, frames)
+    enc_ms = min(_wall_ms(torch, lambda: model_mod._encode(cfg, params,
+                                                           frames))
+                 for _ in range(3))
+    log(f"serve-seamless: encoder {enc_ms:.3f} ms per request "
+        f"({enc.max_source_positions} frames, best of 3); prefill "
+        f"{_prefill_ms(torch, request, engine):.3f} ms per 256-token request "
+        f"with its frames (mean of 3)")
+    e = _profile_decode(torch, request, engine, admit, "serve-seamless")
+    check(not (e.supports_paged_decode or e.supports_chunked_prefill),
+          "serve-seamless: an enc-dec engine must neither page nor chunk")
+    # cross attention alone over the cached K/V of the 8 active slots: one
+    # decode step's worth (every decoder layer), beside the whole step
+    x = torch.randn((8, 1, cfg.d_model), device=dev).to(params["embed"].dtype)
+
+    def cross_step():
+        for i, seg in enumerate(params["segments"]):
+            st_seg = e.store.state["layers"][i]
+            for r in range(seg["p0"]["norm1"].shape[0]):
+                for pj, lp in _at(seg, r).items():
+                    if "cross" in lp:
+                        attention_mod.cross_attn_forward(
+                            cfg, lp["cross"], x, enc_out=None,
+                            state=_at(st_seg, r)[pj])
+    cross_step()
+    cross_ms = min(_wall_ms(torch, cross_step) for _ in range(3))
+    log(f"serve-seamless: cross attention over {enc.max_source_positions} "
+        f"cached rows (the plain chunked softmax, as in the JAX package), "
+        f"8 slots, all {cfg.num_layers} layers: {cross_ms:.3f} ms per step "
+        f"(best of 3), against {per_step[8]:.3f} ms for the whole decode "
+        f"step at 8 active: {cross_ms / per_step[8]:.1%}")
+    del e, x
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    frames = torch.as_tensor(default_extras(cfg, 0, 1)["frames"], device=dev)
+    _decode_vs_prefill(torch, np, cfg32, _tree_map(lambda t: t.float(),
+                                                   params), dev, rng,
+                       "serve-seamless consistency", paged=False,
+                       extra={"frames": frames})
+    _free(torch)
+    log(f"serve-seamless: phase {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 22. cluster-seamless ------------------------------------------------
+    counts["cluster-seamless"] = _cluster_and_engine(
+        torch, np, cfg, params, dev, "cluster-seamless", want)
+    return counts
+
+
+def _clock_error(torch, np, cfg, params, dev, rng, patches):
+    """Printed, not gated: the engine's clock error on one decode step in
+    f32.  A 200-token prompt behind the patches, its greedy token decoded
+    at t = S (the clock the engine keeps, as the JAX package's does) and at
+    t = P + S, each against a fresh prefill over prompt + token."""
+    from repro_torch.models import decode_step, init_state, prefill
+    P = patches.shape[1]
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
+                                          dtype=np.int32), device=dev)
+    batch = {"tokens": prompt, "patch_embeds": patches}
+    logits, _ = prefill(cfg, params, batch, init_state(cfg, 1, 1024,
+                                                       device=dev))
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    fresh, _ = prefill(cfg, params, {"tokens": torch.cat([prompt, tok], 1),
+                                     "patch_embeds": patches},
+                       init_state(cfg, 1, 1024, device=dev))
+    scale = float(fresh.abs().max())
+    out = {}
+    for what, t in (("t = S", 200), ("t = P + S", P + 200)):
+        _, state = prefill(cfg, params, batch, init_state(cfg, 1, 1024,
+                                                          device=dev))
+        dl, _ = decode_step(cfg, params, tok, state,
+                            torch.tensor([t], dtype=torch.int32, device=dev))
+        out[what] = max_err(dl, fresh)
+    log(f"serve-internvl consistency: one decode step against a fresh "
+        f"prefill, f32, max |logit| {scale:.3f}: "
+        + "; ".join(f"at {w} {e:.3e} (ratio {e / scale:.3e})"
+                    for w, e in out.items())
+        + " (the engine decodes at t = S, as the JAX package's does; "
+          "printed, not gated)")
+
+
+def phase_internvl(torch, dev, np):
+    """Phase 23: internvl2-1b whole in bf16 with 256-patch payloads behind
+    one engine, then through the cluster, then the model's f32 decode at
+    t = P + S against a fresh prefill; returns each path's kernel
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.workloads import default_extras
+    t_phase = time.perf_counter()
+    cfg = get_config("internvl2-1b")
+    fe = cfg.frontend
+    log(f"serve-internvl: {cfg.name} whole: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} (G "
+        f"{cfg.num_heads // cfg.num_kv_heads}), hd {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings "
+        f"{cfg.tie_embeddings}, a {fe.num_prefix_tokens}-patch prefix of "
+        f"{fe.embed_dim} through the 2-layer projector, {cfg.dtype}")
+    params = _draw(torch, cfg, 14, dev, "serve-internvl")
+    want = {"heads": (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+            "modes": (True,)}
+    heads, unwatch = _watch_heads(attention_mod, DENSE_ENTRIES)
+    try:
+        counts = {}
+        counts["serve-internvl"], _, (rng, request, engine, admit) = \
+            _serve_six(torch, np, cfg, params, dev, "serve-internvl",
+                       window=1024, path_kernels=DENSE_PATH)
+    finally:
+        unwatch()
+    _check_modes(heads, want, "serve-internvl")
+    log(f"serve-internvl: prefill {_prefill_ms(torch, request, engine):.3f} ms "
+        f"per 256-token request behind its {fe.num_prefix_tokens} patches "
+        f"(mean of 3)")
+    e = _profile_decode(torch, request, engine, admit, "serve-internvl")
+    check(not (e.supports_paged_decode or e.supports_chunked_prefill),
+          "serve-internvl: a vision-prefix engine must neither page nor "
+          "chunk")
+    del e
+    log(f"serve-internvl: phase {time.perf_counter() - t_phase:.1f} s")
+    counts["cluster-internvl"] = _cluster_and_engine(
+        torch, np, cfg, params, dev, "cluster-internvl", want)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    patches = torch.as_tensor(default_extras(cfg, 0, 1)["patch_embeds"],
+                              device=dev)
+    _decode_vs_prefill(torch, np, cfg32, params32, dev, rng,
+                       "serve-internvl consistency", paged=False,
+                       extra={"patch_embeds": patches},
+                       offset=fe.num_prefix_tokens, window=1024)
+    _clock_error(torch, np, cfg32, params32, dev, rng, patches)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2630,6 +3165,12 @@ def main() -> int:
     # -- 2. kernels ------------------------------------------------------------
     kernels = phase_kernels(torch, flash_mod, decode_mod, flush)
     kernels += phase_hybrid_kernels(torch, decode_mod, scan_mod, flush)
+    by_name = {r["name"]: r for r in kernels}
+    for name, (err, inst) in zip(
+            ("flash_attention", "decode_attention"),
+            phase_encdec_kernels(torch, flash_mod, decode_mod, flush)):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+        by_name[name]["instances"].update(inst)
     _log_records(kernels, "scaled_dot_product_attention")
     log("kernels: " + json.dumps([r["name"] for r in kernels]))
 
@@ -2668,6 +3209,12 @@ def main() -> int:
     _free(torch)
     # -- 20. serve-xlstm -----------------------------------------------------------
     paths["serve-xlstm"] = phase_xlstm(torch, dev, np)
+    _free(torch)
+    # -- 21-22. seamless-m4t-large-v2 whole: serve-seamless, cluster-seamless ----
+    paths.update(phase_seamless(torch, dev, np))
+    _free(torch)
+    # -- 23. internvl2-1b whole: serve-internvl (one engine, the cluster) -----
+    paths.update(phase_internvl(torch, dev, np))
     _free(torch)
 
     for r in kernels:

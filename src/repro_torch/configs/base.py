@@ -4,8 +4,8 @@ A copy of the JAX package's ``ModelConfig`` and its sub-configs, field for
 field, so that one configuration means the same model in both packages
 (the parity tests compare the two dataclasses field by field, full and
 ``.reduced()``).  One dataclass covers every family via a per-layer
-``block_pattern`` and optional sub-configs; this package runs the
-attention-only decoder stacks and the hybrid Mamba+MoE stack.
+``block_pattern`` and optional sub-configs (MoE, MLA, Mamba, xLSTM,
+encoder-decoder, modality front-end stubs).
 """
 from __future__ import annotations
 

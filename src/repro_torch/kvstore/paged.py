@@ -11,17 +11,23 @@ block-granular.  :meth:`decode_block_tables` feeds the paged decode kernel
 
 Leaves are classified as in the JAX package: attention ``k``/``v`` (GQA)
 and ``c_kv``/``k_rope`` (the MLA latent, with no head axis) are *line*
-leaves (indexed by KV line, axis 2 of the stacked leaf), and every leaf of
-a recurrent mixer (Mamba's ``conv`` and ``ssm``, the mLSTM's ``C``, ``n``,
-``m`` and ``conv``, the sLSTM's ``c``, ``n``, ``h`` and ``m``) is a
-*recurrent* leaf, a constant-size per-request state that moves whole.
+leaves (indexed by KV line, axis 2 of the stacked leaf); an enc-dec
+decoder layer's cross K/V ``xk``/``xv`` are *static* leaves, written once
+at prefill and never again; and every leaf of a recurrent mixer (Mamba's
+``conv`` and ``ssm``, the mLSTM's ``C``, ``n``, ``m`` and ``conv``, the
+sLSTM's ``c``, ``n``, ``h`` and ``m``) is a *recurrent* leaf, a
+constant-size per-request state that moves whole.  An enc-dec state's
+encoder memory ``enc_out`` (batch on axis 0, no repeat dim) is static
+too: it moves with a whole slot (extract, merge, stream, import), never
+with a mirror sync.
 
 The state is updated in place.  Whatever leaves the store (an exported
 slot) is a copy, so later in-place writes on either side never alias.
 
 :meth:`copy_lines` is the per-step redundancy mirror: only the KV rows of
 the new accounting lines move, plus the recurrent states whole, O(delta)
-per step, not O(kv_capacity).  :meth:`copy_prefix` is the prefix cache's
+per step, not O(kv_capacity); static leaves are skipped, since a replica
+gets them once, from the stream.  :meth:`copy_prefix` is the prefix cache's
 one-time gather of a shared head's rows from other slots' windows into a
 new request's window (``alloc(shared=)`` adopts those blocks in the
 ledger).
@@ -41,6 +47,8 @@ from repro_torch.models.blocks import layer_specs, plan_segments
 
 #: attention-state keys indexed by KV line (axis 2 of the stacked leaf)
 LINE_KEYS = ("k", "v", "c_kv", "k_rope")
+#: attention-state keys written once at prefill (enc-dec cross caches)
+STATIC_KEYS = ("xk", "xv")
 
 
 def pick_block_lines(kv_capacity: int, requested: int = 16) -> int:
@@ -76,15 +84,22 @@ class PagedStore:
         self.slot_rid: Dict[int, int] = {}
         self.rid_slot: Dict[int, int] = {}
         #: state leaves: (segment index, part key, leaf key, kind), kind
-        #: ``line`` (attention k/v) or ``recurrent`` (moves whole)
+        #: ``line`` (attention KV), ``static`` (cross K/V, written once) or
+        #: ``recurrent`` (moves whole on every sync)
         self._paths: List[Tuple[int, str, str, str]] = []
         for i, seg in enumerate(plan_segments(layer_specs(cfg))):
             for j, spec in enumerate(seg.specs):
                 for key in self.state["layers"][i][f"p{j}"]:
-                    if spec.block == "attn" and key not in LINE_KEYS:
+                    if spec.block != "attn":
+                        kind = "recurrent"
+                    elif key in LINE_KEYS:
+                        kind = "line"
+                    elif key in STATIC_KEYS:
+                        kind = "static"
+                    else:
                         raise KVStoreError(f"attention state leaf {key!r} "
-                                           f"is not a KV line leaf")
-                    kind = "line" if spec.block == "attn" else "recurrent"
+                                           f"is neither a KV line nor a "
+                                           f"static leaf")
                     self._paths.append((i, f"p{j}", key, kind))
 
     def _leaf(self, state, path) -> torch.Tensor:
@@ -226,12 +241,15 @@ class PagedStore:
             i, pj, key = path[:3]
             out["layers"][i][pj][key] = \
                 self._leaf(self.state, path)[:, slot: slot + 1].clone()
+        if "enc_out" in self.state:
+            out["enc_out"] = self.state["enc_out"][slot: slot + 1].clone()
         return out
 
     def merge_slot(self, slot: int, sub_state, src_slot: int = 0):
         """Install ``sub_state`` (batch row ``src_slot``) into ``slot``,
         whole-window (row bounds clamp to the smaller of the two windows).
-        Batch is dim 1 of the layer leaves (dim 0 is the repeat dim)."""
+        Batch is dim 1 of the layer leaves (dim 0 is the repeat dim) and
+        dim 0 of ``enc_out``."""
         self.merge_slot_rows(slot, sub_state, 0, self.kv_capacity,
                              src_slot=src_slot)
 
@@ -239,18 +257,20 @@ class PagedStore:
                         src_slot: int = 0):
         """Copy ``sub_state``'s batch row ``src_slot`` into ``slot``, KV rows
         ``[lo, hi)`` only of the line leaves (clamped to the smaller
-        window): the merge for bucket-sized prefill scratch.  Recurrent
-        leaves copy whole."""
+        window): the merge for bucket-sized prefill scratch.  Recurrent and
+        static leaves, and ``enc_out``, copy whole."""
         for path in self._paths:
             dst = self._leaf(self.state, path)
             src = self._leaf(sub_state, path)
-            if path[3] == "recurrent":
+            if path[3] != "line":
                 dst[:, slot] = src[:, src_slot]
                 continue
             h = min(hi, src.shape[2], dst.shape[2])
             l = min(lo, h)
             if h > l:
                 dst[:, slot, l:h] = src[:, src_slot, l:h]
+        if "enc_out" in self.state:
+            self.state["enc_out"][slot] = sub_state["enc_out"][src_slot]
 
     # -- per-layer streamed transfer -------------------------------------------
     def stream_slot(self, slot: int) -> Iterator[Tuple[tuple, torch.Tensor]]:
@@ -260,34 +280,41 @@ class PagedStore:
         before the store writes the slot again."""
         for path in self._paths:
             yield path[:3], self._leaf(self.state, path)[:, slot: slot + 1]
+        if "enc_out" in self.state:
+            yield ("enc_out",), self.state["enc_out"][slot: slot + 1]
 
     def import_chunk(self, slot: int, path: tuple, chunk: torch.Tensor):
         """Install one streamed chunk into ``slot`` (a copy, on this
-        store's device).  The encoder memory and the mesh hop of the JAX
-        package wait for the encoder-decoder and mesh slices."""
-        if path[0] == "enc_out":
-            raise NotImplementedError(
-                "encoder memory waits for the encoder-decoder slice of the "
-                "port")
-        i, pj, key = path
-        dst = self.state["layers"][i][pj][key]
+        store's device).  The mesh hop of the JAX package waits for the
+        mesh slice."""
+        enc = path[0] == "enc_out"
+        if enc and "enc_out" not in self.state:
+            raise KVStoreError("an encoder-memory chunk for a store that "
+                               "holds no encoder memory")
+        dst = self.state["enc_out"] if enc else self._leaf(self.state, path)
         if chunk.device != dst.device:
             raise NotImplementedError(
                 f"a chunk on {chunk.device} for a store on {dst.device}: "
                 f"cross-device streaming waits for the mesh slice of the port")
-        dst[:, slot] = chunk[:, 0]
+        if enc:
+            dst[slot] = chunk[0]
+        else:
+            dst[:, slot] = chunk[:, 0]
 
     # -- delta line copy (the mirror) ------------------------------------------
     def copy_lines(self, src: "PagedStore", src_slot: int, dst_slot: int,
                    from_line: int, to_line: int) -> float:
         """Copy only the KV rows of accounting lines ``[from_line,
         to_line)`` from ``src``'s slot into ours, plus the recurrent states
-        whole (on every sync); returns the bytes moved.  Accounting line
+        whole (on every sync), and no static leaf (written once, it came
+        with the stream); returns the bytes moved.  Accounting line
         ``L`` reserves physical row ``L-1`` (the newest sampled token's KV
         is written by the *next* decode step), so rows ``[from_line-1,
         to_line-1)`` move, modulo the ring window."""
         lo, hi = max(0, from_line - 1), max(0, to_line - 1)
         for path in self._paths:
+            if path[3] == "static":
+                continue
             dst = self._leaf(self.state, path)
             src_leaf = self._leaf(src.state, path)
             if path[3] == "recurrent":

@@ -16,6 +16,11 @@ Three execution modes of :func:`gqa_forward`, as in the JAX package:
                     decode kernel (the path of engines that do not page:
                     the hybrid stack, and the oracle of paged engines).
 
+:func:`cross_attn_forward` (enc-dec decoder layers) attends to the
+encoder memory through the plain chunked :func:`flash_attention`, as the
+JAX package does on every backend; its K/V are projected once at prefill
+and cached per layer (``xk``/``xv``).
+
 :func:`mla_forward` computes MLA as the JAX package does, outside any
 kernel: in full mode it expands the latent into per-head K/V (qk head dim
 192, v 128) and attends through the plain chunked online softmax
@@ -294,6 +299,57 @@ def gqa_forward(
 
     out = out.reshape(B, S, h * hd) @ params["wo"]
     return out, state
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(gen: torch.Generator, cfg: ModelConfig, repeats: int,
+                    dtype, device):
+    return init_gqa(gen, cfg, repeats, dtype, device)
+
+
+def cross_attn_forward(
+    cfg: ModelConfig,
+    params,
+    x: torch.Tensor,                       # (B, S, D) decoder states
+    *,
+    enc_out: Optional[torch.Tensor],       # (B, S_src, D) or None when cached
+    state=None,                            # {"xk", "xv"}: (B, S_src, KVH, hd)
+    precompute: bool = False,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Decoder queries against the encoder memory, not causal.  With
+    ``precompute`` (prefill), or with no cached K/V, K and V are projected
+    from ``enc_out``; a state's ``xk``/``xv`` are overwritten in place, or
+    added to a state that has none, as the JAX package adds them.
+    Otherwise (decode) the cached ones are read.  As in the JAX package, it
+    attends through the plain chunked :func:`flash_attention` on every
+    device, so it reaches no kernel."""
+    B, S, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    q = (x @ params["wq"]).reshape(B, S, h, hd)
+    cached = state is not None and "xk" in state
+    if precompute or not cached:
+        if enc_out is None:
+            raise ValueError("cross attention needs enc_out or cached K/V")
+        k = (enc_out @ params["wk"]).reshape(B, -1, kvh, hd)
+        v = (enc_out @ params["wv"]).reshape(B, -1, kvh, hd)
+        if cached:
+            if state["xk"].shape != k.shape:
+                raise ValueError(
+                    f"encoder memory of {k.shape[1]} frames for a cross "
+                    f"cache of {state['xk'].shape[1]}")
+            state["xk"].copy_(k)
+            state["xv"].copy_(v)
+        elif state is not None:
+            state["xk"], state["xv"] = k, v
+    else:
+        k, v = state["xk"], state["xv"]
+    out = flash_attention(q, k, v, causal=False, scale=scale)
+    return out.reshape(B, S, h * hd) @ params["wo"], state
 
 
 # ---------------------------------------------------------------------------

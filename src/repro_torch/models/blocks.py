@@ -1,26 +1,30 @@
 """Layer composition + segment planning.
 
 A model is a sequence of layers; each layer = pre-norm mixer + optional
-FFN, with (optionally depth-scaled) residuals.  Layers are grouped into
+cross attention (enc-dec decoder layers) + optional FFN, with (optionally
+depth-scaled) residuals.  Layers are grouped into
 *segments*, maximal periodic runs whose parameters and states are stacked
 along a leading repeat dim, the layout the JAX package scans over.  Here a
 Python loop walks the repeat dim; each step indexes views of the stacked
 leaves, so cache writes land in the stacked state in place.
 
 The port runs attention (GQA or MLA), Mamba, mLSTM and sLSTM mixers with
-dense or MoE FFNs; cross attention raises ``NotImplementedError`` naming
-its slice.
+dense or MoE FFNs, and the encoder stack of enc-dec models
+(``layer_specs(cfg, decoder=False)``: no cross attention, and the caller
+sets ``ctx["causal"] = False``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.attention import attention_forward, init_attention
+from repro_torch.models.attention import (attention_forward,
+                                          cross_attn_forward, init_attention,
+                                          init_cross_attn)
 from repro_torch.models.common import rms_norm
 from repro_torch.models.ffn import dense_ffn, init_dense_ffn
 from repro_torch.models.moe import init_moe, moe_forward
@@ -72,12 +76,6 @@ def plan_segments(specs: List[LayerSpec], max_period: int = 16) -> List[Segment]
     return segs
 
 
-def check_supported(spec: LayerSpec):
-    if spec.cross:
-        raise NotImplementedError(
-            "cross attention waits for the encoder-decoder slice of the port")
-
-
 # ---------------------------------------------------------------------------
 # Per-layer init / apply
 # ---------------------------------------------------------------------------
@@ -86,13 +84,15 @@ def check_supported(spec: LayerSpec):
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                repeats: int, dtype, device):
     """One position of a segment, its leaves stacked over ``repeats``."""
-    check_supported(spec)
     d = cfg.d_model
     p: Dict[str, Any] = {
         "norm1": torch.ones((repeats, d), dtype=dtype, device=device)}
     init = {"attn": init_attention, "mamba": mamba_mod.init_mamba,
             "mlstm": xlstm_mod.init_mlstm, "slstm": xlstm_mod.init_slstm}
     p["mixer"] = init[spec.block](gen, cfg, repeats, dtype, device)
+    if spec.cross:
+        p["cross_norm"] = torch.ones((repeats, d), dtype=dtype, device=device)
+        p["cross"] = init_cross_attn(gen, cfg, repeats, dtype, device)
     if spec.d_ff or spec.is_moe:
         p["norm2"] = torch.ones((repeats, d), dtype=dtype, device=device)
         if spec.is_moe:
@@ -125,6 +125,12 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x: torch.Tensor,
                    "slstm": xlstm_mod.slstm_forward}[spec.block]
         h, state = forward(cfg, params["mixer"], h_in, **kw)
     x = x + rs * h
+    if spec.cross:
+        cx = rms_norm(x, params["cross_norm"], cfg.rms_norm_eps)
+        h, _ = cross_attn_forward(
+            cfg, params["cross"], cx, enc_out=ctx.get("enc_out"),
+            state=state, precompute=ctx.get("precompute_cross", False))
+        x = x + rs * h
     if spec.d_ff or spec.is_moe:
         f_in = rms_norm(x, params["norm2"], cfg.rms_norm_eps)
         if spec.is_moe:
@@ -154,13 +160,12 @@ def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
 
 
 def init_segment_state(cfg: ModelConfig, seg: Segment, batch: int,
-                       capacity: int, dtype, device):
-    out = {}
-    for j, spec in enumerate(seg.specs):
-        check_supported(spec)
-        out[f"p{j}"] = init_layer_state(cfg, spec.block, seg.repeats, batch,
-                                        capacity, dtype, device)
-    return out
+                       capacity: int, dtype, device,
+                       cross_len: Optional[int] = None):
+    return {f"p{j}": init_layer_state(
+        cfg, spec.block, seg.repeats, batch, capacity, dtype, device,
+        cross_len=cross_len if spec.cross else None)
+        for j, spec in enumerate(seg.specs)}
 
 
 def apply_segment(cfg: ModelConfig, seg: Segment, params, x: torch.Tensor,
@@ -185,15 +190,17 @@ def apply_segment(cfg: ModelConfig, seg: Segment, params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device):
-    segs = plan_segments(layer_specs(cfg))
+def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+               decoder: bool = True):
+    segs = plan_segments(layer_specs(cfg, decoder=decoder))
     return segs, [init_segment(gen, cfg, s, dtype, device) for s in segs]
 
 
 def init_stack_state(cfg: ModelConfig, segs: List[Segment], batch: int,
-                     seq_len: int, dtype, device):
+                     seq_len: int, dtype, device,
+                     cross_len: Optional[int] = None):
     cap = cache_capacity(cfg, seq_len)
-    return [init_segment_state(cfg, s, batch, cap, dtype, device)
+    return [init_segment_state(cfg, s, batch, cap, dtype, device, cross_len)
             for s in segs]
 
 

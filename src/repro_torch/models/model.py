@@ -1,4 +1,4 @@
-"""Top-level model: embedding → layer stack → head.
+"""Top-level model: embedding → (encoder) → layer stack → head.
 
 Functional API on nested-dict params, mirroring the JAX package's:
 
@@ -11,9 +11,18 @@ Functional API on nested-dict params, mirroring the JAX package's:
   decode_step_paged(...)                               -> (logits, state)
   decode_multi(...)                                    -> (tokens, state, emitted)
 
+``batch`` is a dict: {"tokens": (B, S) int32} plus, per the modality
+carve-out, {"patch_embeds": (B, P, E)} for VLMs or {"frames": (B, F, E)}
+for audio enc-dec (precomputed front-end embeddings).  A VLM's patches go
+through the projector (in f32) and lead the sequence at positions
+``[0, P)``; an enc-dec model encodes its frames with a bidirectional
+stack, keeps the memory in the state's ``enc_out`` and each decoder
+layer's cross K/V in ``xk``/``xv``.
+
 The state is updated in place; the returned state is the one passed in.
-The port runs decoder-only stacks of GQA or MLA attention, Mamba, mLSTM
-and sLSTM mixers with dense or MoE FFNs.  The router's aux loss is summed
+The port runs stacks of GQA or MLA attention, Mamba, mLSTM and sLSTM
+mixers with dense or MoE FFNs, with or without an encoder, sinusoidal
+absolute positions and a vision prefix.  The router's aux loss is summed
 by ``apply_stack`` as in the JAX package; serving ignores it.  A
 multi-token-prediction head (DeepSeek-V3's ``mtp``) is built with the
 params, so both packages hold the same tree, but only training reads it:
@@ -33,23 +42,19 @@ from repro_torch.models.blocks import (LayerSpec, _at, apply_stack,
                                        init_stack_state, layer_specs,
                                        plan_segments)
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       rms_norm)
+                                       gelu, rms_norm, sinusoidal_positions)
 
 
 def _segs(cfg: ModelConfig):
     return plan_segments(layer_specs(cfg))
 
 
-def check_config(cfg: ModelConfig):
-    """Raise for what this slice of the port does not run yet."""
-    later = []
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        later.append("encoder / modality front ends (encoder-decoder slice)")
-    if cfg.abs_pos != "none":
-        later.append(f"{cfg.abs_pos} absolute positions")
-    if later:
-        raise NotImplementedError(f"{cfg.name}: " + "; ".join(later)
-                                  + " wait for later slices of the port")
+def _enc_segs(cfg: ModelConfig):
+    return plan_segments(layer_specs(cfg, decoder=False))
+
+
+def _is_vlm(cfg: ModelConfig) -> bool:
+    return cfg.frontend is not None and cfg.frontend.kind == "vision"
 
 
 # ---------------------------------------------------------------------------
@@ -62,10 +67,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights at the JAX package's scales and dtypes (fan-in
     normal, embedding std 0.02; Mamba's ``A_log``, ``D`` and ``dt_b``, the
     xLSTM gate leaves and the MoE router in f32), drawn from ``generator``
-    (which must live on ``device``).  With ``mtp_depth`` the tree holds
+    (which must live on ``device``).  A VLM's tree holds the projector
+    ``proj.{w1, w2}`` and an enc-dec model's the ``encoder`` stack (the
+    decoder's dims) with its final norm.  With ``mtp_depth`` the tree holds
     the multi-token-prediction head as the JAX package's does: a norm, the
     combine projection and one attention layer with a dense FFN."""
-    check_config(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     params: Dict[str, Any] = {
@@ -76,6 +82,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model,
                                                    cfg.vocab_size), dtype, dev)
+    if _is_vlm(cfg):
+        e = cfg.frontend.embed_dim
+        params["proj"] = {
+            "w1": dense_init(generator, (e, cfg.d_model), dtype, dev),
+            "w2": dense_init(generator, (cfg.d_model, cfg.d_model), dtype,
+                             dev)}
+    if cfg.is_encoder_decoder:
+        if cfg.encoder.d_model != cfg.d_model:
+            raise ValueError(f"{cfg.name}: the encoder's d_model "
+                             f"{cfg.encoder.d_model} is not the decoder's "
+                             f"{cfg.d_model}")
+        _, enc_segments = init_stack(generator, cfg, dtype, dev,
+                                     decoder=False)
+        params["encoder"] = {
+            "segments": enc_segments,
+            "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                     device=dev)}
     if cfg.mtp_depth:
         layer = init_layer(generator, cfg, LayerSpec("attn", False, cfg.d_ff,
                                                      False), 1, dtype, dev)
@@ -100,13 +123,58 @@ def forward_mtp(cfg: ModelConfig, params, batch):
 # ---------------------------------------------------------------------------
 
 
-def _embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.abs_pos == "sinusoidal":
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token (+ visual prefix) embedding for decoder-only models, and the
+    positions of the whole sequence.  The projector runs in f32 and its
+    output is cast to the embedding's dtype."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    dev = tokens.device
+    if _is_vlm(cfg):
+        pe = batch["patch_embeds"]
+        proj = params["proj"]
+        prefix = gelu(pe.float() @ proj["w1"].float())
+        prefix = (prefix @ proj["w2"].float()).to(params["embed"].dtype)
+        P = pe.shape[1]
+        positions = torch.arange(P + S, device=dev)
+        tok_x = _embed_tokens(cfg, params, tokens, positions[P:])
+        return torch.cat([prefix, tok_x], dim=1), positions
+    positions = torch.arange(S, device=dev)
+    return _embed_tokens(cfg, params, tokens, positions), positions
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ w).float() * cfg.logit_scale
+
+
+# ---------------------------------------------------------------------------
+# Encoder (enc-dec models)
+# ---------------------------------------------------------------------------
+
+
+def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, F, E) precomputed front-end embeddings -> the encoder
+    memory (B, F, D): bidirectional attention through the prefill kernel
+    (``causal=False``), no cache."""
+    x = frames.to(params["final_norm"].dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    if cfg.abs_pos == "sinusoidal":
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    ctx = {"mode": "full", "positions": pos, "update_cache": False,
+           "causal": False}
+    x, _ = apply_stack(cfg, _enc_segs(cfg), params["encoder"]["segments"], x,
+                       None, ctx)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.rms_norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -116,25 +184,43 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def init_state(cfg: ModelConfig, batch: int, seq_len: int,
                device: Device = "cuda"):
-    check_config(cfg)
+    """Serving state for ``batch`` requests of up to ``seq_len`` lines; an
+    enc-dec model's also holds the encoder memory ``enc_out`` (batch,
+    max_source_positions, D) and each decoder layer's cross K/V."""
     dev = resolve_device(device)
-    return {"layers": init_stack_state(cfg, _segs(cfg), batch, seq_len,
-                                       dtype_of(cfg.dtype), dev)}
+    dtype = dtype_of(cfg.dtype)
+    cross_len = (cfg.encoder.max_source_positions
+                 if cfg.is_encoder_decoder else None)
+    state: Dict[str, Any] = {"layers": init_stack_state(
+        cfg, _segs(cfg), batch, seq_len, dtype, dev, cross_len=cross_len)}
+    if cfg.is_encoder_decoder:
+        state["enc_out"] = torch.zeros((batch, cross_len, cfg.d_model),
+                                       dtype=dtype, device=dev)
+    return state
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], state
             ) -> Tuple[torch.Tensor, Any]:
-    """Process the prompt, fill the caches, return last-token logits."""
-    tokens = batch["tokens"]
-    if set(batch) != {"tokens"}:
-        raise NotImplementedError(
-            f"batch extras {sorted(set(batch) - {'tokens'})} wait for the "
-            f"encoder-decoder slice of the port")
-    S = tokens.shape[1]
-    pos = torch.arange(S, device=tokens.device)
-    x = _embed_tokens(params, tokens)
-    ctx = {"mode": "full", "positions": pos, "update_cache": True, "t": 0,
+    """Process the prompt, fill the caches, return last-token logits.  An
+    enc-dec batch's ``frames`` are encoded first, into the state's
+    ``enc_out``, and every decoder layer projects its cross K/V from them;
+    a VLM batch's ``patch_embeds`` lead the sequence, so P + S rows of each
+    cache are written."""
+    ctx = {"mode": "full", "update_cache": True, "t": 0,
            "window": cfg.sliding_window}
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(cfg, params, batch["frames"])
+        if enc_out.shape != state["enc_out"].shape:
+            raise ValueError(f"encoder memory {tuple(enc_out.shape)} for a "
+                             f"state of {tuple(state['enc_out'].shape)}")
+        state["enc_out"].copy_(enc_out)
+        tokens = batch["tokens"]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = _embed_tokens(cfg, params, tokens, pos)
+        ctx.update(enc_out=enc_out, precompute_cross=True)
+    else:
+        x, pos = _embed_inputs(cfg, params, batch)
+    ctx["positions"] = pos
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
                        state["layers"], ctx)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_norm_eps)
@@ -150,7 +236,7 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     mask (attention-only stacks only)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(cfg, params, tokens, positions)
     ctx = {"mode": "full", "positions": positions, "update_cache": True,
            "t": 0, "window": cfg.sliding_window}
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
@@ -169,7 +255,7 @@ def prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     Attention-only stacks only, as in the JAX package."""
     C = tokens.shape[1]
     positions = history + torch.arange(C, device=tokens.device)
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(cfg, params, tokens, positions)
     ctx = {"mode": "full", "positions": positions, "update_cache": True,
            "t": history, "window": cfg.sliding_window, "history": history}
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
@@ -187,9 +273,11 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     t = torch.as_tensor(t, device=tokens.device)
     pos = (t + torch.arange(1, device=t.device) if t.dim() == 0
            else t[:, None] + torch.arange(1, device=t.device)[None])
-    x = _embed_tokens(params, tokens)
+    x = _embed_tokens(cfg, params, tokens, pos)
     ctx = {"mode": "decode", "positions": pos, "update_cache": True, "t": t,
            "window": cfg.sliding_window, "paged": paged}
+    if cfg.is_encoder_decoder:
+        ctx["enc_out"] = state["enc_out"]
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
                        state["layers"], ctx)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

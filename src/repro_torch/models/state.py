@@ -16,8 +16,12 @@ Layout (R = segment repeat dim, added by the layer stack):
                  m            (R, B, H)             f32
                  conv         (R, B, ksize, d_in)   f32
   slstm        : c,n,h,m      (R, B, d_model)       f32
+  cross K/V    : xk,xv        (R, B, S_src, KVH, HD) (enc-dec decoder layers)
+  encoder memory (enc-dec): the state's ``enc_out`` (B, S_src, D)
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -86,10 +90,18 @@ def init_slstm_state(cfg: ModelConfig, repeats: int, batch: int, device):
 
 
 def init_layer_state(cfg: ModelConfig, kind: str, repeats: int, batch: int,
-                     capacity: int, dtype, device):
-    """State for one position of a segment, stacked over its repeats."""
+                     capacity: int, dtype, device,
+                     cross_len: Optional[int] = None):
+    """State for one position of a segment, stacked over its repeats; an
+    enc-dec decoder layer (``cross_len``) also caches its cross K/V."""
     if kind == "attn":
-        return init_attn_kv(cfg, repeats, batch, capacity, dtype, device)
+        st = init_attn_kv(cfg, repeats, batch, capacity, dtype, device)
+        if cross_len is not None:
+            shape = (repeats, batch, cross_len, cfg.num_kv_heads,
+                     cfg.head_dim)
+            st["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+            st["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+        return st
     if kind == "mamba":
         return init_mamba_state(cfg, repeats, batch, dtype, device)
     if kind == "mlstm":

@@ -20,8 +20,11 @@ Redundancy primitives used by the AcceLLM core:
 The engine never batches prefill with decode (AcceLLM §4.2.3).  Prefill
 and decode run through the port's CUDA kernels on the card.  Attention-only
 stacks decode paged over the compacted active batch; other stacks (the
-hybrid Mamba+attention stack) prefill one prompt at a time and decode
-dense over all slots, as in the JAX package.  Attention-only stacks
+hybrid Mamba+attention stack, xLSTM, the enc-dec and vision-prefix
+models) prefill one prompt at a time and decode dense over all slots, as
+in the JAX package.  A request's modality payload (``extra``: vision
+patches or speech frames) rides the single-prompt path into a scratch of
+the whole window.  Attention-only stacks
 resume a prompt chunk by chunk (``prefill_batch`` with chunk items,
 Sarathi's chunked prefill), holding the slot in ``prefilling`` between
 chunks.  With ``prefix_cache=True`` an attention-only engine keeps a
@@ -282,32 +285,34 @@ class InstanceEngine:
 
         Whole prompts that fit the bucket run as ONE call, right-padded to
         ``plan.bucket_len`` (batch padded to a power of two as well), with
-        scratch state at the bucket length, not ``kv_capacity``.  Longer
-        prompts run the unpadded single-prompt path.  Chunk items
-        (``start > 0`` or a partial ``end``) resume through the KV ledger
-        cursor; a stack that cannot resume gets one whole-prompt call at
-        ``start == 0`` instead (the caller sees it completed ahead of its
-        cursor)."""
+        scratch state at the bucket length, not ``kv_capacity``.  Items
+        that cannot pad (modality extras, stacks that are not
+        attention-only, prompts beyond the bucket) run the unpadded
+        single-prompt path.  Chunk items (``start > 0`` or a partial
+        ``end``) resume through the KV ledger cursor; an item that cannot
+        resume (extras, or a stack that is not attention-only) gets one
+        whole-prompt call at ``start == 0`` instead (the caller sees it
+        completed ahead of its cursor).  ``extras`` maps a request id to
+        its modality payload (numpy or tensors); a request's own
+        ``extra`` stands in where the map has none."""
         extras = extras or {}
         completed: Dict[int, int] = {}
         padded: List[PrefillItem] = []
         for it in plan.items:
-            if extras.get(it.rid) or getattr(it.req, "extra", None):
-                raise NotImplementedError(
-                    "modality extras wait for the encoder-decoder slice of "
-                    "the port")
+            extra = extras.get(it.rid) or it.req.extra
             if not (it.start == 0 and it.completes):
-                if not self._attn_only and it.start == 0:
-                    completed[it.rid] = self._prefill_single(it.req)
+                if (not self._attn_only or extra) and it.start == 0:
+                    completed[it.rid] = self._prefill_single(it.req, extra)
                     continue
-                slot = self._prefill_chunk_item(it)
+                slot = self._prefill_chunk_item(it, extra)
                 if slot is not None:
                     completed[it.rid] = slot
-            elif self._attn_only and it.prompt_len <= min(plan.bucket_len,
-                                                           self.kv_capacity):
+            elif (self._attn_only and not extra
+                    and it.prompt_len <= min(plan.bucket_len,
+                                             self.kv_capacity)):
                 padded.append(it)
             else:
-                completed[it.rid] = self._prefill_single(it.req)
+                completed[it.rid] = self._prefill_single(it.req, extra)
         if padded:
             completed.update(self._prefill_padded(
                 padded, min(plan.bucket_len, self.kv_capacity)))
@@ -321,6 +326,10 @@ class InstanceEngine:
 
     def _finish_prefill(self, req: Request, slot: int, tok: int,
                         ledgered: bool = False):
+        # the decode clock starts at the prompt length, as the JAX
+        # package's engine starts it, a VLM's too, although its prefill
+        # wrote P + S rows (a fault of the reference, kept for parity;
+        # ROADMAP.md Queue 3)
         self.lengths[slot] = req.prompt_len
         self.last_tokens[slot] = tok
         self.slot_req[slot] = req
@@ -335,18 +344,21 @@ class InstanceEngine:
         if self.prefix_cache is not None:
             self._prefix_insert(req)
 
-    def _prefill_single(self, req: Request) -> int:
-        """Unpadded single-prompt path (prompts beyond the bucket, and
-        every prompt of a stack that is not attention-only); scratch sized
-        to the prompt's bucket for attention-only stacks, else the full
-        window, as the JAX package sizes it."""
+    def _prefill_single(self, req: Request, extra: Optional[dict]) -> int:
+        """Unpadded single-prompt path (modality extras, prompts beyond
+        the bucket, and every prompt of a stack that is not
+        attention-only); scratch sized to the prompt's bucket when an
+        attention-only batch is token-only, else the full window (prefix
+        tokens and the encoder memory need the room), as the JAX package
+        sizes it."""
         slot = self._take_slot()
         window = (bucket_len(req.prompt_len, cap=self.kv_capacity)
-                  if self._attn_only else self.kv_capacity)
+                  if self._attn_only and not extra else self.kv_capacity)
         fresh = init_state(self.cfg, 1, window, device=self.device)
-        tokens = self._tokens(req).to(self.device)
-        logits, fresh = prefill(self.cfg, self.params, {"tokens": tokens},
-                                fresh)
+        batch = {"tokens": self._tokens(req).to(self.device)}
+        for key, value in (extra or {}).items():
+            batch[key] = torch.as_tensor(value, device=self.device)
+        logits, fresh = prefill(self.cfg, self.params, batch, fresh)
         tok = int(self._sample(logits, np.asarray([slot], np.int32))[0])
         self.store.merge_slot_rows(slot, fresh, 0, window)
         self._finish_prefill(req, slot, tok)
@@ -385,15 +397,16 @@ class InstanceEngine:
             out[it.rid] = slot
         return out
 
-    def _prefill_chunk_item(self, it: PrefillItem) -> Optional[int]:
+    def _prefill_chunk_item(self, it: PrefillItem, extra: Optional[dict]
+                            ) -> Optional[int]:
         """One resumable chunk of a prompt; returns the slot when the
         final chunk completes the prefill, else None."""
         req = it.req
-        if not self._attn_only:
+        if not self._attn_only or extra:
             raise NotImplementedError(
                 "chunked prefill needs an attention-only decoder stack "
                 "(recurrent state continuation across chunks is not "
-                "implemented)")
+                "implemented) and a token-only batch")
         if req.prompt_len > self.kv_capacity:
             raise NotImplementedError(
                 f"chunked prefill of a {req.prompt_len}-token prompt "

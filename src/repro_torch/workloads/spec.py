@@ -14,6 +14,9 @@ seed).  Prompt tokens are the exception: the JAX package draws them from
 request ``i``'s tokens from ``np.random.default_rng([seed, i])`` and
 prefix group ``g``'s head from ``np.random.default_rng([seed, 2**20 +
 g])``.  They are still fixed by ``(seed, i)`` and shared within a group.
+Modality payloads (:func:`default_extras`) differ from the JAX package's
+the same way: request ``i``'s come from ``np.random.default_rng([seed,
+1000 + i])``.
 """
 from __future__ import annotations
 
@@ -30,19 +33,30 @@ from repro_torch.workloads.lengths import (LengthModel, TableLengths,
                                            TraceFileLengths, TraceLengths)
 
 #: extras_fn(cfg, key, i) -> per-request modality payload (or None); the
-#: port has no JAX key and passes key=None
+#: port has no JAX key and passes the stream's seed as ``key``
 ExtrasFn = Callable[[object, object, int], Optional[dict]]
 
 
 def default_extras(cfg, key, i: int) -> Optional[dict]:
-    """The modality payloads of vision and speech front ends; text-only
-    configs need none.  The payloads themselves wait for the
-    encoder-decoder slice of the port."""
-    if cfg.frontend is not None or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: modality extras wait for the encoder-decoder "
-            f"slice of the port")
-    return None
+    """The modality payloads the architectures need, as f32 numpy arrays:
+    vision prefix patches (1, num_prefix_tokens, embed_dim) for image
+    front ends, encoder frames (1, max_source_positions, embed_dim) for
+    speech; text-only configs need none.  Request ``i``'s payload is
+    standard normal from ``np.random.default_rng([seed, 1000 + i])``, where
+    the JAX package folds ``1000 + i`` into its stream key: ``key`` is the
+    stream's seed here."""
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        shape = (1, cfg.frontend.num_prefix_tokens, cfg.frontend.embed_dim)
+        name = "patch_embeds"
+    elif cfg.is_encoder_decoder:
+        # frames length must equal the encoder memory capacity so the
+        # engine can merge the per-request state into its slot
+        shape = (1, cfg.encoder.max_source_positions, cfg.frontend.embed_dim)
+        name = "frames"
+    else:
+        return None
+    return {name: np.random.default_rng([key, 1000 + i]).standard_normal(
+        shape, dtype=np.float32)}
 
 
 @dataclass(frozen=True)
@@ -154,7 +168,7 @@ class RequestSource:
                     n = req.prefix_len
                     req.prompt_tokens[0, :n] = gtoks[req.prefix_id][0, :n]
                 extras = self.spec.extras_fn or default_extras
-                req.extra = extras(self.cfg, None, i)
+                req.extra = extras(self.cfg, self.seed, i)
             yield req
 
     def materialize(self) -> List[Request]:

@@ -1,14 +1,18 @@
-"""The port's copies of the remaining GQA configs, and of the MLA and xLSTM
-ones, held against the JAX package's on the CPU.
+"""The port's copies of the remaining GQA configs, and of the MLA, xLSTM,
+vision and encoder-decoder ones, held against the JAX package's on the
+CPU.
 
 starcoder2-7b, phi3-medium-14b, minicpm-2b (MHA at head dim 64, tied
 embeddings, residual and logit scales), llama2-70b (the paper's
 evaluation model), arctic-480b (128-expert top-2 MoE beside a dense
-residual MLP), deepseek-v3-671b (MLA, a shared expert) and xlstm-1.3b
-(mLSTM and sLSTM blocks): each ``ModelConfig`` equals ``repro``'s field by field,
-full and ``.reduced()``, and at ``.reduced()`` in f32, with the JAX
-package's weights bridged through numpy, a prefill and four greedy decode
-steps give logits within 1e-4 and equal tokens.
+residual MLP), deepseek-v3-671b (MLA, a shared expert), xlstm-1.3b
+(mLSTM and sLSTM blocks), internvl2-1b (a patch prefix through a
+projector) and seamless-m4t-large-v2 (an encoder, cross attention,
+sinusoidal positions): each ``ModelConfig`` equals ``repro``'s field by
+field, full and ``.reduced()``, and at ``.reduced()`` in f32, with the JAX
+package's weights bridged through numpy and the same modality payloads
+(numpy, seeded), a prefill and four greedy decode steps give logits within
+1e-4 and equal tokens.  The port registers every config of ``repro``.
 """
 import dataclasses
 
@@ -26,17 +30,18 @@ from repro_torch.bridge import params_from_numpy
 
 TOL = 1e-4
 ARCHS = ["starcoder2-7b", "phi3-medium-14b", "minicpm-2b", "llama2-70b",
-         "arctic-480b", "deepseek-v3-671b", "xlstm-1.3b"]
+         "arctic-480b", "deepseek-v3-671b", "xlstm-1.3b", "internvl2-1b",
+         "seamless-m4t-large-v2"]
 
 
 def test_registry_lists_every_ported_config():
     archs = tcfg.list_archs()
     assert set(ARCHS) <= set(archs)
-    assert set(archs) <= set(rcfg.list_archs(include_extra=True))
+    assert set(archs) == set(rcfg.list_archs(include_extra=True))
     for arch in archs:
         assert tcfg.get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown arch"):
-        tcfg.get_config("seamless-m4t-large-v2")
+        tcfg.get_config("no-such-arch-0b")
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -66,12 +71,26 @@ def test_prefill_and_decode_match_reference(arch):
         jax.tree_util.tree_map(np.asarray, params_r), device="cpu")
     toks = np.random.default_rng(11).integers(0, cfg_r.vocab_size, (2, 12),
                                               dtype=np.int32)
-    lr, st_r = rm.prefill(cfg_r, params_r, {"tokens": jnp.asarray(toks)},
+    batch = {"tokens": toks}
+    t = np.full(2, 12, np.int32)
+    if cfg_t.frontend is not None:
+        # the modality payload: patches ahead of the prompt (whose decode
+        # clock then starts at P + S), or the encoder's frames
+        fe = cfg_t.frontend
+        n = (fe.num_prefix_tokens if fe.kind == "vision"
+             else cfg_t.encoder.max_source_positions)
+        batch["patch_embeds" if fe.kind == "vision" else "frames"] = \
+            np.random.default_rng(12).standard_normal(
+                (2, n, fe.embed_dim)).astype(np.float32)
+        if fe.kind == "vision":
+            t = t + n
+    lr, st_r = rm.prefill(cfg_r, params_r,
+                          {k: jnp.asarray(v) for k, v in batch.items()},
                           rm.init_state(cfg_r, 2, 32))
-    lt, st_t = tm.prefill(cfg_t, params_t, {"tokens": torch.from_numpy(toks)},
+    lt, st_t = tm.prefill(cfg_t, params_t,
+                          {k: torch.from_numpy(v) for k, v in batch.items()},
                           tm.init_state(cfg_t, 2, 32, device="cpu"))
     assert _err(lt, lr) < TOL
-    t = np.full(2, 12, np.int32)
     for _ in range(4):
         tok = np.array(lr.argmax(-1), np.int32)[:, None]
         assert np.array_equal(lt.argmax(-1).numpy()[:, None], tok)

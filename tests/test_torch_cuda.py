@@ -4,7 +4,11 @@ and three paths through them against the CPU: the model's chunk path at
 and a two-instance cluster that loses an instance mid-serve and gets it
 back (equal tokens, stats and fleet trace, under accellm and vllm).  The
 reduced deepseek-v3-671b (MLA) and xlstm-1.3b, which reach no kernel,
-give the CPU's logits on the card within 1e-3 * max|logit|.
+give the CPU's logits on the card within 1e-3 * max|logit|, and so do the
+reduced seamless-m4t-large-v2 (an encoder through the prefill kernel's
+non-causal mode) and internvl2-1b (a vision prefix), through the prefill
+and dense decode kernels; the engine takes their payloads already on the
+card.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode).  This file imports neither JAX nor the JAX package, so it
@@ -13,7 +17,9 @@ runs on a machine with the card alone:
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: 1e-4 max abs in f32 and 2e-2 in bf16 for attention; the
-kernel and the plain version sum in different orders.  The selective scan
+kernel and the plain version sum in different orders.  Non-causal bf16 is
+also held to 0.05 x the RMS of the plain output, whose scale falls as
+sqrt(e / Skv).  The selective scan
 (f32 only) is held to 1e-4 relative to the largest output.
 """
 import pytest
@@ -403,12 +409,18 @@ def test_prefix_cache_serve_on_card_matches_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-1.3b",
+                                  "seamless-m4t-large-v2", "internvl2-1b"])
 def test_reduced_model_on_card_matches_cpu(arch):
-    """The reduced model in f32 with the same weights on the card and on
-    the CPU: a 24-token prompt (for deepseek in chunks of 16 and 8, a
-    resume at history 16) and four greedy decode steps; the logits of each
-    within 1e-3 * max|logit|, and no kernel of the port launched."""
+    """The reduced model in f32 with the same weights (and modality
+    payload) on the card and on the CPU: a 24-token prompt (for deepseek
+    in chunks of 16 and 8, a resume at history 16; for seamless over its
+    frames, for internvl2 behind its patches) and four greedy decode steps
+    (for the vision model at t = P + S); the logits of each within
+    1e-3 * max|logit|.  MLA and xLSTM launch no kernel; the encoder-decoder
+    and vision stacks launch the prefill kernel once per attention layer
+    (the encoder's non-causal) and the dense decode kernel once per layer
+    and step, and nothing else."""
     _need_cuda()
     import numpy as np
 
@@ -416,23 +428,31 @@ def test_reduced_model_on_card_matches_cpu(arch):
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.models import (decode_step, init_params, init_state,
                                     prefill, prefill_chunk)
+    from repro_torch.workloads import default_extras
     cfg = get_config(arch).reduced()
     p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     p_card = _to_card(p_cpu)
+    extra = {k: torch.as_tensor(v)
+             for k, v in (default_extras(cfg, 0, 0) or {}).items()}
+    B = 1 if extra else 2
     toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 24), dtype=np.int32))
+        0, cfg.vocab_size, (B, 24), dtype=np.int32))
+    vision = cfg.frontend is not None and cfg.frontend.kind == "vision"
+    t0 = 24 + (cfg.frontend.num_prefix_tokens if vision else 0)
     reset_counts()
     out = {}
     for dev, params in (("cpu", p_cpu), ("cuda", p_card)):
-        st = init_state(cfg, 2, 64, device=dev)
+        st = init_state(cfg, B, 64, device=dev)
         if cfg.attention_kind == "mla":
             for lo, hi in ((0, 16), (16, 24)):
                 logits, st = prefill_chunk(cfg, params, toks[:, lo:hi].to(dev),
                                            st, history=lo)
         else:
-            logits, st = prefill(cfg, params, {"tokens": toks.to(dev)}, st)
+            batch = {"tokens": toks.to(dev),
+                     **{k: v.to(dev) for k, v in extra.items()}}
+            logits, st = prefill(cfg, params, batch, st)
         rows = [logits.cpu()]
-        t = torch.full((2,), 24, dtype=torch.int32, device=dev)
+        t = torch.full((B,), t0, dtype=torch.int32, device=dev)
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         for _ in range(4):
             logits, st = decode_step(cfg, params, tok, st, t)
@@ -442,5 +462,68 @@ def test_reduced_model_on_card_matches_cpu(arch):
     torch.cuda.synchronize()
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
-    assert all(c == {"launches": 0, "plain_calls": 0}
-               for c in read_counts().values())
+    counts = read_counts()
+    want = {name: {"launches": 0, "plain_calls": 0} for name in counts}
+    if extra:  # each kernel ran once on the card and once plain on the CPU
+        n_flash = cfg.num_layers + (cfg.encoder.num_layers
+                                    if cfg.is_encoder_decoder else 0)
+        want["flash_attention"] = {"launches": n_flash, "plain_calls": n_flash}
+        want["decode_attention"] = {"launches": 4 * cfg.num_layers,
+                                    "plain_calls": 4 * cfg.num_layers}
+    assert counts == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, KVH, hd): the prefill kernel with causal=False
+    (1, 1024, 1024, 16, 16, 64),           # an encoder's shape, shorter
+    (2, 77, 300, 16, 16, 64),              # Sq < Skv, edges off the tiles
+    (2, 300, 131, 14, 2, 64),              # Sq > Skv, G 7
+])
+def test_flash_noncausal_matches_plain_on_card(case, dtype, tol):
+    _need_cuda()
+    B, Sq, Skv, H, KVH, hd = case
+    g = torch.Generator(device="cuda").manual_seed(Sq * Skv)
+    q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KVH, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KVH, hd), generator=g, device="cuda").to(dtype)
+    out = flash_attention_cuda(q, k, v, causal=False)
+    exp = flash_attention_torch(q, k, v, causal=False).float()
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        # every row averages all Skv values, so outputs are ~sqrt(e / Skv)
+        # (0.05 at 1024): 2e-2 alone would pass a dropped 64-key tile
+        tol = min(tol, 0.05 * float(exp.pow(2).mean().sqrt()))
+    assert float((out.float() - exp).abs().max()) <= tol
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-1b"])
+def test_engine_takes_card_payload(arch):
+    """``prefill_request`` takes a modality payload already on the card,
+    and gives the tokens that the same payload in numpy gives."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import InstanceEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.workloads import default_extras
+    cfg = get_config(arch).reduced()
+    params = _to_card(init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu"))
+    extra = default_extras(cfg, 0, 0)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 6),
+                                               dtype=np.int32)
+    toks = []
+    for payload in (extra, {k: torch.as_tensor(v, device="cuda")
+                            for k, v in extra.items()}):
+        eng = InstanceEngine(cfg, params, num_slots=2, kv_capacity=32)
+        req = Request(prompt_len=6, max_new_tokens=4, prompt_tokens=prompt)
+        eng.prefill_request(req, payload)
+        while eng.slot_req:
+            eng.decode()
+        toks.append(list(req.output_tokens))
+    assert toks[0] == toks[1] and len(toks[0]) == 4

@@ -313,8 +313,9 @@ def test_later_slices_raise(setup):
         _engine(cfg, params, mesh=object())
     eng = _engine(cfg, params)
     # chunk resume and streamed exports run since the cluster slice; a
-    # chunk of a prompt that would wrap the 16-line window and a streamed
-    # encoder memory still wait for later slices
+    # chunk of a prompt that would wrap the 16-line window still waits for
+    # a later slice, and a streamed encoder memory (which streams since
+    # the encoder-decoder slice) is refused by a store that holds none
     req = _mk(cfg, 0, 20)
     chunk = PrefillPlan(0, (PrefillItem(req.rid, 20, 0, 8, req=req),), 16)
     with pytest.raises(NotImplementedError):
@@ -326,5 +327,5 @@ def test_later_slices_raise(setup):
     with pytest.raises(KVStoreError):
         eng.prefill_batch(chunk)
     slot = eng.prefill_request(_mk(cfg, 1, 5))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KVStoreError, match="no encoder memory"):
         eng.store.import_chunk(slot, ("enc_out",), None)

@@ -309,12 +309,30 @@ def test_request_source_tokens_by_design():
 
 
 def test_default_extras_waits_for_the_encoder_slice():
+    """The payloads arrived with the encoder-decoder slice: none for a
+    text-only config; for a vision front end and for an enc-dec model, the
+    JAX package's key, shape and dtype, drawn from (seed, 1000 + i)."""
+    import jax
+    import repro.configs as rcfg
     cfg = tcfg.get_config("starcoder2-3b").reduced()
-    assert twl.default_extras(cfg, None, 0) is None
+    assert twl.default_extras(cfg, 0, 0) is None
     vision = dataclasses.replace(cfg, frontend=FrontendStub(
         kind="vision", num_prefix_tokens=8, embed_dim=cfg.d_model))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        twl.default_extras(vision, None, 0)
+    for own, ref in ((vision, None),
+                     (tcfg.get_config("internvl2-1b"),
+                      rcfg.get_config("internvl2-1b")),
+                     (tcfg.get_config("seamless-m4t-large-v2"),
+                      rcfg.get_config("seamless-m4t-large-v2"))):
+        got = twl.default_extras(own, 5, 3)
+        want = np.random.default_rng([5, 1003]).standard_normal(
+            next(iter(got.values())).shape, dtype=np.float32)
+        assert np.array_equal(next(iter(got.values())), want)
+        if ref is not None:
+            exp = rwl.default_extras(ref, jax.random.PRNGKey(5), 3)
+            assert set(got) == set(exp)
+            for k in got:
+                assert got[k].shape == exp[k].shape
+                assert got[k].dtype.name == exp[k].dtype.name
 
 
 def _timeline_requests(mod, request_mod, n=9):
