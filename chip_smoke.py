@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs twenty-three phases,
+port's kernels from ``src/repro_torch/csrc``, and runs twenty-seven phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -173,14 +173,37 @@ each of which exits non-zero on failure:
     kernels at 14/2 heads: G = 7, hd 64; no static byte); then in f32 the
     model's decode at t = P + S against a fresh prefill, and printed, not
     gated, the same step at t = S: the clock the engine keeps, as the JAX
-    package's engine does.
+    package's engine does;
+24. train-minicpm — minicpm-2b whole in bf16 with f32 AdamW moments: 20
+    WSD steps of 8 x 128 tokens from ``batches(DataConfig(seed=0))``
+    through ``launch/train.py``'s loop; step 1's gradient must be finite
+    on every leaf and nonzero on every attention and MLP leaf, the loss
+    finite and lower at the last step than at the first, and no kernel
+    nor plain version may run (training takes the model-level chunked
+    attention).  Prints ms per step (forward+backward and optimizer
+    apart), tokens/s and peak memory beside the card;
+25. train-restore-serve — those trained params saved with
+    ``training/checkpoint.py`` under ``build/`` and restored into a fresh
+    tree, which must equal them bitwise; the serve phase's six requests
+    through one engine on the restored params must launch the prefill
+    and paged kernels, run no plain version, and give the tokens of the
+    trained params served from memory;
+26. train-grad-check — minicpm-2b at full width cut to 2 layers in f32,
+    batch 2 x 128: one ``loss_fn`` gradient on the card against the same
+    on the CPU, every leaf within 1e-4 x its max |grad|;
+27. train-families — two bf16 WSD steps each of xlstm-1.3b whole,
+    seamless-m4t-large-v2 whole (32 frames), internvl2-1b whole (256
+    patches) and deepseek-v3-671b cut to its three dense MLA layers (bf16
+    moments; its ``mtp`` leaves' grads must be exactly 0, as the loss
+    never reads them): finite losses and grads, every mixer's input
+    projection with a nonzero grad, no kernel run; peak memory of each.
 
 Each phase group's weights are freed before the next: starcoder2's after
 phases 3-5, 6-9 and 10, minicpm-2b's after 11, the bf16 Jamba weights
 before the f32 ones, deepseek's bf16 weights before its f32 ones,
-xlstm-1.3b's bf16 weights once upcast, seamless-m4t's after 22 and
-internvl2-1b's after 23.  TF32 is off for matmuls and
-cuDNN.
+xlstm-1.3b's bf16 weights once upcast, seamless-m4t's after 22,
+internvl2-1b's after 23, the trained minicpm-2b's after 25 and each
+family's after its steps.  TF32 is off for matmuls and cuDNN.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
 """
@@ -718,36 +741,16 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
     _, request, engine, admit = helpers
 
     finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
-    prompts = [100, 128, 200, 256, 384, 500]
-    reqs = [request(n, 32) for n in prompts]
-    eng = engine()
-    pending = list(reqs)
-    prefill_s = decode_s = 0.0
-    decode_steps = 0
-    torch.cuda.synchronize()
     reset_counts()
-    while pending or eng.slot_req:
-        free = eng.free_slots()
-        if pending and free:
-            batch, pending = pending[:len(free)], pending[len(free):]
-            t0 = time.perf_counter()
-            admit(eng, batch)
-            torch.cuda.synchronize()
-            prefill_s += time.perf_counter() - t0
-        else:
-            t0 = time.perf_counter()
-            out = eng.decode_multi(steps=8)
-            decode_s += time.perf_counter() - t0
-            decode_steps += max(len(t) for t in out.values()) if out else 0
-    torch.cuda.synchronize()
+    reqs, eng, prefill_s, decode_s, decode_steps = _run_six(
+        torch, request, engine, admit, phase)
     counts = read_counts()
     restore()
-    check(all(len(r.output_tokens) == 32 for r in reqs),
-          f"{phase}: output lengths {[len(r.output_tokens) for r in reqs]}")
     check(bool(torch.stack(finite).all()), f"{phase}: non-finite logits")
     _check_path_counts(counts, path_kernels, phase)
     if not path_kernels:
         _check_no_kernel(counts, phase)
+    prompts = [r.prompt_len for r in reqs]
     log(f"{phase}: 6 requests x 32 tokens done; prefill {sum(prompts)} tokens "
         f"in {prefill_s * 1e3:.1f} ms = "
         f"{sum(prompts) / prefill_s:.0f} tokens/s; {decode_steps} "
@@ -769,6 +772,36 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
     log(f"{phase}: decode ms per step (256-token prompts, steps=8): "
         + ", ".join(f"{n} active {v:.3f}" for n, v in per_step.items()))
     return counts, per_step, helpers
+
+
+def _run_six(torch, request, engine, admit, phase):
+    """The serve phase's six greedy requests (prompts 100 to 500, 32 tokens
+    each) through one fresh engine: ``prefill_batch`` while slots are free,
+    else ``decode_multi(steps=8)``; every request must finish.  Returns
+    (requests, engine, prefill s, decode s, decode steps)."""
+    reqs = [request(n, 32) for n in (100, 128, 200, 256, 384, 500)]
+    eng = engine()
+    pending = list(reqs)
+    prefill_s = decode_s = 0.0
+    decode_steps = 0
+    torch.cuda.synchronize()
+    while pending or eng.slot_req:
+        free = eng.free_slots()
+        if pending and free:
+            batch, pending = pending[:len(free)], pending[len(free):]
+            t0 = time.perf_counter()
+            admit(eng, batch)
+            torch.cuda.synchronize()
+            prefill_s += time.perf_counter() - t0
+        else:
+            t0 = time.perf_counter()
+            out = eng.decode_multi(steps=8)
+            decode_s += time.perf_counter() - t0
+            decode_steps += max(len(t) for t in out.values()) if out else 0
+    torch.cuda.synchronize()
+    check(all(len(r.output_tokens) == 32 for r in reqs),
+          f"{phase}: output lengths {[len(r.output_tokens) for r in reqs]}")
+    return reqs, eng, prefill_s, decode_s, decode_steps
 
 
 def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase, paged=True,
@@ -3116,6 +3149,269 @@ def phase_internvl(torch, dev, np):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 24-27. training
+# ---------------------------------------------------------------------------
+
+#: leaves of minicpm-2b whose step-1 gradient must be nonzero: attention
+#: and MLP
+ATTN_MLP = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+#: each mixer's input projections (GQA and cross attention, MLA, mLSTM,
+#: sLSTM, Mamba): their gradient must be nonzero
+INPUT_PROJECTIONS = ("wq", "wk", "wv", "wq_a", "wkv_a", "w_up", "w_z", "w_in",
+                     "in_proj")
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+
+
+
+def _check_grads(torch, grads, nonzero, phase):
+    """Every leaf's grad finite, and each leaf whose last key is in
+    ``nonzero`` with a nonzero max |grad|, except under the ``mtp`` head,
+    which the loss never reads; returns how many those were."""
+    n = 0
+    for path, g in _named_leaves(grads):
+        check(bool(torch.isfinite(g).all()), f"{phase}: grad of {path} is "
+              f"not finite")
+        if (path.rsplit("/", 1)[-1] in nonzero
+                and not path.startswith("/mtp/")):
+            check(float(g.abs().max()) > 0, f"{phase}: grad of {path} is 0")
+            n += 1
+    return n
+
+
+def _train_batch(torch, cfg, dev, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """The first batch of ``batches(DataConfig(seed=0))``, which the
+    launcher's loop also takes first, and its data iterator."""
+    from repro_torch.training import DataConfig, batches
+
+    def data():
+        return batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0))
+    b = torch.from_numpy(next(data())).to(dev)
+    return {"tokens": b[:, :-1], "labels": b[:, 1:]}, data
+
+
+def phase_train_minicpm(torch, dev, np, card):
+    """Phase 24: minicpm-2b whole (bf16 weights, f32 AdamW moments), 20 WSD
+    steps of 8 x 128 tokens through ``launch/train.py``'s loop.  Step 1's
+    gradient: every leaf finite, every attention and MLP leaf nonzero; the
+    loss finite and falling; no kernel and no plain version ran.  Prints ms
+    per step (forward+backward and optimizer apart), tokens/s and peak
+    memory beside the card.  Returns (counts, cfg, trained params); the
+    optimizer state is freed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.launch.train import train_loop
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      init_opt_state, wsd)
+    from repro_torch.training.train_step import grads_of
+    phase = "train-minicpm"
+    t_phase = time.perf_counter()
+    cfg = get_config("minicpm-2b")
+    steps, tokens = 20, TRAIN_BATCH * TRAIN_SEQ
+    log(f"{phase}: {cfg.name} whole: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, hd "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"embeddings {cfg.tie_embeddings}, {cfg.dtype} weights, f32 AdamW "
+        f"moments; {steps} WSD steps of {TRAIN_BATCH} x {TRAIN_SEQ}")
+    params = _draw(torch, cfg, 20, dev, phase)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    batch, data = _train_batch(torch, cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, _, grads = grads_of(cfg, params, batch)
+    n = _check_grads(torch, grads, ATTN_MLP, phase)
+    least = min(float(g.abs().max()) for p, g in _named_leaves(grads)
+                if p.rsplit("/", 1)[-1] in ATTN_MLP)
+    log(f"{phase}: step 1's gradient: every leaf finite, {n} attention and "
+        f"MLP leaves nonzero (the least max|grad| {least:.3e})")
+    del grads
+    ends = []
+
+    def record(line):
+        ends.append(time.perf_counter())   # the loop has read the loss
+        log(f"{phase}: {line}")
+
+    t0 = time.perf_counter()
+    params, opt, losses = train_loop(
+        cfg, opt_cfg, params, init_opt_state(opt_cfg, params), data(),
+        steps=steps, schedule=wsd, warmup=max(steps // 10, 1), extras={},
+        device=dev, log_every=1, log=record)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_no_kernel(counts, phase)
+    check(all(np.isfinite(losses)), f"{phase}: losses {losses}")
+    check(losses[-1] < losses[0], f"{phase}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} did not fall")
+    per_step = np.diff([t0] + ends) * 1e3
+    steady = float(np.median(per_step[1:]))
+    fb_ms = _wall_ms(torch, lambda: grads_of(cfg, params, batch))
+    grads = grads_of(cfg, params, batch)[2]
+    step = lambda: adamw_update(opt_cfg, params, grads, opt, 1.0)
+    opt_ms = _wall_ms(torch, step)
+    _print_breakdown({
+        "forward+backward": _breakdown(fb_ms, _device_profile(
+            torch, lambda: grads_of(cfg, params, batch))),
+        "optimizer": _breakdown(opt_ms, _device_profile(torch, step))},
+        phase)
+    del grads, opt, step
+    flops = 6 * cfg.param_count() * tokens
+    log(f"{phase}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step 1 "
+        f"{per_step[0]:.1f} ms, steps 2-{steps} median {steady:.1f} ms "
+        f"(min {per_step[1:].min():.1f}, max {per_step[1:].max():.1f}) = "
+        f"{tokens / steady * 1e3:.0f} tokens/s; forward+backward "
+        f"{fb_ms:.1f} ms, optimizer {opt_ms:.1f} ms; 6 x params x tokens = "
+        f"{flops:.3e} flops = {flops / steady / 1e9:.1f} TFLOP/s "
+        f"({flops / steady / 1e9 / (PEAK_FLOPS['bfloat16'] / 1e12):.3f} of "
+        f"the bf16 peak); peak memory {peak / 1e9:.3f} GB; {card}")
+    log(f"{phase}: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, cfg, params
+
+
+def phase_train_restore_serve(torch, np, dev, cfg, params):
+    """Phase 25: the trained minicpm-2b saved with ``training/checkpoint.py``
+    and restored into a fresh tree (bitwise equal), then the serve phase's
+    six requests through one engine on the restored params: the prefill and
+    paged kernels launch, no plain version runs, and the tokens equal
+    serving the trained params in memory.  Returns the restored serve's
+    kernel counts."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import init_params
+    from repro_torch.training.checkpoint import restore, save
+    phase = "train-restore-serve"
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = os.path.join(tmp, "minicpm-2b.npz")
+        free = shutil.disk_usage(tmp).free
+        t0 = time.perf_counter()
+        save(path, params)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fresh = init_params(cfg, torch.Generator(device=dev).manual_seed(21),
+                            device=dev)
+        t0 = time.perf_counter()
+        restored = restore(path, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del fresh
+    pairs = _leaf_pairs(params, restored, phase)
+    check(all(a.dtype == b.dtype and torch.equal(a, b)
+              for _, a, b in pairs),
+          f"{phase}: the restored tree differs from the trained one")
+    log(f"{phase}: {len(pairs)} leaves saved ({size / 1e9:.3f} GB on disk, "
+        f"{free / 1e9:.1f} GB free before) in {save_s:.1f} s and restored in "
+        f"{restore_s:.1f} s, bitwise equal")
+    tokens = {}
+    for name, tree in (("trained", params), ("restored", restored)):
+        _, request, engine, admit = _serving(cfg, tree, dev, np, 0, 512)
+        reset_counts()
+        reqs = _run_six(torch, request, engine, admit, f"{phase} {name}")[0]
+        counts = read_counts()
+        tokens[name] = [list(r.output_tokens) for r in reqs]
+    _check_path_counts(counts, PAGED_PATH, phase)
+    check(tokens["restored"] == tokens["trained"],
+          f"{phase}: the restored params serve other tokens")
+    log(f"{phase}: six requests x 32 tokens equal on the restored and the "
+        f"trained params; restored launches {counts}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_train_grad_check(torch, np, dev):
+    """Phase 26: minicpm-2b at full width cut to 2 layers, in f32 (TF32
+    off), batch 2 x 128: one ``loss_fn`` gradient on the card against the
+    same gradient on the CPU from the same params, every leaf within 1e-4
+    x that leaf's max |grad|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training.train_step import grads_of
+    phase = "train-grad-check"
+    cfg = _depth_cut(get_config("minicpm-2b"), 2, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(22),
+                         device="cpu")
+    batch = _train_batch(torch, cfg, "cpu", batch=2)[0]
+    on_card = lambda tree: _tree_map(lambda t: t.to(dev), tree)
+    t0 = time.perf_counter()
+    loss_d, _, g_card = grads_of(cfg, on_card(params), on_card(batch))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, _, g_cpu = grads_of(cfg, params, batch)
+    cpu_s = time.perf_counter() - t0
+    worst = (0.0, "")
+    for path, a, c in _leaf_pairs(g_cpu, g_card, phase):
+        scale = float(a.abs().max())
+        ratio = float((a - c.cpu()).abs().max()) / scale if scale else \
+            float(c.abs().max())
+        check(ratio <= 1e-4, f"{phase}: {path} off by {ratio:.3e} of its "
+              f"max |grad|")
+        worst = max(worst, (ratio, path))
+    log(f"{phase}: {cfg.name} 2 layers, f32, 2 x 128: loss card "
+        f"{float(loss_d):.6f} / CPU {float(loss_h):.6f}; every leaf's grad "
+        f"within 1e-4 of its max, the worst {worst[0]:.3e} ({worst[1]}); "
+        f"card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+
+
+def phase_train_families(torch, np, dev, card):
+    """Phase 27: two bf16 WSD steps each of xlstm-1.3b whole,
+    seamless-m4t-large-v2 whole (32 frames), internvl2-1b whole (256
+    patches) and deepseek-v3-671b cut to its three dense MLA layers (bf16
+    AdamW moments: with f32 ones its out-of-place update does not fit
+    80 GB).  Step 1's gradient: every leaf finite, each mixer's input
+    projection nonzero (deepseek's unread ``mtp`` leaves exactly zero);
+    the losses finite; no kernel ran.  Returns the kernel counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.launch.train import modality_extras, train_loop
+    from repro_torch.training import AdamWConfig, init_opt_state, wsd
+    from repro_torch.training.train_step import grads_of
+    phase = "train-families"
+    families = [(get_config("xlstm-1.3b"), "float32"),
+                (get_config("seamless-m4t-large-v2"), "float32"),
+                (get_config("internvl2-1b"), "float32"),
+                (_deepseek(layers=3), "bfloat16")]
+    reset_counts()
+    for seed, (cfg, state_dtype) in enumerate(families, 30):
+        t0 = time.perf_counter()
+        tag = f"{phase} {cfg.name}"
+        params = _draw(torch, cfg, seed, dev, tag)
+        torch.cuda.reset_peak_memory_stats()
+        extras = modality_extras(cfg, TRAIN_BATCH, dev)
+        batch, data = _train_batch(torch, cfg, dev)
+        _, _, grads = grads_of(cfg, params, dict(batch, **extras))
+        n = _check_grads(torch, grads, INPUT_PROJECTIONS, tag)
+        mtp = [g for p, g in _named_leaves(grads) if p.startswith("/mtp/")]
+        check(all(not bool(g.any()) for g in mtp),
+              f"{tag}: an mtp leaf has a nonzero grad")
+        del grads
+        opt_cfg = AdamWConfig(lr=1e-3, state_dtype=state_dtype)
+        params, opt, losses = train_loop(
+            cfg, opt_cfg, params, init_opt_state(opt_cfg, params), data(),
+            steps=2, schedule=wsd, warmup=1, extras=extras, device=dev,
+            log_every=1, log=lambda line: log(f"{tag}: {line}"))
+        torch.cuda.synchronize()
+        check(all(np.isfinite(losses)), f"{tag}: losses {losses}")
+        log(f"{tag}: {cfg.num_layers} layers, {_weight_bytes(params) / 1e9:.3f}"
+            f" GB of weights, {state_dtype} moments, "
+            f"{', '.join(f'{k} {tuple(v.shape)}' for k, v in extras.items()) or 'text only'}; "
+            f"{n} input projections nonzero"
+            f"{f', {len(mtp)} mtp leaves exactly 0' if mtp else ''}; losses "
+            f"{[round(x, 4) for x in losses]}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+            f"{time.perf_counter() - t0:.1f} s; {card}")
+        del params, opt
+        _free(torch)
+    counts = read_counts()
+    _check_no_kernel(counts, phase)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3216,6 +3512,20 @@ def main() -> int:
     # -- 23. internvl2-1b whole: serve-internvl (one engine, the cluster) -----
     paths.update(phase_internvl(torch, dev, np))
     _free(torch)
+    # -- 24-25. minicpm-2b whole: train-minicpm, train-restore-serve -------------
+    card = smi.splitlines()[0].strip()
+    paths["train-minicpm"], cfg, params = phase_train_minicpm(torch, dev, np,
+                                                              card)
+    _free(torch)
+    paths["train-restore-serve"] = phase_train_restore_serve(torch, np, dev,
+                                                             cfg, params)
+    del params
+    _free(torch)
+    # -- 26. train-grad-check (f32, card against CPU) -------------------------------
+    phase_train_grad_check(torch, np, dev)
+    _free(torch)
+    # -- 27. train-families --------------------------------------------------------
+    paths["train-families"] = phase_train_families(torch, np, dev, card)
 
     for r in kernels:
         r["launches_by_path"] = {p: c[r["name"]]["launches"]
@@ -3238,12 +3548,29 @@ def _free(torch):
         f" GB")
 
 
-def _leaves(tree):
+def _named_leaves(tree, path=""):
+    """(path, leaf) for every leaf of a tree of dicts and lists."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _leaves(tree):
+    return [x for _, x in _named_leaves(tree)]
+
+
+def _leaf_pairs(a, b, phase):
+    """(path, leaf of ``a``, leaf of ``b``) over two trees that must have
+    the same paths."""
+    na, nb = list(_named_leaves(a)), list(_named_leaves(b))
+    check([p for p, _ in na] == [p for p, _ in nb],
+          f"{phase}: the two trees have different leaves")
+    return [(p, x, y) for (p, x), (_, y) in zip(na, nb)]
 
 
 def _tree_map(fn, tree):

@@ -106,6 +106,24 @@ def aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where autograd would need this kernel's backward: grad mode is
+    on and a floating input requires grad.  No kernel of the port has a
+    backward, as no Pallas kernel of the JAX package has a ``custom_vjp``;
+    its output would carry no ``grad_fn`` and the inputs' gradients would
+    be lost without a word.  The check runs on every device, the plain
+    versions' too, so the CPU sees what the card would do."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if t.is_floating_point()):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, but the kernel has no "
+            f"backward (the JAX package's Pallas kernel has no custom_vjp "
+            f"either); training takes the model-level paths "
+            f"(forward_train), and serving runs under torch.no_grad() or "
+            f"on weights that do not require grad")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     if name not in _libs:

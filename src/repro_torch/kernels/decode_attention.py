@@ -205,9 +205,11 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
                           scale: Optional[float] = None) -> torch.Tensor:
     """The dense kernel's wrapper; same contract as
-    :func:`decode_attention_torch` for bf16 or f32, hd 64 or 128."""
+    :func:`decode_attention_torch` for bf16 or f32, hd 64 or 128.  Raises
+    on inputs that require grad (:func:`build.refuse_grad`)."""
     _check_q(q)
     _check_kv(q, k_cache, v_cache, lengths, "caches")
+    build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if k_cache.shape[0] != q.shape[0]:
         raise ValueError(f"caches {tuple(k_cache.shape)} do not match batch "
                          f"{q.shape[0]}")
@@ -296,8 +298,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 scale: Optional[float] = None
                                 ) -> torch.Tensor:
     """The kernel's wrapper; same contract as
-    :func:`paged_decode_attention_torch` for bf16 or f32, hd 64 or 128."""
+    :func:`paged_decode_attention_torch` for bf16 or f32, hd 64 or 128.
+    Raises on inputs that require grad (:func:`build.refuse_grad`)."""
     _check(q, k_pool, v_pool, block_tables, lengths)
+    build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_attention_torch(q, k_pool, v_pool, block_tables,
                                             lengths, scale=scale)

@@ -121,8 +121,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None,
                          q_offset: int = 0) -> torch.Tensor:
     """The kernel's wrapper; same contract as :func:`flash_attention_torch`
-    for any Sq and Skv, bf16 or f32, hd 64 or 128."""
+    for any Sq and Skv, bf16 or f32, hd 64 or 128.  Raises on inputs that
+    require grad (:func:`build.refuse_grad`)."""
     _check(q, k, v, window, q_offset)
+    build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, scale=scale,
                                      window=window, q_offset=q_offset)

@@ -100,8 +100,10 @@ def mamba_scan_cuda(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
                     c_ssm: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                     h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's wrapper; same contract as :func:`mamba_scan_torch` for
-    f32 inputs, N 8 or 16, any S and C."""
+    f32 inputs, N 8 or 16, any S and C.  Raises on inputs that require
+    grad (:func:`build.refuse_grad`)."""
     _check(x, dt, b_ssm, c_ssm, a, d, h0)
+    build.refuse_grad("mamba_scan", x, dt, b_ssm, c_ssm, a, d, h0)
     if x.device.type == "cpu":
         return mamba_scan_torch(x, dt, b_ssm, c_ssm, a, d, h0)
     if x.device.type != "cuda":

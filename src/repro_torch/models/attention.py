@@ -6,7 +6,11 @@ Three execution modes of :func:`gqa_forward`, as in the JAX package:
                     (:func:`repro_torch.kernels.flash_attention.flash_attention_cuda`);
                     with ``history > 0`` a chunk resumes a prompt whose
                     first ``history`` rows are cached, through the same
-                    kernel at ``q_offset = history``;
+                    kernel at ``q_offset = history``; with ``train``
+                    (``forward_train``) through the plain chunked
+                    :func:`flash_attention` instead, on which autograd
+                    runs: the kernel has no backward, as the JAX
+                    package's Pallas kernel has none;
   * paged decode  — one token per active request; the new K/V line is
                     written into the cache and attention reads back only the
                     request's live line blocks through the paged decode
@@ -225,6 +229,7 @@ def gqa_forward(
     causal: bool = True,
     history: int = 0,
     paged: Optional[PagedDecode] = None,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -236,7 +241,15 @@ def gqa_forward(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if mode == "full" and history:
+    if mode == "full" and train:
+        # training: the model-level chunked attention, the path on which
+        # the JAX package takes its gradient; no cache
+        if history or update_cache:
+            raise ValueError("training attends over the whole sequence "
+                             "and writes no cache")
+        out = flash_attention(q, k, v, causal=causal, scale=scale,
+                              window=window)
+    elif mode == "full" and history:
         # chunked-prefill continuation: this chunk's queries attend to the
         # cached rows [0, history) (roped at their absolute positions) and
         # to the chunk itself, through the prefill kernel at q_offset =
@@ -498,5 +511,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, repeats: int,
 
 def attention_forward(cfg: ModelConfig, params, x: torch.Tensor, **kw):
     if cfg.attention_kind == "mla":
+        # MLA's full mode always attends through the plain chunked
+        # flash_attention, so training needs no switch there
+        kw.pop("train", None)
         return mla_forward(cfg, params, x, **kw)
     return gqa_forward(cfg, params, x, **kw)

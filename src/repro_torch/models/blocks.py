@@ -6,7 +6,11 @@ depth-scaled) residuals.  Layers are grouped into
 *segments*, maximal periodic runs whose parameters and states are stacked
 along a leading repeat dim, the layout the JAX package scans over.  Here a
 Python loop walks the repeat dim; each step indexes views of the stacked
-leaves, so cache writes land in the stacked state in place.
+leaves, so cache writes land in the stacked state in place.  With
+``remat`` (training) each repeat's body runs under
+``torch.utils.checkpoint``, the counterpart of the JAX package's
+``jax.checkpoint(body)``: its activations are recomputed in the backward
+pass instead of kept.
 
 The port runs attention (GQA or MLA), Mamba, mLSTM and sLSTM mixers with
 dense or MoE FFNs, and the encoder stack of enc-dec models
@@ -18,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba as mamba_mod
@@ -113,15 +118,20 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x: torch.Tensor,
     aux = 0.0
     h_in = rms_norm(x, params["norm1"], cfg.rms_norm_eps)
     kw = dict(mode=ctx["mode"], state=state, update_cache=ctx["update_cache"])
+    # ctx["train"] (set by forward_train only) sends full-mode attention and
+    # the Mamba scan to the differentiable model-level paths
+    train = ctx.get("train", False)
     if spec.block == "attn":
         h, state = attention_forward(
             cfg, params["mixer"], h_in, positions=ctx["positions"],
             t=ctx.get("t"), window=ctx.get("window"),
             causal=ctx.get("causal", True), history=ctx.get("history", 0),
-            paged=ctx.get("paged"), **kw)
+            paged=ctx.get("paged"), train=train, **kw)
+    elif spec.block == "mamba":
+        h, state = mamba_mod.mamba_forward(cfg, params["mixer"], h_in,
+                                           train=train, **kw)
     else:
-        forward = {"mamba": mamba_mod.mamba_forward,
-                   "mlstm": xlstm_mod.mlstm_forward,
+        forward = {"mlstm": xlstm_mod.mlstm_forward,
                    "slstm": xlstm_mod.slstm_forward}[spec.block]
         h, state = forward(cfg, params["mixer"], h_in, **kw)
     x = x + rs * h
@@ -153,6 +163,16 @@ def _at(tree, r: int):
     return tree[r]
 
 
+def _repeats(tree, n: int):
+    """The ``n`` repeat views of every leaf of a nested dict, from one
+    ``unbind(0)`` per leaf: its backward stacks the repeats' grads in one
+    pass, where ``n`` selects would each write a zeroed whole leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _repeats(v, n) for k, v in tree.items()}
+        return [{k: p[r] for k, p in parts.items()} for r in range(n)]
+    return tree.unbind(0)
+
+
 def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: Segment,
                  dtype, device):
     return {f"p{j}": init_layer(gen, cfg, spec, seg.repeats, dtype, device)
@@ -169,19 +189,26 @@ def init_segment_state(cfg: ModelConfig, seg: Segment, batch: int,
 
 
 def apply_segment(cfg: ModelConfig, seg: Segment, params, x: torch.Tensor,
-                  seg_state, ctx: Dict[str, Any]
+                  seg_state, ctx: Dict[str, Any], remat: bool = False
                   ) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
     """Run the periodic body over the repeat dim; ``seg_state`` (if any)
-    is updated in place.  Returns (x, summed router aux loss)."""
-    aux = 0.0
-    for r in range(seg.repeats):
-        lp = _at(params, r)
-        ls = _at(seg_state, r) if seg_state is not None else None
+    is updated in place.  With ``remat`` each repeat's body is
+    checkpointed.  Returns (x, summed router aux loss)."""
+
+    def body(x, aux, lp, ls):
         for j, spec in enumerate(seg.specs):
             x, _, aux_j = apply_layer(
                 cfg, spec, lp[f"p{j}"], x,
                 ls[f"p{j}"] if ls is not None else None, ctx)
             aux = aux + aux_j
+        return x, aux
+
+    aux = 0.0
+    for r, lp in enumerate(_repeats(params, seg.repeats)):
+        args = (x, aux, lp,
+                _at(seg_state, r) if seg_state is not None else None)
+        x, aux = (checkpoint(body, *args, use_reentrant=False) if remat
+                  else body(*args))
     return x, aux
 
 
@@ -205,13 +232,14 @@ def init_stack_state(cfg: ModelConfig, segs: List[Segment], batch: int,
 
 
 def apply_stack(cfg: ModelConfig, segs: List[Segment], seg_params,
-                x: torch.Tensor, states, ctx: Dict[str, Any]
+                x: torch.Tensor, states, ctx: Dict[str, Any],
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
     """Returns (x, router aux loss summed over the stack)."""
     aux = 0.0
     for i, seg in enumerate(segs):
         x, aux_i = apply_segment(cfg, seg, seg_params[i], x,
                                  states[i] if states is not None else None,
-                                 ctx)
+                                 ctx, remat)
         aux = aux + aux_i
     return x, aux

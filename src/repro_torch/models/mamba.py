@@ -2,8 +2,11 @@
 
 Full mode runs the selective scan over the whole sequence through the
 scan kernel (:func:`repro_torch.kernels.mamba_scan.mamba_scan_cuda`), for
-any S and d_in.  Decode mode advances one step from the stored (conv
-window, ssm state) in plain PyTorch, as the JAX package does.
+any S and d_in; in training (``train``) it runs the JAX package's
+``lax.scan`` branch instead, a loop over :func:`_ssm_step` on which
+autograd runs (the kernel has no backward, as the Pallas one has none).
+Decode mode advances one step from the stored (conv window, ssm state)
+in plain PyTorch, as the JAX package does.
 
 Dtypes follow the JAX package: the scan runs in f32; ``A_log``, ``D`` and
 ``dt_b`` are f32 leaves; the ``conv`` state is in the model dtype and the
@@ -99,6 +102,7 @@ def mamba_forward(
     mode: str,                      # "full" | "decode"
     state=None,
     update_cache: bool = False,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     mc, d_in, dt_rank = _dims(cfg)
     B, S, _ = x.shape
@@ -112,10 +116,18 @@ def mamba_forward(
         h0 = (state["ssm"] if state is not None
               else torch.zeros((B, d_in, mc.d_state), dtype=torch.float32,
                                device=x.device))
-        y, hT = mamba_scan_cuda(x_c.contiguous(), dt.contiguous(),
-                                b_ssm.contiguous(), c_ssm.contiguous(),
-                                A.contiguous(), D.contiguous(),
-                                h0.contiguous())
+        if train:
+            hT, ys = h0, []
+            for t in range(S):
+                hT, y_t = _ssm_step(A, D, hT, x_c[:, t], dt[:, t],
+                                    b_ssm[:, t], c_ssm[:, t])
+                ys.append(y_t)
+            y = torch.stack(ys, 1)                           # (B, S, d_in)
+        else:
+            y, hT = mamba_scan_cuda(x_c.contiguous(), dt.contiguous(),
+                                    b_ssm.contiguous(), c_ssm.contiguous(),
+                                    A.contiguous(), D.contiguous(),
+                                    h0.contiguous())
         if update_cache and state is not None:
             tail = xp[:, -mc.d_conv:]
             pad = mc.d_conv - tail.shape[1]

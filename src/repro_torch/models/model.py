@@ -3,6 +3,8 @@
 Functional API on nested-dict params, mirroring the JAX package's:
 
   init_params(cfg, generator, device)                  -> params
+  forward_train(cfg, params, batch, remat)             -> (logits, aux_loss)
+  forward_mtp(cfg, params, batch)                      -> mtp logits
   init_state(cfg, batch, seq_len, device)             -> serving state
   prefill(cfg, params, batch, state)                   -> (last_logits, state)
   prefill_batched(cfg, params, tokens, state, lengths) -> (logits, state)
@@ -23,10 +25,16 @@ The state is updated in place; the returned state is the one passed in.
 The port runs stacks of GQA or MLA attention, Mamba, mLSTM and sLSTM
 mixers with dense or MoE FFNs, with or without an encoder, sinusoidal
 absolute positions and a vision prefix.  The router's aux loss is summed
-by ``apply_stack`` as in the JAX package; serving ignores it.  A
-multi-token-prediction head (DeepSeek-V3's ``mtp``) is built with the
-params, so both packages hold the same tree, but only training reads it:
-:func:`forward_mtp` waits for the training slice.
+by ``apply_stack`` as in the JAX package; serving ignores it, training
+adds it to the loss.  A multi-token-prediction head (DeepSeek-V3's
+``mtp``) is built with the params, so both packages hold the same tree;
+only :func:`forward_mtp` reads it, and, as in the JAX package, no caller
+uses it.
+
+The training forwards set ``ctx["train"]``: full-mode GQA attention and
+the Mamba scan then take the differentiable model-level paths (the plain
+chunked attention, the loop over ``_ssm_step``) and reach no kernel.
+Serving never sets it, so it keeps the kernels.
 """
 from __future__ import annotations
 
@@ -37,8 +45,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.models.attention import PagedDecode
-from repro_torch.models.blocks import (LayerSpec, _at, apply_stack,
-                                       init_layer, init_stack,
+from repro_torch.models.blocks import (LayerSpec, _at, apply_layer,
+                                       apply_stack, init_layer, init_stack,
                                        init_stack_state, layer_specs,
                                        plan_segments)
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
@@ -110,14 +118,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def forward_mtp(cfg: ModelConfig, params, batch):
-    """DeepSeek-V3's multi-token-prediction logits, a training loss term.
-    Serving never reads the head."""
-    raise NotImplementedError(
-        "multi-token prediction is a training loss; it waits for the "
-        "training slice of the port")
-
-
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -162,19 +162,79 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
     """frames: (B, F, E) precomputed front-end embeddings -> the encoder
     memory (B, F, D): bidirectional attention through the prefill kernel
-    (``causal=False``), no cache."""
+    (``causal=False``), or the plain chunked attention in training; no
+    cache."""
     x = frames.to(params["final_norm"].dtype)
     pos = torch.arange(x.shape[1], device=x.device)
     if cfg.abs_pos == "sinusoidal":
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
     ctx = {"mode": "full", "positions": pos, "update_cache": False,
-           "causal": False}
+           "causal": False, "train": train}
     x, _ = apply_stack(cfg, _enc_segs(cfg), params["encoder"]["segments"], x,
                        None, ctx)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.rms_norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward; returns (logits (B, S, V) f32, router aux loss
+    (0-dim f32)).  An enc-dec batch's frames are encoded and each decoder
+    layer's cross K/V recomputed from them (training keeps no cache); a
+    VLM's logits start past its patches.  ``remat`` checkpoints each
+    repeat of the stack.  The JAX package's ``seq_shard`` residual
+    constraint shards the sequence over a device mesh and has no meaning
+    on one device, so there is none here."""
+    ctx = {"mode": "full", "update_cache": False, "train": True}
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(cfg, params, batch["frames"], train=True)
+        tokens = batch["tokens"]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = _embed_tokens(cfg, params, tokens, pos)
+        ctx.update(enc_out=enc_out, precompute_cross=True)
+    else:
+        x, pos = _embed_inputs(cfg, params, batch)
+    ctx["positions"] = pos
+    x, aux = apply_stack(cfg, _segs(cfg), params["segments"], x, None, ctx,
+                         remat=remat)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = _head(cfg, params, x)
+    if _is_vlm(cfg):
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                   device=logits.device)
+
+
+def forward_mtp(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+    """DeepSeek-V3 MTP auxiliary logits (depth 1): predict token t+2 from
+    [h_t ; emb(token_{t+1})], (B, S - 1, V); None without an MTP head.
+    A training loss term that, as in the JAX package, no caller uses."""
+    if not cfg.mtp_depth or "mtp" not in params:
+        return None
+    tokens = batch["tokens"]
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x, _ = _embed_inputs(cfg, params, batch)
+    ctx = {"mode": "full", "positions": pos, "update_cache": False,
+           "train": True}
+    h, _ = apply_stack(cfg, _segs(cfg), params["segments"], x, None, ctx,
+                       remat=True)
+    # shift: combine h_t with the embedding of token_{t+1}
+    e_next = params["embed"][tokens[:, 1:].long()]
+    comb = torch.cat([h[:, :-1], e_next], dim=-1) @ params["mtp"]["combine"]
+    comb = rms_norm(comb, params["mtp"]["norm"], cfg.rms_norm_eps)
+    out, _, _ = apply_layer(cfg, LayerSpec("attn", False, cfg.d_ff, False),
+                            params["mtp"]["layer"], comb, None,
+                            dict(ctx, positions=pos[:-1]))
+    return _head(cfg, params, out)
 
 
 # ---------------------------------------------------------------------------

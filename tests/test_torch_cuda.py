@@ -8,7 +8,10 @@ give the CPU's logits on the card within 1e-3 * max|logit|, and so do the
 reduced seamless-m4t-large-v2 (an encoder through the prefill kernel's
 non-causal mode) and internvl2-1b (a vision prefix), through the prefill
 and dense decode kernels; the engine takes their payloads already on the
-card.
+card.  A train step on the card (reduced minicpm-2b and Jamba) gives
+every leaf the CPU's gradient within 1e-4 of its max, every attention
+and MLP leaf a nonzero one, and launches no kernel; each kernel wrapper
+refuses card inputs that require grad.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode).  This file imports neither JAX nor the JAX package, so it
@@ -527,3 +530,74 @@ def test_engine_takes_card_payload(arch):
             eng.decode()
         toks.append(list(req.output_tokens))
     assert toks[0] == toks[1] and len(toks[0]) == 4
+
+
+def _live(tree):
+    return torch.utils._pytree.tree_map(
+        lambda x: x.detach().requires_grad_(True), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm-2b", "jamba-1.5-large-398b"])
+def test_train_step_on_card_matches_cpu(arch):
+    """Step 1's gradient on the card (f32, TF32 off) against the CPU's;
+    the attention and MLP leaves' grads are nonzero; no kernel ran."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, DataConfig, batches,
+                                      init_opt_state, train_step)
+    from repro_torch.training.train_step import grads_of
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b = torch.from_numpy(next(batches(DataConfig(cfg.vocab_size, 128, 2))))
+    batch = {"tokens": b[:, :-1], "labels": b[:, 1:]}
+    on = lambda t: torch.utils._pytree.tree_map(lambda x: x.cuda(), t)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        reset_counts()
+        _, _, g_cpu = grads_of(cfg, params, batch)
+        _, _, g_card = grads_of(cfg, on(params), on(batch))
+        opt = AdamWConfig()
+        new, _, m = train_step(cfg, opt, on(params),
+                               init_opt_state(opt, on(params)), on(batch),
+                               1.0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert all(c == {"launches": 0, "plain_calls": 0}
+               for c in read_counts().values())
+    assert np.isfinite(float(m["loss"]))
+    flat_cpu = torch.utils._pytree.tree_flatten_with_path(g_cpu)[0]
+    flat_card = torch.utils._pytree.tree_flatten(g_card)[0]
+    for (path, a), c in zip(flat_cpu, flat_card):
+        name = torch.utils._pytree.keystr(path)
+        scale = float(a.abs().max())
+        assert float((a - c.cpu()).abs().max()) <= 1e-4 * scale, name
+        if any(k in name for k in ("'wq'", "'wk'", "'wv'", "'wo'",
+                                   "'w_gate'", "'w_up'", "'w_down'",
+                                   "'in_proj'")):
+            assert scale > 0, name
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_card():
+    _need_cuda()
+    q = torch.randn((1, 128, 2, 64), device="cuda", requires_grad=True)
+    kv = torch.randn((1, 128, 1, 64), device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention_cuda(q, kv, kv.clone())
+    x = torch.randn((1, 16, 32), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mamba_scan_cuda(x, x.detach().abs(), torch.randn((1, 16, 8),
+                        device="cuda"), torch.randn((1, 16, 8),
+                        device="cuda"), -torch.rand((32, 8), device="cuda"),
+                        torch.randn(32, device="cuda"),
+                        torch.zeros((1, 32, 8), device="cuda"))
+    with torch.no_grad():
+        out = flash_attention_cuda(q, kv, kv.clone())
+    assert out.grad_fn is None

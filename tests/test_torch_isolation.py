@@ -46,12 +46,15 @@ def test_every_module_imports_without_jax_or_repro():
                                     "repro_torch.prefixcache.index",
                                     "repro_torch.scale",
                                     "repro_torch.scale.state",
-                                    "repro_torch.scheduling.registry"])
+                                    "repro_torch.scheduling.registry",
+                                    "repro_torch.training",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.train_small"])
 def test_fleet_sim_and_launch_import_alone(module):
     """The fleet layer, the simulator, the launchers, the simulator's
-    store, the prefix cache and the scale layer (whose kernels the
-    registry imports) import on their own without JAX or the JAX
-    package."""
+    store, the prefix cache, the scale layer (whose kernels the registry
+    imports) and the training substrate import on their own without JAX
+    or the JAX package."""
     assert module in _modules()
     code = (
         "import importlib, sys\n"
