@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs twenty-seven phases,
+port's kernels from ``src/repro_torch/csrc``, and runs twenty-nine phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -21,7 +21,8 @@ each of which exits non-zero on failure:
    16 at B 2, and S = 0 (h_final equals h0); its bound counts its
    exponentials at the SFU rate; prefill and paged decode attention are
    also checked and timed at minicpm-2b's served shape (36/36 heads, hd
-   64: G = 1); the prefill kernel non-causal at seamless-m4t's encoder
+   64: G = 1) and at a tp 2 rank's of starcoder2-3b (12/1 heads, phase
+   28's shape); the prefill kernel non-causal at seamless-m4t's encoder
    shape (1 x 4096 x 4096, 16/16 heads, hd 64) and at ragged Sq != Skv
    (bf16 held to 0.05 x the RMS of the plain output as well: every row
    averages all Skv keys, so outputs are ~sqrt(e / Skv) and 2e-2 alone
@@ -54,8 +55,8 @@ each of which exits non-zero on failure:
 7. cluster-chunked — the same model and traffic shape, ~6 requests, under
    sarathi with 128-token chunks: chunks must resume past their prompt's
    start and the prefill kernel must launch at ``q_offset > 0``;
-8. cluster-fleet — the cluster phase's stream on its weights, first three
-   times with no kill (the wall ms per iteration that sim-calibration and
+8. cluster-fleet — the cluster phase's stream on its weights, first once
+   with no kill (the wall ms per iteration that sim-calibration and
    the kill runs are set beside, all timed on weights already drawn), then
    with instance 1 killed at iteration 60 and rejoined at 90, under
    accellm and under vllm, each beside a CPU rehearsal at reduced width:
@@ -196,14 +197,41 @@ each of which exits non-zero on failure:
     patches) and deepseek-v3-671b cut to its three dense MLA layers (bf16
     moments; its ``mtp`` leaves' grads must be exactly 0, as the loss
     never reads them): finite losses and grads, every mixer's input
-    projection with a nonzero grad, no kernel run; peak memory of each.
+    projection with a nonzero grad, no kernel run; peak memory of each;
+28. mesh-engine — full-width starcoder2-3b in bf16 on the serve phase's
+    weights, as one engine at tensor-parallel width 2: two processes
+    (``repro_torch.meshserve.world.spawn``, torch.multiprocessing spawn)
+    on this one card, over gloo, which stages every CUDA collective
+    through the host, so this checks the sharded compute and the kernels
+    at per-rank heads (12/1, hd 128), not a card-to-card wire.  The serve
+    phase's six requests: both ranks launch the prefill and paged decode
+    kernels with no plain version, each rank's K/V pool is half of tp 1's,
+    the tokens equal the serve phase's up to near-ties measured and
+    printed by phase 8's rule; in f32 at 2 layers, the sharded prefill and
+    8 paged decode steps within 1e-3 * max|logit| of the whole model's;
+    decode ms per step at 8 active beside the serve phase's tp 1;
+29. mesh-cluster — the cluster phase's spec on a 6-request Table 2
+    "light" stream (lengths x 0.2) with ``mesh_tp=1`` over the same
+    two-process world (two instances, one rank each), beside the same
+    stream through a one-process cluster: every request finishes, mirror
+    syncs happen, every cross-slice hop is counted as a host copy (gloo
+    stages CUDA broadcasts through the host) and none as device-to-device,
+    mirror and stream bytes equal ``LineCosts`` over the ledger's lines,
+    both ranks hold the same decision trace, stats and tokens, and
+    the stats, trace and iterations equal the one-process cluster's; the
+    prefill and paged kernels launch on both ranks.  The parent frees its
+    weights before each world starts, and the kernels the children load
+    are the ones phase 1 built.
 
 Each phase group's weights are freed before the next: starcoder2's after
 phases 3-5, 6-9 and 10, minicpm-2b's after 11, the bf16 Jamba weights
 before the f32 ones, deepseek's bf16 weights before its f32 ones,
 xlstm-1.3b's bf16 weights once upcast, seamless-m4t's after 22,
 internvl2-1b's after 23, the trained minicpm-2b's after 25 and each
-family's after its steps.  TF32 is off for matmuls and cuDNN.
+family's after its steps; the mesh phases' ranks hold their own.  TF32 is
+off for matmuls and cuDNN.  ``python3 chip_smoke.py --mesh-only`` runs
+phase 1, the serve phase's six requests and phases 28-29 alone, and
+prints no result line.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
 """
@@ -215,6 +243,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -313,6 +342,8 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
         (2, 300, 300, 24, 2, 128, None, 0, "Sq = 300, no multiple of 128"),
         (8, 512, 512, 36, 36, 64, None, 0,
          "minicpm-2b: bucket 512, batch 8, MHA (G 1) at hd 64"),
+        (8, 512, 512, 12, 1, 128, 4096, 0,
+         "a tp 2 rank of mesh-engine: bucket 512, batch 8, 12/1 heads"),
     ]
     flash_err = 0.0
     for B, Sq, Skv, H, KVH, hd, window, q_offset, what in flash_cases:
@@ -339,6 +370,9 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
     # minicpm-2b's served prefill: MHA (G = 1) at head dim 64, no window
     f_hd64 = _time_flash(torch, flash_mod, randn, flush, 8, 512, 512, 36, 36,
                          64, None)
+    # a rank of starcoder2-3b at tensor-parallel width 2 (mesh-engine)
+    f_tp2 = _time_flash(torch, flash_mod, randn, flush, 8, 512, 512, 12, 1,
+                        128, 4096)
 
     # -- paged decode attention ----------------------------------------------
     # (lengths as a function of the case's span of lines per split, H, KVH,
@@ -355,6 +389,8 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
         (lambda s: [3, 40, 129], 4, 1, 64, 16, "hd 64 (reduced config)"),
         (lambda s: [116, 144, 216, 272, 400, 512], 36, 36, 64, 16,
          "minicpm-2b: 6 requests mid-decode, MHA (G 1) at hd 64"),
+        (lambda s: [116, 144, 216, 272, 400, 512], 12, 1, 128, 16,
+         "a tp 2 rank of mesh-engine: 6 requests, 12/1 heads"),
         (lambda s: [s], 24, 2, 128, 16, "B 1, G 12, length on the span edge"),
         (lambda s: [s + 1], 24, 2, 128, 32,
          "B 1, G 12, 32-line blocks, one past the span edge"),
@@ -418,6 +454,7 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
 
     p_main = time_paged(24, 2, 128)
     p_hd64 = time_paged(36, 36, 64)
+    p_tp2 = time_paged(12, 1, 128)
 
     records = [
         {"name": "flash_attention", "route": "cuda",
@@ -425,13 +462,15 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
          "replaces": "src/repro/kernels/flash_attention.py:119",
          "launches": 0, "max_abs_err": flash_err,
          **{k: f_main[k] for k in TIMING_KEYS},
-         "instances": {"minicpm-2b hd 64": f_hd64}},
+         "instances": {"minicpm-2b hd 64": f_hd64,
+                       "starcoder2-3b tp 2 rank": f_tp2}},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:233",
          "launches": 0, "max_abs_err": paged_err,
          **{k: p_main[k] for k in TIMING_KEYS},
-         "instances": {"minicpm-2b hd 64": p_hd64}},
+         "instances": {"minicpm-2b hd 64": p_hd64,
+                       "starcoder2-3b tp 2 rank": p_tp2}},
     ]
     return records
 
@@ -725,15 +764,16 @@ def _check_no_kernel(counts, phase):
 
 
 def _serve_six(torch, np, cfg, params, dev, phase, window=512,
-               path_kernels=PAGED_PATH):
+               path_kernels=PAGED_PATH, keep=None):
     """Six greedy requests (prompts 100 to 500, 32 tokens each) behind one
     8-slot engine with a ``window``-line window: bucketed (or, for a
     recurrent stack, one-prompt) ``prefill_batch``,
     ``decode_multi(steps=8)`` and the ring wrap; every request must finish,
     every logit be finite, the ``path_kernels`` must launch and no plain
     version run (with no path kernels: no kernel may launch at all).  Then
-    decode ms per step at 1, 4 and 8 active.  Returns (counts, per_step,
-    (rng, request, engine, admit))."""
+    decode ms per step at 1, 4 and 8 active.  ``keep`` (a list) gets the
+    six requests.  Returns (counts, per_step, (rng, request, engine,
+    admit))."""
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
@@ -746,6 +786,8 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
         torch, request, engine, admit, phase)
     counts = read_counts()
     restore()
+    if keep is not None:
+        keep.extend(reqs)
     check(bool(torch.stack(finite).all()), f"{phase}: non-finite logits")
     _check_path_counts(counts, path_kernels, phase)
     if not path_kernels:
@@ -854,7 +896,8 @@ def _decode_vs_prefill(torch, np, cfg, params, dev, rng, phase, paged=True,
 
 def phase_dense(torch, dev, np):
     """Phases 3-5 on full-width starcoder2-3b; returns the serve phase's
-    kernel counts and its decode ms per step by active slots."""
+    kernel counts, its decode ms per step by active slots and its six
+    requests (the mesh-engine phase's reference)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
@@ -866,8 +909,9 @@ def phase_dense(torch, dev, np):
         f"{cfg.dtype}")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
+    six = []
     counts, per_step, (rng, request, engine, admit) = _serve_six(
-        torch, np, cfg, params, dev, "serve")
+        torch, np, cfg, params, dev, "serve", keep=six)
 
     # where the time goes: one 8 x 256 prefill plan, then one fused decode
     # plan (steps=8) over those 8 requests; host wall clock unprofiled,
@@ -897,14 +941,15 @@ def phase_dense(torch, dev, np):
     # -- 5. redundancy -----------------------------------------------------------
     _redundancy("redundancy", engine, rng.integers(
         0, cfg.vocab_size, (1, 300), dtype=np.int32), same_slot=False)
-    return counts, per_step
+    return counts, per_step, six
 
 
-def _serving(cfg, params, dev, np, seed, kv_capacity):
+def _serving(cfg, params, dev, np, seed, kv_capacity, mesh=None):
     """(rng, request, engine, admit): the helpers of one model's serve
     phases, after a warm-up (cuBLAS handles, allocator pools, kernel
     libraries).  Each request carries the modality payload that
-    ``default_extras`` draws for its config (none for a text-only one)."""
+    ``default_extras`` draws for its config (none for a text-only one).
+    With ``mesh`` every engine is built on that slice."""
     from repro_torch.serving import InstanceEngine, Request
     from repro_torch.stepplan import PrefillItem, PrefillPlan, bucket_len
     from repro_torch.workloads import default_extras
@@ -921,7 +966,8 @@ def _serving(cfg, params, dev, np, seed, kv_capacity):
     def engine(**kw):
         kw.setdefault("num_slots", 8)
         kw.setdefault("kv_capacity", kv_capacity)
-        return InstanceEngine(cfg, params, block_lines=16, device=dev, **kw)
+        return InstanceEngine(cfg, params, block_lines=16, device=dev,
+                              mesh=mesh, **kw)
 
     def admit(eng, reqs):
         items = tuple(PrefillItem(r.rid, r.prompt_len, 0, r.prompt_len, req=r)
@@ -1254,7 +1300,7 @@ def phase_cluster(torch, np):
 #: rejoin where instance 0 still holds four requests, so it is warmed.
 FLEET_KILL, FLEET_JOIN = 60.0, 90.0
 #: cluster-fleet: timed serves of the stream with no kill
-NO_KILL_RUNS = 3
+NO_KILL_RUNS = 1
 
 
 def _fleet_spec(policy, kill=True, **kw):
@@ -3458,6 +3504,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
+    card = smi.splitlines()[0].strip()
+    if sys.argv[1:] == ["--mesh-only"]:
+        return mesh_only(torch, np, dev, card)
+
     # -- 2. kernels ------------------------------------------------------------
     kernels = phase_kernels(torch, flash_mod, decode_mod, flush)
     kernels += phase_hybrid_kernels(torch, decode_mod, scan_mod, flush)
@@ -3471,7 +3521,7 @@ def main() -> int:
     log("kernels: " + json.dumps([r["name"] for r in kernels]))
 
     # -- 3-5. starcoder2-3b: serve, consistency, redundancy -----------------------
-    counts, per_step = phase_dense(torch, dev, np)
+    counts, per_step, six = phase_dense(torch, dev, np)
     paths = {"serve": counts}
     _free(torch)
     # -- 6-10. starcoder2-3b behind api.serve: cluster, cluster-chunked,
@@ -3513,7 +3563,6 @@ def main() -> int:
     paths.update(phase_internvl(torch, dev, np))
     _free(torch)
     # -- 24-25. minicpm-2b whole: train-minicpm, train-restore-serve -------------
-    card = smi.splitlines()[0].strip()
     paths["train-minicpm"], cfg, params = phase_train_minicpm(torch, dev, np,
                                                               card)
     _free(torch)
@@ -3526,6 +3575,9 @@ def main() -> int:
     _free(torch)
     # -- 27. train-families --------------------------------------------------------
     paths["train-families"] = phase_train_families(torch, np, dev, card)
+    _free(torch)
+    # -- 28-29. starcoder2-3b on a world of two ranks: mesh-engine, mesh-cluster
+    paths.update(phase_mesh(torch, np, six, per_step[8], card))
 
     for r in kernels:
         r["launches_by_path"] = {p: c[r["name"]]["launches"]
@@ -3535,6 +3587,307 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+#: mesh-engine and mesh-cluster: ranks of the world, every one on card 0
+MESH_WORLD = 2
+#: seconds each mesh phase's world may take
+MESH_TIMEOUT = 420.0
+
+
+def _mesh_light():
+    """The cluster phase's arrival process over 90 iterations (6 requests
+    at seed 0) with Table 2 "light" lengths scaled by 0.2 (prompts 11-97,
+    decodes 4-93 tokens)."""
+    from repro_torch.workloads import Poisson, TableLengths, WorkloadSpec
+    return WorkloadSpec(arrival=Poisson(rate=0.1, duration=90.0),
+                        lengths=TableLengths("light", scale=0.2),
+                        name="light-mesh")
+
+
+def _rank_setup():
+    """A rank of a mesh phase: TF32 off, as in the parent."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch, torch.device("cuda")
+
+
+def mesh_engine_rank(rank, world, window):
+    """Phase 28 on one rank: full-width starcoder2-3b in bf16 from the
+    serve phase's seed, one engine on a slice of every rank; the serve
+    phase's six requests (the same prompts), this rank's kernel counts and
+    pool bytes, decode ms per step at 8 active, and an f32 check at 2
+    layers of the sharded logits against the whole model's."""
+    import numpy as np
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.meshserve import carve_slices
+    from repro_torch.meshserve.pool import local_config, shard_params
+    from repro_torch.models import (decode_step_paged, init_params,
+                                    init_state, prefill)
+    from repro_torch.models.state import state_bytes
+    torch, dev = _rank_setup()
+    cfg = get_config("starcoder2-3b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    (sl,) = carve_slices(world, 1)
+    rng, request, engine, admit = _serving(cfg, params, dev, np, 0, window,
+                                           mesh=sl)
+    torch.cuda.synchronize()
+    reset_counts()
+    reqs, eng, prefill_s, decode_s, steps = _run_six(
+        torch, request, engine, admit, "mesh-engine")
+    counts = read_counts()
+    out = {"requests": [(np.asarray(r.prompt_tokens), list(r.output_tokens))
+                        for r in reqs],
+           "counts": counts, "pool": eng.state_bytes(),
+           "whole": state_bytes(init_state(cfg, 8, window, device="meta")),
+           "prefill_s": prefill_s, "decode_s": decode_s, "steps": steps}
+    del eng
+    e = engine()
+    admit(e, [request(256, 33) for _ in range(8)])
+    e.decode_multi(steps=8)                               # warm this shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e.decode_multi(steps=8)
+    e.decode_multi(steps=8)
+    torch.cuda.synchronize()
+    out["ms_8"] = (time.perf_counter() - t0) / 16 * 1e3
+    del e, engine, admit, request, params
+    _free(torch)
+
+    # f32 at 2 layers: the sharded prefill and paged decode against the
+    # whole model's, on the whole model's greedy tokens
+    cfg2 = _depth_cut(cfg, 2, dtype="float32")
+    p32 = init_params(cfg2, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+    mine = shard_params(cfg2, p32, sl)
+    st1 = init_state(cfg2, 1, 256, device=dev)
+    st2 = init_state(local_config(cfg2, sl), 1, 256, device=dev)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
+                                          dtype=np.int32), device=dev)
+    l1, st1 = prefill(cfg2, p32, {"tokens": prompt}, st1)
+    with sharding.use_mesh(sl.group):
+        l2, st2 = prefill(cfg2, mine, {"tokens": prompt}, st2)
+    rows = [(l1, l2)]
+    tables = torch.arange(16, dtype=torch.int32, device=dev)[None]
+    slots = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for step in range(1, 9):
+        tok = rows[-1][0].argmax(-1).to(torch.int32)[:, None]
+        t = torch.full((1,), 199 + step, dtype=torch.int32, device=dev)
+        l1, st1 = decode_step_paged(cfg2, p32, tok, st1, t, slots, tables, 16)
+        with sharding.use_mesh(sl.group):
+            l2, st2 = decode_step_paged(cfg2, mine, tok, st2, t, slots,
+                                        tables, 16)
+        rows.append((l1, l2))
+    out["f32"] = [(float((a - b).abs().max()), float(a.abs().max()))
+                  for a, b in rows]
+    return out
+
+
+def mesh_cluster_rank(rank, world, spec):
+    """Phase 29 on one rank: ``spec`` (the cluster phase's, on the mesh
+    stream, ``mesh_tp=1``) through ``api.build_cluster`` and the cluster's
+    run, as ``api.serve`` runs it, with the kernel's decision trace on;
+    returns what every rank must agree on and what it moved."""
+    from repro_torch.api import build_cluster
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.meshserve import STATS
+    from repro_torch.serving import InstanceEngine
+    torch, _ = _rank_setup()
+    moved, unrecord = _record_moves(InstanceEngine)
+    cluster = build_cluster(spec)
+    cluster.policy.trace = []
+    torch.cuda.synchronize()
+    STATS.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    finished = cluster.run(max_steps=spec.max_steps,
+                           source=spec.traffic.source(seed=spec.seed,
+                                                      cfg=cluster.cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    unrecord()
+    return {"stats": dict(cluster.stats), "trace": cluster.policy.trace,
+            "finished": len(finished), "submitted": len(cluster._submitted),
+            "whole": all(len(r.output_tokens) == r.max_new_tokens
+                         for r in finished),
+            "tokens": sorted((r.rid, tuple(r.output_tokens))
+                             for r in finished),
+            "moved": dict(moved), "counts": counts, "wall": wall,
+            "iterations": cluster.n_iterations,
+            "transfers": (STATS.d2d_copies, STATS.d2d_bytes,
+                          STATS.host_copies, STATS.host_bytes),
+            "pool": [e.state_bytes() for e in cluster.engines]}
+
+
+def _sum_counts(ranks):
+    out = {}
+    for r in ranks:
+        for name, c in r["counts"].items():
+            acc = out.setdefault(name, {"launches": 0, "plain_calls": 0})
+            for key in acc:
+                acc[key] += c[key]
+    return out
+
+
+def phase_mesh(torch, np, six, ms_tp1, card):
+    """Phases 28-29: full-width starcoder2-3b on a world of
+    ``MESH_WORLD`` processes, all on this one card over gloo; returns each
+    phase's kernel counts summed over the ranks.  ``six`` are the serve
+    phase's requests and ``ms_tp1`` its decode ms per step at 8 active."""
+    from repro_torch.api import build_cluster
+    from repro_torch.meshserve.world import spawn
+    staging = ("gloo stages every CUDA collective through the host: these "
+               "phases check the sharded compute and the kernels at per-rank "
+               "heads, not a card-to-card wire")
+    counts = {}
+
+    # -- 28. mesh-engine -------------------------------------------------------------
+    phase = "mesh-engine"
+    window = 512
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_engine_rank", MESH_WORLD, device="cuda",
+                  share_card=True, args=(window,), timeout=MESH_TIMEOUT,
+                  threads=2)
+    log(f"{phase}: {MESH_WORLD} ranks on card 0 in "
+        f"{time.perf_counter() - t0:.1f} s; {staging}")
+    for r, out in enumerate(ranks):
+        _check_path_counts(out["counts"], PAGED_PATH, f"{phase} rank {r}")
+        check(out["pool"] * MESH_WORLD == out["whole"],
+              f"{phase} rank {r}: K/V pool {out['pool']} B, not 1/"
+              f"{MESH_WORLD} of tp 1's {out['whole']} B")
+        for step, (err, scale) in enumerate(out["f32"]):
+            check(err <= 1e-3 * scale, f"{phase} rank {r}: f32 step {step} "
+                  f"differs by {err} against max logit {scale}")
+        log(f"{phase} rank {r}: prefill {out['prefill_s'] * 1e3:.1f} ms, "
+            f"{out['steps']} decode steps in {out['decode_s'] * 1e3:.1f} ms; "
+            f"K/V pool {out['pool']} B of tp 1's {out['whole']} B; f32 at 2 "
+            f"layers max |tp {MESH_WORLD} - tp 1| / max|logit| "
+            f"{max(e / s for e, s in out['f32']):.3e} (limit 1e-3) over "
+            f"prefill + 8 decode steps; launches {out['counts']}")
+    check(all([t for _, t in o["requests"]]
+              == [t for _, t in ranks[0]["requests"]] for o in ranks),
+          f"{phase}: the ranks' tokens differ")
+    got = [SimpleNamespace(rid=ref.rid, prompt_tokens=p, output_tokens=t)
+           for ref, (p, t) in zip(six, ranks[0]["requests"])]
+    check(all(len(t) == 32 for _, t in ranks[0]["requests"]),
+          f"{phase}: a request ended short")
+    reference = {r.rid: r for r in six}
+    if _first_differences(got, reference, phase):
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+        dev = torch.device("cuda")
+        cfg = get_config("starcoder2-3b")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        params32 = _tree_map(lambda t: t.float(), params)
+        near = _tokens_against(torch, cfg, params, params32, window,
+                               reference, got, phase)
+        del params, params32
+        _free(torch)
+    else:
+        near = []
+    log(f"{phase}: tokens equal the serve phase's one-device tokens"
+        + (f" up to {len(near)} near-ties" if near else ""))
+    log(f"{phase}: decode ms per step at 8 active (256-token prompts, "
+        f"steps=8): tp 1 {ms_tp1:.3f} (serve phase, one process), tp "
+        f"{MESH_WORLD} " + ", ".join(f"rank {r} {o['ms_8']:.3f}"
+                                     for r, o in enumerate(ranks))
+        + f"; {card}; {staging}")
+    counts[phase] = _sum_counts(ranks)
+    del ranks
+
+    # -- 29. mesh-cluster --------------------------------------------------------------
+    phase = "mesh-cluster"
+    spec = _cluster_spec(traffic=_mesh_light())
+    one = build_cluster(spec)
+    one.policy.trace = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one.run(max_steps=spec.max_steps, source=spec.traffic.source(
+        seed=spec.seed, cfg=one.cfg))
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one_stats, one_trace, one_it = (dict(one.stats), one.policy.trace,
+                                    one.n_iterations)
+    del one
+    _free(torch)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_cluster_rank", MESH_WORLD, device="cuda",
+                  share_card=True,
+                  args=(dataclasses.replace(spec, mesh_tp=1),),
+                  timeout=MESH_TIMEOUT, threads=2)
+    log(f"{phase}: {spec.n_instances} instances, one rank each, on card 0 "
+        f"in {time.perf_counter() - t0:.1f} s; traffic "
+        f"{spec.traffic.describe()}")
+    for key in ("stats", "trace", "tokens", "iterations", "moved"):
+        check(all(o[key] == ranks[0][key] for o in ranks),
+              f"{phase}: the ranks' {key} differ")
+    out = ranks[0]
+    st = out["stats"]
+    check(out["finished"] == out["submitted"] and out["whole"],
+          f"{phase}: {out['finished']} of {out['submitted']} requests "
+          f"finished whole")
+    check(st["mirror_syncs"] > 0, f"{phase}: no mirror sync")
+    for key in ("mirror", "stream"):
+        check(st[f"{key}_bytes"] == out["moved"][key],
+              f"{phase}: stats {key}_bytes {st[f'{key}_bytes']} != "
+              f"{out['moved'][key]} priced by LineCosts over "
+              f"{out['moved'][key + '_lines']} lines")
+    for r, o in enumerate(ranks):
+        # gloo on CUDA tensors stages every broadcast through the host,
+        # so every hop must be counted as a host copy, none as d2d
+        d2d, d2d_bytes, host, host_bytes = o["transfers"]
+        check(host > 0 and host_bytes > 0 and d2d == d2d_bytes == 0,
+              f"{phase} rank {r}: {d2d} device-to-device hops "
+              f"({d2d_bytes} B) and {host} host copies ({host_bytes} B) "
+              f"over gloo, where every hop stages through the host")
+        _check_path_counts(o["counts"], PAGED_PATH, f"{phase} rank {r}")
+        log(f"{phase} rank {r}: {host} cross-slice hops, {host_bytes} B, "
+            f"all counted as host copies (gloo stages them), {d2d} "
+            f"device-to-device; pools {o['pool']} B; wall "
+            f"{o['wall']:.3f} s, {o['wall'] * 1e3 / o['iterations']:.3f} ms "
+            f"per iteration; launches {o['counts']}")
+    for key in ("mirror_syncs", "mirror_bytes", "stream_bytes",
+                "replica_promotions", "prefills", "decode_steps"):
+        check(st[key] == one_stats[key], f"{phase}: {key} {st[key]} against "
+              f"the one-process cluster's {one_stats[key]}")
+    check(out["trace"] == one_trace,
+          f"{phase}: the decision trace differs from the one-process one's")
+    check(out["iterations"] == one_it, f"{phase}: {out['iterations']} "
+          f"iterations against the one-process cluster's {one_it}")
+    log(f"{phase}: stats {st}; mirror_bytes {st['mirror_bytes']:.0f} = "
+        f"LineCosts over {out['moved']['mirror_lines']} lines, stream_bytes "
+        f"{st['stream_bytes']:.0f} over {out['moved']['stream_lines']}; "
+        f"equal to the one-process cluster's, whose wall was "
+        f"{one_wall:.3f} s ({one_wall * 1e3 / one_it:.3f} ms per "
+        f"iteration); {card}; {staging}")
+    counts[phase] = _sum_counts(ranks)
+    return counts
+
+
+def mesh_only(torch, np, dev, card):
+    """``python3 chip_smoke.py --mesh-only``: the serve phase's six
+    requests on one engine (the reference), then phases 28-29 alone; for
+    bringing the mesh phases up without the rest.  Prints no result
+    line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("starcoder2-3b")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    six = []
+    _, per_step, _ = _serve_six(torch, np, cfg, params, dev, "serve",
+                                keep=six)
+    del params
+    _free(torch)
+    phase_mesh(torch, np, six, per_step[8], card)
+    log("chip_smoke --mesh-only: serve, mesh-engine and mesh-cluster passed")
     return 0
 
 

@@ -15,9 +15,12 @@ spec carries an :class:`repro_torch.workloads.SLO`.
 The cluster runs on the card unless the spec asks for another device
 (``device="cpu"``).  A fleet schedule (``repro_torch.fleet``) injects
 kills, joins, drains and stragglers on the iteration clock.
-``prefix_cache=True`` gives every engine a radix prefix cache.  Mesh
-placement waits for its slice of the port and raises
-``NotImplementedError``.
+``prefix_cache=True`` gives every engine a radix prefix cache.  With
+``mesh_tp`` or ``mesh_specs`` every rank of an initialized
+``torch.distributed`` world calls :func:`serve` with the same spec, and
+each instance runs tensor-parallel on its own slice of the ranks
+(``repro_torch.meshserve``; ``repro_torch.launch.serve --mesh-tp``
+starts the world).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.fleet import FleetController, FleetSchedule
+from repro_torch.meshserve import MeshPlacement
 from repro_torch.models import init_params
 from repro_torch.scheduling.live import LiveCluster
 from repro_torch.scheduling.registry import get_policy, policy_accepts
@@ -86,11 +90,12 @@ class ServeSpec:
     #: drains applied between scheduler iterations on the iteration
     #: clock; the same schedule drives the simulator in modeled seconds
     fleet: Optional[FleetSchedule] = None
-    #: tensor-parallel width per instance (the JAX package's
-    #: repro.meshserve); waits for the mesh slice of the port
+    #: mesh serving: carve the world's ranks into n_instances disjoint
+    #: tensor-parallel slices of this width (repro_torch.meshserve), one
+    #: process per rank, every rank calling serve(); None serves whole
     mesh_tp: Optional[int] = None
-    #: heterogeneous pod: one InstanceSpec per instance; waits for the
-    #: mesh slice of the port
+    #: heterogeneous pod: one InstanceSpec per instance (slice widths
+    #: follow ``spec.n_devices``); overrides mesh_tp's uniform carving
     mesh_specs: Optional[Sequence] = None
     #: sample the observability timeline every N scheduling iterations
     #: (1 = every iteration); long replays keep O(n/stride) memory
@@ -240,10 +245,14 @@ def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
     """Resolve config, params and policy, and return a ready cluster.
     Without ``params`` the weights are drawn by ``init_params`` from a
     ``torch.Generator`` seeded by ``spec.seed`` on ``spec.device``."""
-    if spec.mesh_tp is not None or spec.mesh_specs is not None:
-        raise NotImplementedError(
-            "mesh placement waits for the mesh slice of the port")
     device = resolve_device(spec.device)
+    mesh = None
+    if spec.mesh_specs is not None:
+        mesh = MeshPlacement.carve(spec.n_instances, specs=spec.mesh_specs,
+                                   device=device)
+    elif spec.mesh_tp is not None:
+        mesh = MeshPlacement.carve(spec.n_instances, tp=spec.mesh_tp,
+                                   device=device)
     if cfg is None:
         cfg = get_config(spec.arch)
         if spec.reduced:
@@ -268,7 +277,7 @@ def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
                        fuse_decode_steps=spec.fuse_decode_steps,
                        prefix_cache=spec.prefix_cache,
                        prefix_cache_blocks=spec.prefix_cache_blocks,
-                       fleet=fleet,
+                       fleet=fleet, mesh=mesh,
                        timeline_stride=spec.timeline_stride,
                        max_queue=spec.max_queue,
                        shed_deadline=spec.shed_deadline,

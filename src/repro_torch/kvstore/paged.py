@@ -24,6 +24,16 @@ with a mirror sync.
 The state is updated in place.  Whatever leaves the store (an exported
 slot) is a copy, so later in-place writes on either side never alias.
 
+On a mesh slice (``repro_torch.meshserve.shard_store``) each rank's state
+holds its own KV heads and ``holders`` says where the rest lives; a rank
+outside the slice holds no state (``state`` is None) and keeps only the
+ledger.  Then :meth:`stream_slot` yields
+:class:`~repro_torch.meshserve.collectives.SliceChunk`s, and
+:meth:`import_chunk` and :meth:`copy_lines` move rows between two stores
+that do not share their devices through
+:mod:`repro_torch.meshserve.collectives`, which counts every hop.  The
+bytes they return are the ledger's, whatever the wire.
+
 :meth:`copy_lines` is the per-step redundancy mirror: only the KV rows of
 the new accounting lines move, plus the recurrent states whole, O(delta)
 per step, not O(kv_capacity); static leaves are skipped, since a replica
@@ -44,11 +54,14 @@ from repro_torch.core.device import Device
 from repro_torch.kvstore.base import BlockLedger, KVStoreError, LineCosts
 from repro_torch.models import init_state
 from repro_torch.models.blocks import layer_specs, plan_segments
+from repro_torch.models.state import cache_capacity
 
 #: attention-state keys indexed by KV line (axis 2 of the stacked leaf)
 LINE_KEYS = ("k", "v", "c_kv", "k_rope")
 #: attention-state keys written once at prefill (enc-dec cross caches)
 STATIC_KEYS = ("xk", "xv")
+#: keys whose slot view ``(R, W, KVH, hd)`` has its KV heads on axis 2
+HEAD_KEYS = ("k", "v", "xk", "xv")
 
 
 def pick_block_lines(kv_capacity: int, requested: int = 16) -> int:
@@ -81,6 +94,11 @@ class PagedStore:
             block_lines=self.block_lines,
             max_blocks_per_seq=self.line_blocks_per_slot)
         self.state = init_state(cfg, num_slots, kv_capacity, device=device)
+        #: where a mesh slice's state lives (None: whole, in this process)
+        self.holders = None
+        #: rows of each line leaf: the cache window (a ring of the
+        #: sliding window where that is shorter)
+        self._window = cache_capacity(cfg, kv_capacity)
         self.slot_rid: Dict[int, int] = {}
         self.rid_slot: Dict[int, int] = {}
         #: state leaves: (segment index, part key, leaf key, kind), kind
@@ -102,9 +120,26 @@ class PagedStore:
                                            f"static leaf")
                     self._paths.append((i, f"p{j}", key, kind))
 
-    def _leaf(self, state, path) -> torch.Tensor:
+    def _leaf(self, state, path) -> Optional[torch.Tensor]:
+        """The leaf at ``path`` (None where the state is None: a rank
+        outside the store's mesh slice)."""
+        if state is None:
+            return None
         i, pj, key = path[:3]
         return state["layers"][i][pj][key]
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        leaf = self._leaf(self.state, self._paths[0]) if self._paths else None
+        return leaf.device if leaf is not None else None
+
+    def _pull_holders(self):
+        """``holders``, or, for a whole store inside a mesh world (an
+        engine every rank builds whole), every rank."""
+        if self.holders is not None:
+            return self.holders
+        from repro_torch.meshserve.collectives import whole_holders
+        return whole_holders(self.cfg.num_kv_heads)
 
     # -- capacity ------------------------------------------------------------
     @property
@@ -234,7 +269,10 @@ class PagedStore:
     # -- whole-slot state movement ---------------------------------------------
     def extract_slot(self, slot: int):
         """Per-request state (batch dim kept, size 1), as a copy: the store
-        keeps writing its own leaves in place."""
+        keeps writing its own leaves in place.  None on a rank that holds
+        no state."""
+        if self.state is None:
+            return None
         out = {"layers": [{pj: {} for pj in seg}
                           for seg in self.state["layers"]]}
         for path in self._paths:
@@ -258,7 +296,10 @@ class PagedStore:
         """Copy ``sub_state``'s batch row ``src_slot`` into ``slot``, KV rows
         ``[lo, hi)`` only of the line leaves (clamped to the smaller
         window): the merge for bucket-sized prefill scratch.  Recurrent and
-        static leaves, and ``enc_out``, copy whole."""
+        static leaves, and ``enc_out``, copy whole.  A rank that holds no
+        state does nothing."""
+        if self.state is None:
+            return
         for path in self._paths:
             dst = self._leaf(self.state, path)
             src = self._leaf(sub_state, path)
@@ -277,29 +318,54 @@ class PagedStore:
         """Yield ``slot``'s state one layer-part leaf at a time, the chunk
         granularity a transfer can overlap with prefill compute.  Each
         chunk is a view of the store's leaf: install it (which copies)
-        before the store writes the slot again."""
+        before the store writes the slot again.  A mesh store's chunks are
+        ``SliceChunk``s (this rank's view, or None, and the holders)."""
         for path in self._paths:
-            yield path[:3], self._leaf(self.state, path)[:, slot: slot + 1]
-        if "enc_out" in self.state:
-            yield ("enc_out",), self.state["enc_out"][slot: slot + 1]
+            leaf = self._leaf(self.state, path)
+            yield path[:3], self._chunk(
+                None if leaf is None else leaf[:, slot: slot + 1])
+        if self.cfg.is_encoder_decoder:
+            enc = None if self.state is None else self.state["enc_out"]
+            yield ("enc_out",), self._chunk(
+                None if enc is None else enc[slot: slot + 1])
 
-    def import_chunk(self, slot: int, path: tuple, chunk: torch.Tensor):
+    def _chunk(self, view: Optional[torch.Tensor]):
+        if self.holders is None:
+            return view
+        from repro_torch.meshserve.collectives import SliceChunk
+        return SliceChunk(view, self.holders)
+
+    def import_chunk(self, slot: int, path: tuple, chunk):
         """Install one streamed chunk into ``slot`` (a copy, on this
-        store's device).  The mesh hop of the JAX package waits for the
-        mesh slice."""
+        store's device).  A ``SliceChunk``, or any chunk for a store on a
+        mesh slice, is pulled across the two stores' ranks; a plain chunk
+        on another device than a whole store's is refused (stores on two
+        devices move state only between mesh slices)."""
+        from repro_torch.meshserve import collectives as coll
         enc = path[0] == "enc_out"
-        if enc and "enc_out" not in self.state:
+        if enc and not self.cfg.is_encoder_decoder:
             raise KVStoreError("an encoder-memory chunk for a store that "
                                "holds no encoder memory")
-        dst = self.state["enc_out"] if enc else self._leaf(self.state, path)
-        if chunk.device != dst.device:
-            raise NotImplementedError(
-                f"a chunk on {chunk.device} for a store on {dst.device}: "
-                f"cross-device streaming waits for the mesh slice of the port")
-        if enc:
-            dst[slot] = chunk[0]
-        else:
-            dst[:, slot] = chunk[:, 0]
+        dst = None
+        if self.state is not None:
+            dst = (self.state["enc_out"][slot] if enc
+                   else self._leaf(self.state, path)[:, slot])
+        sliced = isinstance(chunk, coll.SliceChunk)
+        view = chunk.tensor if sliced else chunk
+        if view is not None:
+            view = view[0] if enc else view[:, 0]
+        if not sliced and self.holders is None:
+            if view.device != dst.device:
+                raise KVStoreError(
+                    f"a chunk on {view.device} for a store on {dst.device}: "
+                    f"stores on two devices stream only between mesh slices "
+                    f"(LiveCluster(mesh=))")
+            dst.copy_(view)
+            return
+        src = (chunk.holders if sliced
+               else coll.whole_holders(self.cfg.num_kv_heads))
+        axis = 2 if not enc and path[2] in HEAD_KEYS else None
+        coll.pull([(dst, view, axis)], self._pull_holders(), src)
 
     # -- delta line copy (the mirror) ------------------------------------------
     def copy_lines(self, src: "PagedStore", src_slot: int, dst_slot: int,
@@ -311,17 +377,39 @@ class PagedStore:
         ``L`` reserves physical row ``L-1`` (the newest sampled token's KV
         is written by the *next* decode step), so rows ``[from_line-1,
         to_line-1)`` move, modulo the ring window."""
+        from repro_torch.meshserve import collectives as coll
         lo, hi = max(0, from_line - 1), max(0, to_line - 1)
-        for path in self._paths:
-            if path[3] == "static":
-                continue
-            dst = self._leaf(self.state, path)
-            src_leaf = self._leaf(src.state, path)
-            if path[3] == "recurrent":
-                dst[:, dst_slot] = src_leaf[:, src_slot]
-                continue
-            for a, b in _ring_spans(lo, hi, dst.shape[2]):
-                dst[:, dst_slot, a:b] = src_leaf[:, src_slot, a:b]
+        spans = _ring_spans(lo, hi, self._window)
+        moves = [p for p in self._paths if p[3] != "static"]
+        if coll.same_devices(self, src):
+            for path in moves if self.state is not None else ():
+                dst = self._leaf(self.state, path)
+                src_leaf = self._leaf(src.state, path)
+                if path[3] == "recurrent":
+                    dst[:, dst_slot] = src_leaf[:, src_slot]
+                    continue
+                for a, b in spans:
+                    dst[:, dst_slot, a:b] = src_leaf[:, src_slot, a:b]
+        elif self.holders is None and src.holders is None:
+            raise KVStoreError(
+                f"a mirror from a store on {src.device} into one on "
+                f"{self.device}: stores on two devices mirror only between "
+                f"mesh slices (LiveCluster(mesh=))")
+        else:
+            items = []
+            for path in moves:
+                dst = self._leaf(self.state, path)
+                src_leaf = self._leaf(src.state, path)
+                views = [(slice(None),)] if path[3] == "recurrent" else [
+                    (slice(None), slice(a, b)) for a, b in spans]
+                axis = 2 if path[2] in HEAD_KEYS else None
+                items += [(None if dst is None else dst[:, dst_slot][v],
+                           None if src_leaf is None
+                           else src_leaf[:, src_slot][v],
+                           None if path[3] == "recurrent" else axis)
+                          for v in views]
+            if items:
+                coll.pull(items, self._pull_holders(), src._pull_holders())
         return self.costs.mirror_bytes(max(0, to_line - from_line))
 
     # -- prefix adoption (one-time window fill) --------------------------------
@@ -343,8 +431,8 @@ class PagedStore:
         Returns the bytes gathered (``line_bytes`` per line)."""
         n_lines = min(n_lines, self.kv_capacity,
                       len(blocks) * self.block_lines)
-        if n_lines <= 0:
-            return 0.0
+        if n_lines <= 0 or self.state is None:
+            return max(0, n_lines) * self.costs.line_bytes
         off = 1 if self._has_fixed else 0
         i = np.arange(n_lines)
         head = np.asarray(blocks, np.int64)[i // self.block_lines]

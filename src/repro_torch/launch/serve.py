@@ -26,8 +26,12 @@ Every registered policy name is accepted, including the ``-vec``
 variants (``accellm-vec`` / ``vllm-vec`` / ``splitwise-vec`` /
 ``ulb-vec``): on live engines those fall back to the identical scalar
 decision path, so they are interchangeable with the originals.
-``--mesh-tp`` waits for the mesh slice of the port and raises
-``NotImplementedError``.
+``--mesh-tp N`` serves every instance tensor-parallel on N ranks, still
+as one command: it starts ``--instances`` x N processes (one per card on
+the GPU, over NCCL; gloo processes with ``--device cpu``), each of which
+runs the same cluster (``repro_torch.meshserve.world.spawn``).  Rank 0's
+report is printed once every rank's report agrees with it.  A host with
+fewer cards than ranks raises ``MeshError``.
 """
 from __future__ import annotations
 
@@ -163,8 +167,9 @@ def main(argv=None):
     ap.add_argument("--prefix-len", type=int, default=64,
                     help="declared shared-prefix length in tokens")
     ap.add_argument("--mesh-tp", type=int, default=None,
-                    help="tensor-parallel width per instance (waits for "
-                         "the mesh slice of the port)")
+                    help="tensor-parallel width per instance: starts "
+                         "instances x N processes, one per rank "
+                         "(repro_torch.meshserve)")
     ap.add_argument("--device", default="cuda",
                     help="where every engine runs: the card unless "
                          "'cpu' is asked for")
@@ -174,9 +179,6 @@ def main(argv=None):
     ap.add_argument("--full-config", action="store_true",
                     help="use the full (non-reduced) architecture")
     args = ap.parse_args(argv)
-    if args.mesh_tp is not None:
-        raise NotImplementedError(
-            "mesh placement waits for the mesh slice of the port")
 
     reuse = (PrefixReuse(pool=args.prefix_pool, reuse=args.prefix_reuse,
                          prefix_len=args.prefix_len)
@@ -201,15 +203,37 @@ def main(argv=None):
         max_queue=args.max_queue, shed_deadline=args.shed_deadline,
         reduced=not args.full_config,
         seed=args.seed, max_steps=args.max_steps, traffic=traffic, slo=slo,
-        fleet=build_fleet(args), device=args.device)
+        fleet=build_fleet(args), mesh_tp=args.mesh_tp, device=args.device)
     print(f"serving {args.arch} on {args.instances} instances "
           f"with policy={args.policy}, redundancy={spec.redundancy}, "
           f"device={args.device}"
-          + (", prefix_cache=on" if args.prefix_cache else ""))
+          + (", prefix_cache=on" if args.prefix_cache else "")
+          + (f", mesh_tp={args.mesh_tp}" if args.mesh_tp else ""))
     print(traffic.describe())
+    if args.mesh_tp is None:
+        report = serve(spec)
+        print(report.describe())
+        return 0 if report.all_finished else 1
+    from repro_torch.meshserve.world import spawn
+    world = args.instances * args.mesh_tp
+    print(f"mesh slices: {args.instances} x tp {args.mesh_tp} over {world} "
+          f"processes")
+    reports = spawn("repro_torch.launch.serve:serve_rank", world,
+                    device=args.device, args=(spec,))
+    text, finished = reports[0]
+    for r, (other, _) in enumerate(reports):
+        if other != text:
+            raise RuntimeError(f"rank {r}'s report differs from rank 0's:"
+                               f"\n{other}\n---\n{text}")
+    print(text)
+    return 0 if finished else 1
+
+
+def serve_rank(rank: int, world: int, spec: ServeSpec):
+    """One rank of a ``--mesh-tp`` serve: its report text and whether
+    every request finished."""
     report = serve(spec)
-    print(report.describe())
-    return 0 if report.all_finished else 1
+    return report.describe(), report.all_finished
 
 
 if __name__ == "__main__":

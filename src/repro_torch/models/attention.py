@@ -43,6 +43,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
@@ -232,7 +233,11 @@ def gqa_forward(
     train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     B, S, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    # under tensor parallelism the projections hold this rank's whole
+    # heads (column-parallel wq/wk/wv, row-parallel wo): the local head
+    # counts come from the weights
+    h, kvh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     scale = 1.0 / math.sqrt(hd)
     q = (x @ params["wq"]).reshape(B, S, h, hd)
     k = (x @ params["wk"]).reshape(B, S, kvh, hd)
@@ -311,6 +316,8 @@ def gqa_forward(
         raise ValueError(mode)
 
     out = out.reshape(B, S, h * hd) @ params["wo"]
+    if h != cfg.num_heads:
+        out = sharding.reduce(out)       # sum the ranks' head partials
     return out, state
 
 

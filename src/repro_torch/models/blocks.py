@@ -146,7 +146,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x: torch.Tensor,
         if spec.is_moe:
             h, aux = moe_forward(cfg, params["ffn"], f_in)
         else:
-            h = dense_ffn(cfg, params["ffn"], f_in)
+            h = dense_ffn(cfg, params["ffn"], f_in, spec.d_ff)
         x = x + rs * h
     return x, state, aux
 

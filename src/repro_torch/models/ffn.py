@@ -1,8 +1,15 @@
-"""Dense feed-forward layers (SwiGLU / GeLU MLP)."""
+"""Dense feed-forward layers (SwiGLU / GeLU MLP).
+
+Under tensor parallelism ``w_gate``/``w_up`` are column-parallel and
+``w_down`` row-parallel: a rank holding fewer than ``d_ff`` rows of
+``w_down`` sums its partial with the other ranks'."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, gelu, swiglu
 
@@ -17,9 +24,15 @@ def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: int,
             for n in names}
 
 
-def dense_ffn(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+def dense_ffn(cfg: ModelConfig, params, x: torch.Tensor,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """``d_ff`` is the layer's whole hidden width, which tells a rank's
+    shard (fewer rows) from the whole layer."""
     if cfg.activation == "swiglu":
         h = swiglu(x @ params["w_gate"], x @ params["w_up"])
     else:
         h = gelu(x @ params["w_up"])
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    if d_ff is not None and params["w_down"].shape[-2] != d_ff:
+        y = sharding.reduce(y)
+    return y

@@ -42,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.models.attention import PagedDecode
@@ -125,7 +126,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+    emb = params["embed"]
+    if emb.shape[0] != cfg.vocab_size:
+        # vocab-sharded (tensor parallelism): each rank looks up the ids
+        # of its rows, zeros elsewhere, and the ranks' rows are summed
+        n = emb.shape[0]
+        ids = tokens.long() - sharding.current().model_rank * n
+        hit = (ids >= 0) & (ids < n)
+        x = emb[ids.clamp(0, n - 1)] * hit[..., None].to(emb.dtype)
+        x = sharding.reduce(x)
+    else:
+        x = emb[tokens.long()]
     if cfg.abs_pos == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
@@ -154,7 +165,11 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w).float() * cfg.logit_scale
+    logits = (x @ w).float() * cfg.logit_scale
+    if w.shape[-1] != cfg.vocab_size:
+        # vocab-sharded head: every rank gets the whole row
+        logits = sharding.gather(logits, -1, cfg.vocab_size)
+    return logits
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,11 @@ is the sentinel ``num_experts * C``, which the buffer scatter drops).
 Capacity dropping decides tokens, so it follows the JAX package exactly:
 rank order is flat assignment order, token-major.
 
-Only the local strategy (all experts on one device) runs here.  The
-mesh strategies (``psum`` and ``a2a`` in the JAX package) wait for the
-mesh slice of the port.
+Experts held whole run locally.  Split over a mesh's model ranks
+(``repro_torch.meshserve``), they run the JAX package's two strategies
+on ``torch.distributed``: ``psum`` (an all-reduce of the ranks' partial
+outputs) and ``a2a`` (two all-to-alls over the model group, which gloo
+runs on the CPU; the port does not run it on the card yet).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, swiglu
 from repro_torch.models.ffn import dense_ffn, init_dense_ffn
@@ -35,6 +38,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
 
     def experts(a, b, std):
         w = torch.empty((repeats, e, a, b), dtype=dtype, device=device)
+        if w.is_meta:                    # shapes only: nothing to draw
+            return w
         for r in range(repeats):
             for i in range(e):
                 w[r, i] = torch.randn((a, b), generator=gen,
@@ -146,16 +151,73 @@ def _routed_local(cfg: ModelConfig, params, x2: torch.Tensor
     return y, _aux_loss(eidx, probs, m.num_experts, m.router_aux_loss_coef)
 
 
-def _routed_psum(*args, **kwargs):
-    raise NotImplementedError(
-        "the psum expert-parallel strategy waits for the mesh slice of the "
-        "port")
+def _model_ctx(strategy: str) -> sharding.ShardCtx:
+    ctx = sharding.current()
+    if ctx.model_group is None:
+        raise RuntimeError(
+            f"the {strategy} expert-parallel strategy needs a mesh: install "
+            f"the model axis's process group with sharding.use_mesh")
+    return ctx
 
 
-def _routed_a2a(*args, **kwargs):
-    raise NotImplementedError(
-        "the all-to-all expert-parallel strategy waits for the mesh slice of "
-        "the port")
+def _routed_psum(cfg: ModelConfig, params, x2: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each model rank runs its local experts over all its tokens; the
+    ranks' partial outputs are all-reduced."""
+    ctx = _model_ctx("psum")
+    m = cfg.moe
+    T = x2.shape[0]
+    E_loc = params["w_gate"].shape[0]
+    gates, eidx, probs = _route(x2, params["router"], m.top_k)
+    C = _capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+    e_flat = eidx.reshape(-1)
+    ranks = _ranks_of(e_flat, m.num_experts)
+    e_local = e_flat - ctx.model_rank * E_loc
+    keep = (e_local >= 0) & (e_local < E_loc) & (ranks < C)
+    slot = torch.where(keep, e_local * C + ranks,
+                       torch.full_like(e_flat, E_loc * C))
+    tok = torch.arange(T * m.top_k, device=x2.device) // m.top_k
+    xs = _fill_buffer(x2, tok, slot, E_loc * C).reshape(E_loc, C, -1)
+    ys = _expert_ffn(params, xs)
+    y = _combine(ys.reshape(E_loc * C, -1), slot, gates, T, m.top_k)
+    aux = _aux_loss(eidx, probs, m.num_experts, m.router_aux_loss_coef)
+    return sharding.reduce(y), sharding.batch_mean(aux)
+
+
+def _routed_a2a(cfg: ModelConfig, params, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Classic expert parallelism: each model rank routes its slice of the
+    sequence, two all-to-alls carry the dispatch buffers to the experts'
+    ranks and back, and the slices are gathered again.  x (B, S, d), whole
+    on every model rank; returns y (B, S, d) f32."""
+    import torch.distributed as dist
+    ctx = _model_ctx("a2a")
+    m = cfg.moe
+    B, S, d = x.shape
+    E, M = m.num_experts, ctx.model_size
+    E_loc, S_loc = E // M, S // M
+    x2 = x[:, ctx.model_rank * S_loc:(ctx.model_rank + 1) * S_loc].reshape(
+        B * S_loc, d)
+    T = x2.shape[0]
+    gates, eidx, probs = _route(x2, params["router"], m.top_k)
+    C = _capacity(T, m.top_k, E, m.capacity_factor)
+    e_flat = eidx.reshape(-1)
+    ranks = _ranks_of(e_flat, E)
+    slot = torch.where(ranks < C, e_flat * C + ranks,
+                       torch.full_like(e_flat, E * C))
+    tok = torch.arange(T * m.top_k, device=x.device) // m.top_k
+    send = _fill_buffer(x2, tok, slot, E * C)             # (M * E_loc * C, d)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=ctx.model_group)
+    xs = recv.reshape(M, E_loc, C, d).transpose(0, 1).reshape(E_loc, M * C, d)
+    ys = _expert_ffn(params, xs)
+    back = ys.reshape(E_loc, M, C, d).transpose(0, 1).reshape(E * C, d)
+    got = torch.empty_like(back)
+    dist.all_to_all_single(got, back.contiguous(), group=ctx.model_group)
+    y = _combine(got, slot, gates, T, m.top_k).reshape(B, S_loc, d)
+    aux = _aux_loss(eidx, probs, E, m.router_aux_loss_coef)
+    aux = sharding.batch_mean(sharding.reduce(aux) / M)
+    return sharding.gather(y, 1, S), aux
 
 
 # ---------------------------------------------------------------------------
@@ -165,12 +227,29 @@ def _routed_a2a(*args, **kwargs):
 
 def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), router aux loss scalar)."""
+    """x (B, S, d) -> (y (B, S, d), router aux loss scalar).  Experts held
+    whole run locally; experts split over the model ranks run ``a2a``
+    where the sequence divides the ranks, else ``psum`` (the JAX
+    package's rule; the context's ``moe_strategy`` may force either)."""
+    m = cfg.moe
     B, S, d = x.shape
-    y, aux = _routed_local(cfg, params, x.reshape(B * S, d))
+    if params["w_gate"].shape[0] == m.num_experts:
+        y, aux = _routed_local(cfg, params, x.reshape(B * S, d))
+    else:
+        ctx = _model_ctx("expert-parallel")
+        strategy = ctx.moe_strategy
+        if strategy == "auto":
+            M = ctx.model_size
+            strategy = "a2a" if S % M == 0 and S >= M else "psum"
+        if strategy == "a2a":
+            y, aux = _routed_a2a(cfg, params, x)
+        else:
+            y, aux = _routed_psum(cfg, params, x.reshape(B * S, d))
     y = y.reshape(B, S, d).to(x.dtype)
     if "shared" in params:
-        y = y + dense_ffn(cfg, params["shared"], x)
+        sf = (m.shared_d_ff or m.expert_d_ff) * m.num_shared_experts
+        y = y + dense_ffn(cfg, params["shared"], x, sf)
     if "dense_residual" in params:
-        y = y + dense_ffn(cfg, params["dense_residual"], x)
+        y = y + dense_ffn(cfg, params["dense_residual"], x,
+                          m.dense_residual_d_ff)
     return y, aux

@@ -15,8 +15,16 @@ instance per iteration); latency metrics are reported in iterations.
 Fleet events (kills, joins, drains, degradation; ``repro_torch.fleet``)
 apply between scheduling iterations.  ``prefix_cache=True`` gives every
 engine a radix prefix cache: a request is stamped with its hit when it is
-admitted, and prefills only its suffix.  Mesh placement waits for its
-slice of the port: its argument raises ``NotImplementedError``.
+admitted, and prefills only its suffix.
+
+With ``mesh`` (a :class:`repro_torch.meshserve.MeshPlacement`) each
+instance runs on its own slice of the world's ranks, one process per
+rank, every rank running this same cluster (SPMD): the engines of other
+slices are shadows there, and each plan's tokens reach every rank, so
+every rank makes the same decisions.  Mirror and stream bytes cross the
+slices through ``repro_torch.meshserve.collectives``; the views expose
+each slice's ``InstanceSpec``.  A join past the carved pod lands
+unsharded: every rank builds it whole.
 """
 from __future__ import annotations
 
@@ -90,9 +98,10 @@ class LiveInstanceView:
         return self._eng.store.block_lines
 
     def spec(self):
-        # hardware identity of this instance's mesh slice: mesh placement
-        # waits for the mesh slice of the port, so none is declared
-        return None
+        # hardware identity of this instance's mesh slice (None when
+        # the cluster runs unplaced / the instance joined past the pod)
+        specs = self._c.instance_specs
+        return specs[self._index] if self._index < len(specs) else None
 
     def primary_bytes(self) -> float:
         store = self._eng.store
@@ -214,9 +223,6 @@ class LiveCluster:
                  max_queue: Optional[int] = None,
                  shed_deadline: Optional[float] = None,
                  device: Device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh placement waits for the mesh slice of the port")
         if isinstance(policy, str):
             from repro_torch.scheduling.registry import get_policy
             policy = get_policy(policy)
@@ -227,6 +233,20 @@ class LiveCluster:
         self.cfg = cfg
         self.policy = policy
         self._params = params
+        #: pod layout (repro_torch.meshserve.MeshPlacement): one slice of
+        #: the world's ranks per instance, and the (possibly
+        #: heterogeneous) InstanceSpecs the views expose.  ``None`` runs
+        #: every engine whole on ``device``.
+        self.mesh = mesh
+        if mesh is not None and mesh.n_instances != n_instances:
+            raise ValueError(
+                f"mesh placement has {mesh.n_instances} slices for "
+                f"{n_instances} instances")
+        #: per-instance hardware spec visible through the policy views
+        #: (``InstanceView.spec()``); None where nothing was declared
+        self.instance_specs: List[Optional[object]] = [
+            mesh.spec_for(i) if mesh is not None else None
+            for i in range(n_instances)]
         # join events build replacement engines with the original shape,
         # on the cluster's device
         self._engine_kwargs = dict(
@@ -235,7 +255,9 @@ class LiveCluster:
             block_lines=block_lines, prefix_cache=prefix_cache,
             prefix_cache_blocks=prefix_cache_blocks, device=device)
         self.engines = [
-            InstanceEngine(cfg, params, instance_id=i, **self._engine_kwargs)
+            InstanceEngine(cfg, params, instance_id=i,
+                           mesh=mesh.slice_for(i) if mesh is not None
+                           else None, **self._engine_kwargs)
             for i in range(n_instances)
         ]
         #: fleet state per instance index (repro_torch.fleet); dead
@@ -892,10 +914,14 @@ class LiveCluster:
         else:
             idx = len(self.engines)
             # an autoscaled join: a fresh engine of the original shape on
-            # the cluster's device, sharing the one params tree
+            # the cluster's device, sharing the one params tree; past the
+            # carved pod it lands unsharded
+            sl = self.mesh.slice_for(idx) if self.mesh is not None else None
             self.engines.append(
                 InstanceEngine(self.cfg, self._params, instance_id=idx,
-                               **self._engine_kwargs))
+                               mesh=sl, **self._engine_kwargs))
+            self.instance_specs.append(
+                self.mesh.spec_for(idx) if self.mesh is not None else None)
             self._pending.append([])
             self._chunking.append([])
             self.alive.append(True)

@@ -31,15 +31,29 @@ chunks.  With ``prefix_cache=True`` an attention-only engine keeps a
 radix prefix cache (``repro_torch.prefixcache``) over its store's ledger:
 a request whose prompt head is resident adopts those blocks, gathers
 their rows into its window once (``PagedStore.copy_prefix``) and
-prefills only its suffix, at ``q_offset`` = the hit.  Mesh serving waits
-for a later slice of the port and raises ``NotImplementedError``.
+prefills only its suffix, at ``q_offset`` = the hit.
+
+With ``mesh`` (a :class:`repro_torch.meshserve.MeshSlice`) the instance is
+a tensor-parallel slice of ranks, one process each, every process running
+the same program: on the slice's ranks the engine holds its part of the
+params and of the KV pool (``meshserve.shard_params``/``shard_store``)
+and its dispatches run under the slice's TP context
+(``repro_torch.sharding``); on every other rank it is a *shadow* that
+keeps only the host bookkeeping (ledger, slots, lengths, tokens) and
+computes nothing.  After each plan the slice's lead rank broadcasts the
+sampled tokens to the whole world, so every rank's scheduler sees the same
+state and makes the same decisions.  The attention-only GQA decoders (with
+dense or MoE FFNs) serve on a mesh; the other stacks wait for slice 13.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import sharding
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
@@ -63,10 +77,13 @@ class InstanceEngine:
                  prefix_cache: bool = False,
                  prefix_cache_blocks: Optional[int] = None, mesh=None,
                  device: Device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving waits for the mesh slice of the port")
         self.device = resolve_device(device)
+        #: the mesh slice backing this instance (None: whole, in this
+        #: process); see the module docstring
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh(cfg, mesh, self.device)
+            self.device = mesh.device
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
@@ -77,6 +94,21 @@ class InstanceEngine:
         self.seed = seed
         self.store = PagedStore(cfg, num_slots, kv_capacity,
                                 block_lines=block_lines, device=self.device)
+        #: the config of this rank's state (its KV heads on a mesh slice)
+        self._state_cfg = cfg
+        #: whether this process computes for the engine (not a shadow)
+        self._computes = mesh is None or mesh.holds
+        self._model_axis = None
+        if mesh is not None:
+            from repro_torch.meshserve.pool import (local_config,
+                                                    shard_params,
+                                                    shard_store)
+            self.params = (shard_params(cfg, params, mesh)
+                           if mesh.holds else None)
+            shard_store(self.store, mesh)
+            if mesh.holds:
+                self._state_cfg = local_config(cfg, mesh)
+            self._model_axis = mesh.model_axis_for(cfg)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.last_tokens = np.zeros((num_slots,), np.int32)
         self.slot_req: Dict[int, Request] = {}
@@ -130,6 +162,28 @@ class InstanceEngine:
     def state(self):
         return self.store.state
 
+    def _mesh_ctx(self):
+        """The TP context of this engine's dispatches: the slice's group,
+        where its heads divide it (else the slice runs replicated)."""
+        if self.mesh is None or self._model_axis is None:
+            return contextlib.nullcontext()
+        return sharding.use_mesh(self.mesh.group, batch_axes=(),
+                                 model_axis=self._model_axis)
+
+    def _share(self, host: np.ndarray) -> np.ndarray:
+        """The slice lead's host result (sampled tokens, emitted counts),
+        on every rank of the world: a shadow passes zeros of the same
+        shape and gets the lead's values."""
+        if self.mesh is None:
+            return host
+        from repro_torch.meshserve.topology import active_world
+        dist = active_world()
+        if dist is None:
+            return host
+        t = torch.from_numpy(np.ascontiguousarray(host, np.int32))
+        dist.broadcast(t, src=self.mesh.lead)
+        return t.numpy()
+
     # -- capacity ------------------------------------------------------------
     def free_slots(self) -> List[int]:
         """Slots usable for a fresh admission: unoccupied (no primary, no
@@ -169,7 +223,8 @@ class InstanceEngine:
         return self.primary_kv_tokens() + self.replica_kv_tokens()
 
     def state_bytes(self) -> int:
-        """Physical bytes of the allocated state tensors."""
+        """Physical bytes of the allocated state tensors (this rank's part
+        on a mesh slice; 0 on a shadow)."""
         return state_bytes(self.store.state)
 
     def used_bytes(self) -> float:
@@ -354,14 +409,20 @@ class InstanceEngine:
         slot = self._take_slot()
         window = (bucket_len(req.prompt_len, cap=self.kv_capacity)
                   if self._attn_only and not extra else self.kv_capacity)
-        fresh = init_state(self.cfg, 1, window, device=self.device)
-        batch = {"tokens": self._tokens(req).to(self.device)}
-        for key, value in (extra or {}).items():
-            batch[key] = torch.as_tensor(value, device=self.device)
-        logits, fresh = prefill(self.cfg, self.params, batch, fresh)
-        tok = int(self._sample(logits, np.asarray([slot], np.int32))[0])
-        self.store.merge_slot_rows(slot, fresh, 0, window)
-        self._finish_prefill(req, slot, tok)
+        tok = np.zeros((1,), np.int32)
+        if self._computes:
+            fresh = init_state(self._state_cfg, 1, window, device=self.device)
+            batch = {"tokens": self._tokens(req).to(self.device)}
+            for key, value in (extra or {}).items():
+                batch[key] = torch.as_tensor(value, device=self.device)
+            with self._mesh_ctx():
+                logits, fresh = prefill(self.cfg, self.params, batch, fresh)
+            tok = self._sample(logits, np.asarray([slot], np.int32)
+                               ).cpu().numpy()
+            self.store.merge_slot_rows(slot, fresh, 0, window)
+        else:
+            self.draws += 1
+        self._finish_prefill(req, slot, int(self._share(tok)[0]))
         return slot
 
     def _prefill_padded(self, items: List[PrefillItem], bucket: int
@@ -380,19 +441,30 @@ class InstanceEngine:
         for i, it in enumerate(items):
             toks[i, :it.prompt_len] = np.asarray(it.req.prompt_tokens)[0]
             lens[i] = it.prompt_len
-        fresh = init_state(self.cfg, Bp, bucket, device=self.device)
-        logits, fresh = prefill_batched(
-            self.cfg, self.params, torch.as_tensor(toks, device=self.device),
-            fresh, torch.as_tensor(lens, device=self.device))
         # pad rows fold in an unused sentinel slot; their draws are
         # discarded and never perturb a real slot's stream
         row_slots = np.full((Bp,), self.num_slots, np.int32)
         row_slots[:B] = slots[:B]
-        next_toks = self._sample(logits, row_slots).cpu().numpy()
+        next_toks = np.zeros((Bp,), np.int32)
+        fresh = None
+        if self._computes:
+            fresh = init_state(self._state_cfg, Bp, bucket,
+                               device=self.device)
+            with self._mesh_ctx():
+                logits, fresh = prefill_batched(
+                    self.cfg, self.params,
+                    torch.as_tensor(toks, device=self.device), fresh,
+                    torch.as_tensor(lens, device=self.device))
+            next_toks = self._sample(logits, row_slots).cpu().numpy()
+        else:
+            self.draws += 1
+        next_toks = self._share(next_toks)
         out: Dict[int, int] = {}
         for i, it in enumerate(items):
             slot = slots[i]
-            self.store.merge_slot_rows(slot, fresh, 0, bucket, src_slot=i)
+            if fresh is not None:
+                self.store.merge_slot_rows(slot, fresh, 0, bucket,
+                                           src_slot=i)
             self._finish_prefill(it.req, slot, int(next_toks[i]))
             out[it.rid] = slot
         return out
@@ -439,11 +511,14 @@ class InstanceEngine:
             if self.prefilling.get(slot) is not req:
                 raise KVStoreError(f"rid {req.rid} holds slot {slot} but is "
                                    f"not mid-chunk there")
-        toks = self._tokens(req)[:, it.start:it.end].to(self.device)
-        sub = self.store.extract_slot(slot)
-        logits, sub = prefill_chunk(self.cfg, self.params, toks, sub,
-                                    history=it.start)
-        self.store.merge_slot_rows(slot, sub, it.start, it.end)
+        logits = None
+        if self._computes:
+            toks = self._tokens(req)[:, it.start:it.end].to(self.device)
+            sub = self.store.extract_slot(slot)
+            with self._mesh_ctx():
+                logits, sub = prefill_chunk(self.cfg, self.params, toks, sub,
+                                            history=it.start)
+            self.store.merge_slot_rows(slot, sub, it.start, it.end)
         if not it.completes:
             # cursor over the KV ledger: lines materialized so far.  A
             # dense decode step this iteration writes a garbage row at the
@@ -452,8 +527,14 @@ class InstanceEngine:
             self.lengths[slot] = it.end
             return None
         del self.prefilling[slot]
-        tok = int(self._sample(logits, np.asarray([slot], np.int32))[0])
-        self._finish_prefill(req, slot, tok, ledgered=True)
+        tok = np.zeros((1,), np.int32)
+        if logits is not None:
+            tok = self._sample(logits, np.asarray([slot], np.int32)
+                               ).cpu().numpy()
+        else:
+            self.draws += 1
+        self._finish_prefill(req, slot, int(self._share(tok)[0]),
+                             ledgered=True)
         return slot
 
     # -- decode ----------------------------------------------------------------
@@ -466,14 +547,22 @@ class InstanceEngine:
         if self.use_paged_decode:
             return {slot: toks[0]
                     for slot, toks in self.decode_multi(steps=1).items()}
-        tokens = torch.as_tensor(self.last_tokens, device=self.device)[:, None]
-        t = torch.as_tensor(self.lengths, device=self.device)
-        logits, _ = decode_step(self.cfg, self.params, tokens,
-                                self.store.state, t)
-        # per-slot noise rows (slot == row here) keep sampled tokens
-        # invariant to batch compaction on the paged path
-        next_tokens = self._sample(
-            logits, np.arange(self.num_slots, dtype=np.int32)).cpu().numpy()
+        next_tokens = np.zeros((self.num_slots,), np.int32)
+        if self._computes:
+            tokens = torch.as_tensor(self.last_tokens,
+                                     device=self.device)[:, None]
+            t = torch.as_tensor(self.lengths, device=self.device)
+            with self._mesh_ctx():
+                logits, _ = decode_step(self.cfg, self.params, tokens,
+                                        self.store.state, t)
+            # per-slot noise rows (slot == row here) keep sampled tokens
+            # invariant to batch compaction on the paged path
+            next_tokens = self._sample(
+                logits, np.arange(self.num_slots, dtype=np.int32)
+            ).cpu().numpy()
+        else:
+            self.draws += 1
+        next_tokens = self._share(next_tokens)
         self.host_syncs += 1
         out = {}
         for slot, req in list(self.slot_req.items()):
@@ -524,28 +613,11 @@ class InstanceEngine:
                  // self.store.block_lines)
         blocks = bucket_len(need, floor=1,
                             cap=self.store.line_blocks_per_slot)
-        cache_key = (tuple(slots), tuple(r.rid for r in reqs), blocks)
-        if self._tables_cache is None or self._tables_cache[0] != cache_key:
-            self._tables_cache = (cache_key, torch.as_tensor(
-                self.store.decode_block_tables([r.rid for r in reqs], blocks),
-                device=self.device))
-        tables = self._tables_cache[1]
-        noise = None
-        if self.temperature != 0.0:
-            noise = torch.stack([self._noise(self.draws + i)
-                                 for i in range(steps)])
-        dev = self.device
-        toks_all, _, emitted = decode_multi(
-            self.cfg, self.params,
-            torch.as_tensor(self.last_tokens[slots], device=dev)[:, None],
-            self.store.state, torch.as_tensor(t0, device=dev),
-            torch.as_tensor(slots, device=dev),
-            tables, torch.as_tensor(budget, device=dev), steps=steps,
-            block_lines=self.store.block_lines,
-            temperature=self.temperature, noise=noise,
-            eos_token=-1 if self.eos_token is None else self.eos_token)
-        # one device->host transfer for the whole span
-        host = torch.cat([toks_all, emitted[None]]).cpu().numpy()
+        host = np.zeros((steps + 1, len(slots)), np.int32)
+        if self._computes:
+            host = self._decode_multi_host(slots, reqs, budget, steps, t0,
+                                           blocks)
+        host = self._share(host)
         toks_np, emitted = host[:-1], host[-1]
         self.host_syncs += 1
         # consume draws only for iterations that actually ran (EOS can
@@ -571,6 +643,35 @@ class InstanceEngine:
                 self.release(slot)
         return out
 
+    def _decode_multi_host(self, slots: List[int], reqs: List[Request],
+                           budget: np.ndarray, steps: int, t0: np.ndarray,
+                           blocks: int) -> np.ndarray:
+        """The fused decode loop on the device; returns its tokens with
+        the emitted counts as the last row, in one host transfer."""
+        cache_key = (tuple(slots), tuple(r.rid for r in reqs), blocks)
+        if self._tables_cache is None or self._tables_cache[0] != cache_key:
+            self._tables_cache = (cache_key, torch.as_tensor(
+                self.store.decode_block_tables([r.rid for r in reqs], blocks),
+                device=self.device))
+        tables = self._tables_cache[1]
+        noise = None
+        if self.temperature != 0.0:
+            noise = torch.stack([self._noise(self.draws + i)
+                                 for i in range(steps)])
+        dev = self.device
+        with self._mesh_ctx():
+            toks_all, _, emitted = decode_multi(
+                self.cfg, self.params,
+                torch.as_tensor(self.last_tokens[slots], device=dev)[:, None],
+                self.store.state, torch.as_tensor(t0, device=dev),
+                torch.as_tensor(slots, device=dev),
+                tables, torch.as_tensor(budget, device=dev), steps=steps,
+                block_lines=self.store.block_lines,
+                temperature=self.temperature, noise=noise,
+                eos_token=-1 if self.eos_token is None else self.eos_token)
+        # one device->host transfer for the whole span
+        return torch.cat([toks_all, emitted[None]]).cpu().numpy()
+
     # -- slot management --------------------------------------------------------
     def release(self, slot: int) -> int:
         """Free the slot; returns the number of blocks returned to the
@@ -594,7 +695,9 @@ class InstanceEngine:
     def export_stream(self, slot: int):
         """Per-layer streamed export: ``(chunk_iter, length, last_token,
         lines)``.  The chunks are views of this store's leaves: install
-        them before this engine runs again."""
+        them before this engine runs again.  Between two mesh slices every
+        rank iterates the chunks in step, and each chunk crosses the
+        slices' ranks (``repro_torch.meshserve.collectives``)."""
         return (self.store.stream_slot(slot), int(self.lengths[slot]),
                 int(self.last_tokens[slot]),
                 self.store.lines(self._rid_at(slot)))
@@ -657,7 +760,8 @@ class InstanceEngine:
         """Mirror the partner's newly generated KV line(s) into our replica
         slot (AcceLLM §4.1.2): copies ONLY lines ``[from_line, to_line)``
         (default: our ledger's synced mark up to the primary's current
-        lines).  Returns the bytes moved, one KV line per decode step in
+        lines), across the two slices' ranks when they differ.  Returns
+        the bytes moved (the ledger's), one KV line per decode step in
         steady state."""
         rid = src._rid_at(src_slot)
         if to_line is None:
@@ -675,3 +779,23 @@ class InstanceEngine:
         self.store.set_lines(rid, to_line)
         self.store.mark_synced(rid, to_line)
         return moved
+
+
+def _check_mesh(cfg: ModelConfig, mesh, device: torch.device) -> None:
+    """A mesh engine needs a stack the port's TP covers, the slice's kind
+    of device, and a world behind a slice wider than one rank."""
+    if (cfg.attention_kind != "gqa" or cfg.is_encoder_decoder
+            or cfg.frontend is not None
+            or any(b != "attn" for b in cfg.block_pattern)):
+        raise NotImplementedError(
+            f"{cfg.name}: mesh serving of the Mamba, MLA, xLSTM, "
+            f"encoder-decoder and vision stacks waits for slice 13 of the "
+            f"port (the attention-only GQA decoders serve on a mesh)")
+    if mesh.device.type != device.type:
+        raise ValueError(f"a mesh slice on {mesh.device} for an engine on "
+                         f"{device}")
+    if mesh.tp > 1 and mesh.group is None:
+        from repro_torch.meshserve.topology import MeshError
+        raise MeshError(f"slice {mesh.index} is {mesh.tp} ranks wide but "
+                        f"no world is initialized: start one process per "
+                        f"rank (repro_torch.launch.serve --mesh-tp)")

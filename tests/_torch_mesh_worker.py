@@ -1,0 +1,307 @@
+"""The port's side of the mesh-serving parity tests, run in gloo worlds.
+
+``tests/test_torch_meshserve.py`` starts these functions on a world of
+CPU processes (``repro_torch.meshserve.world.spawn``).  This module
+imports torch, numpy and the port only, never JAX nor the JAX package,
+and hands everything back as numpy and plain Python.  Every rank runs
+every step (SPMD), so each function returns one result per rank.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.meshserve import STATS, MeshPlacement, carve_slices
+from repro_torch.meshserve.pool import shard_params
+from repro_torch.meshserve.topology import group_of
+from repro_torch.models import (decode_step_paged, init_state,
+                                prefill_batched)
+from repro_torch.models.moe import moe_forward
+from repro_torch.scheduling.accellm import AcceLLMScheduler
+from repro_torch.scheduling.live import LiveCluster
+from repro_torch.serving import InstanceEngine, Request
+from repro_torch import sharding
+
+CPU = "cpu"
+
+
+def prompt(i, plen, vocab, seed=3):
+    return np.random.default_rng(seed * 1000 + i).integers(
+        0, vocab, (1, plen), dtype=np.int32)
+
+
+def requests(cfg, n, seed=3, steps=5, rid0=0):
+    return [Request(prompt_len=6 + (i % 5), max_new_tokens=steps,
+                    rid=rid0 + i,
+                    prompt_tokens=prompt(i, 6 + (i % 5), cfg.vocab_size,
+                                         seed))
+            for i in range(n)]
+
+
+def generate(cfg, params, mesh, steps=5, device=CPU):
+    """The JAX package's ``_generate``: three requests prefilled one by
+    one, then one fused decode plan."""
+    eng = InstanceEngine(cfg, params, num_slots=4, kv_capacity=64,
+                         temperature=0.0, mesh=mesh, device=device)
+    reqs = requests(cfg, 3, steps=steps)
+    for r in reqs:
+        eng.prefill_request(r)
+    eng.decode_multi(steps=steps - 1)
+    return eng, [list(map(int, r.output_tokens)) for r in reqs]
+
+
+def logits_at(cfg, params, sl):
+    """Prefill logits of three padded prompts and one paged decode step's,
+    under the slice's TP context (whole params without a slice)."""
+    reqs = requests(cfg, 3)
+    L = 16
+    toks = np.zeros((4, L), np.int32)
+    lens = np.ones((4,), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :r.prompt_len] = r.prompt_tokens[0]
+        lens[i] = r.prompt_len
+    if sl is not None:
+        params = shard_params(cfg, params, sl)
+    kv = params["segments"][0]["p0"]["mixer"]["wk"].shape[-1] // cfg.head_dim
+    scfg = dataclasses.replace(cfg, num_kv_heads=kv)
+    state = init_state(scfg, 4, L, device=CPU)
+    ctx = sharding.use_mesh(sl.group if sl is not None else None)
+    with ctx:
+        pre, state = prefill_batched(cfg, params, torch.as_tensor(toks),
+                                     state, torch.as_tensor(lens))
+        nxt = pre.argmax(-1).to(torch.int32)
+        tables = torch.arange(4, dtype=torch.int32)[:, None]
+        dec, _ = decode_step_paged(cfg, params, nxt[:, None], state,
+                                   torch.as_tensor(lens), torch.arange(4),
+                                   tables, L)
+    return pre.numpy(), dec.numpy()
+
+
+def tp_engines(cfg, params):
+    out = {}
+    for tp in (2, 4, 3):
+        (sl,) = carve_slices(tp, 1, device=CPU)
+        eng, toks = generate(cfg, params, sl)
+        mine = {"tokens": toks, "holds": sl.holds,
+                "state_bytes": eng.state_bytes(),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in _leaves(eng.params))}
+        if tp != 3:
+            mine["prefill"], mine["decode"] = (
+                logits_at(cfg, params, sl) if sl.holds else (None, None))
+        out[tp] = mine
+    return out
+
+
+def _leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _rows(eng, slot, lines):
+    """This rank's K rows [0, lines - 1) of ``slot`` (None on a shadow)."""
+    if eng.state is None:
+        return None
+    k = eng.state["layers"][0]["p0"]["k"]
+    return k[:, slot, :lines - 1].cpu().numpy().copy()
+
+
+def _transfers():
+    return (STATS.d2d_copies, STATS.d2d_bytes, STATS.host_copies,
+            STATS.host_bytes)
+
+
+def stream_and_mirror(cfg, params, tp=2, device=CPU):
+    """The JAX package's cross-slice mirror test on two tp-``tp``
+    slices."""
+    a_sl, b_sl = carve_slices(tp, 2, device=device)
+    a = InstanceEngine(cfg, params, num_slots=2, kv_capacity=64,
+                       temperature=0.0, mesh=a_sl, device=device)
+    b = InstanceEngine(cfg, params, num_slots=2, kv_capacity=64,
+                       temperature=0.0, mesh=b_sl, device=device)
+    (req,) = requests(cfg, 1, steps=4)
+    slot = a.prefill_request(req)
+    STATS.reset()
+    chunks, length, last, lines = a.export_stream(slot)
+    b_slot = b.free_slots()[0]
+    b.import_stream(b_slot, chunks, length, last, lines, req,
+                    as_replica_of=(0, slot))
+    stream = _transfers()
+    a.decode()
+    from_line = b.store.lines(req.rid)
+    STATS.reset()
+    moved = b.sync_replica_from(a, slot, b_slot)
+    mirror = _transfers()
+    n = a.store.lines(req.rid)
+    return {"stream": stream, "mirror": mirror, "moved": moved,
+            "delta": n - from_line, "lines": n, "rows_a": _rows(a, slot, n),
+            "rows_b": _rows(b, b_slot, n), "rank_in": (a_sl.holds,
+                                                       b_sl.holds)}
+
+
+def mesh_cluster(cfg, params, shapes):
+    kernel = AcceLLMScheduler()
+    kernel.trace = []
+    cluster = LiveCluster(cfg, params, n_instances=2, num_slots=6,
+                          kv_capacity=64, policy=kernel,
+                          mesh=MeshPlacement.carve(2, tp=2, device=CPU),
+                          device=CPU)
+    STATS.reset()
+    reqs = [Request(prompt_len=p, max_new_tokens=d, rid=i,
+                    prompt_tokens=prompt(i, p, cfg.vocab_size, seed=11))
+            for i, (p, d) in enumerate(shapes)]
+    for r in reqs:
+        cluster.submit(r)
+    done = cluster.run(max_steps=200)
+    return {"finished": len(done), "stats": dict(cluster.stats),
+            "trace": kernel.trace,
+            "tokens": [list(map(int, r.output_tokens)) for r in reqs],
+            "transfers": (STATS.d2d_copies, STATS.host_copies)}
+
+
+def join_past_the_pod(cfg, params, policy="vllm"):
+    """A third instance joins a two-slice pod at iteration 2: past the
+    carved pod it lands unsharded, every rank building it whole."""
+    from repro_torch.fleet import FixedFleet, FleetController, JoinInstance
+    mesh = (MeshPlacement.carve(2, tp=2, device=CPU)
+            if dist_world() else None)
+    cluster = LiveCluster(cfg, params, 2, 6, 64, policy, mesh=mesh,
+                          device=CPU, fleet=FleetController(
+                              FixedFleet((JoinInstance(2.0),))))
+    reqs = [Request(prompt_len=6 + i % 5, max_new_tokens=8, rid=i,
+                    prompt_tokens=prompt(i, 6 + i % 5, cfg.vocab_size,
+                                         seed=13))
+            for i in range(8)]
+    for r in reqs:
+        cluster.submit(r)
+    done = cluster.run(max_steps=200)
+    joined = cluster.engines[2]
+    return {"finished": len(done), "stats": dict(cluster.stats),
+            "fleet": dict(cluster.fleet.stats),
+            "tokens": [list(map(int, r.output_tokens)) for r in reqs],
+            "joined": (joined.mesh is None, joined.draws > 0,
+                       joined.state_bytes()),
+            "spec": cluster.instance_specs[2]}
+
+
+def dist_world():
+    from repro_torch.meshserve.topology import active_world
+    return active_world() is not None
+
+
+def api_serve():
+    from repro_torch.api import ServeSpec, serve
+    rep = serve(ServeSpec(arch="starcoder2-3b", n_instances=2, num_slots=4,
+                          kv_capacity=64, n_requests=6, request_scale=0.02,
+                          mesh_tp=2, device=CPU))
+    return {"stats": dict(rep.stats), "finished": len(rep.finished),
+            "tokens": sorted((r.rid, tuple(r.output_tokens))
+                             for r in rep.finished)}
+
+
+def moe(rank, payload):
+    """The 2 x 2 ("data", "model") grid of the JAX package's distributed
+    MoE test: rank = 2 * data + model."""
+    cfg = payload["moe_cfg"]
+    data, model = divmod(rank, 2)
+    model_group = group_of((2 * data, 2 * data + 1))
+    batch_group = group_of((model, model + 2))
+    x = torch.from_numpy(payload["moe_x"])
+    B = x.shape[0] // 2
+    x_loc = x[data * B:(data + 1) * B]
+    routed = {}
+    for k, v in payload["moe_params"].items():
+        t = torch.from_numpy(v)
+        if k != "router":
+            n = t.shape[0] // 2
+            t = t[model * n:(model + 1) * n]
+        routed[k] = t
+    out = {}
+    for strategy in ("a2a", "psum"):
+        with sharding.use_mesh(model_group, batch_group=batch_group,
+                               moe_strategy=strategy):
+            y, aux = moe_forward(cfg, routed, x_loc)
+            out["spec"] = sharding.spec("batch", None, "model", "seq")
+        out[strategy] = (y.numpy(), float(aux))
+    out["spec_outside"] = sharding.spec("batch", None, "model")
+    return out
+
+
+def world4(rank, world, payload):
+    torch.manual_seed(0)
+    cfg = get_config("starcoder2-3b").reduced()
+    params = params_from_numpy(payload["params"], device=CPU)
+    return {"tp": tp_engines(cfg, params),
+            "stream": stream_and_mirror(cfg, params),
+            "cluster": mesh_cluster(cfg, params, payload["shapes"]),
+            "serve": api_serve(),
+            "join": join_past_the_pod(cfg, params),
+            "moe": moe(rank, payload)}
+
+
+def hetero(rank, world, payload):
+    """The JAX package's heterogeneous golden trace: a [4, 2] pod, live."""
+    from repro_torch.sim import ASCEND_910B2, H100, InstanceSpec
+    cfg = get_config("starcoder2-3b").reduced()
+    params = params_from_numpy(payload["params"], device=CPU)
+    specs = (InstanceSpec(H100, 4, intra_link_gbps=H100.link_gbps),
+             InstanceSpec(ASCEND_910B2, 2,
+                          intra_link_gbps=ASCEND_910B2.link_gbps))
+    kernel = AcceLLMScheduler()
+    kernel.trace = []
+    cluster = LiveCluster(cfg, params, n_instances=2, num_slots=8,
+                          kv_capacity=256, policy=kernel,
+                          mesh=MeshPlacement.carve(2, specs=specs,
+                                                   device=CPU),
+                          device=CPU)
+    rids = []
+    for i, op in enumerate(payload["trace"]):
+        if op[0] == "arrive":
+            plen, dlen = op[1], op[2]
+            req = Request(prompt_len=plen, max_new_tokens=dlen, rid=100 + i,
+                          prompt_tokens=prompt(i, plen, cfg.vocab_size,
+                                               seed=7))
+            rids.append(req.rid)
+            cluster.submit(req)
+        cluster.step()
+    steps = 0
+    while cluster.pending() and steps < 50:
+        cluster.step()
+        steps += 1
+    from repro_torch.scheduling.live import LiveInstanceView
+    return {"trace": kernel.trace, "rids": rids, "steps": steps,
+            "pending": bool(cluster.pending()),
+            "tps": [e.mesh.tp for e in cluster.engines],
+            "specs": [LiveInstanceView(cluster, i).spec() is specs[i]
+                      for i in range(2)],
+            "stats": dict(cluster.stats)}
+
+
+def card_engine(rank, world, payload=None):
+    """tp ``world`` on one card (every rank on card 0, over gloo): the
+    tokens of ``generate`` and this rank's kernel counts."""
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import init_params
+    cfg = get_config("starcoder2-3b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
+    (sl,) = carve_slices(world, 1, device="cuda")
+    reset_counts()
+    eng, tokens = generate(cfg, params, sl, device="cuda")
+    return {"tokens": tokens, "counts": read_counts(),
+            "state_bytes": eng.state_bytes()}
+
+
+def card_stream(rank, world):
+    """Two one-rank slices on card 0 over gloo: the cross-slice stream
+    and mirror, whose every hop gloo stages through the host."""
+    from repro_torch.models import init_params
+    cfg = get_config("starcoder2-3b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
+    return stream_and_mirror(cfg, params, tp=1, device="cuda")

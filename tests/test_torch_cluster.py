@@ -21,7 +21,7 @@ within 1e-4 max abs (the packages sum in different orders).
   admission, deadline shedding and aborts;
 * the hybrid stack under accellm (no chunk execution);
 * entry points raise without a card unless given ``device="cpu"``, and
-  the mesh path raises ``NotImplementedError`` (the prefix cache and the
+  a mesh pod wider than the world raises ``MeshError`` (the prefix cache and the
   ``-vec`` policies run: ``tests/test_torch_prefixcache.py`` and
   ``tests/test_torch_scale.py``).
 """
@@ -406,12 +406,16 @@ def test_entry_points_refuse_cpu_fallback(setup, monkeypatch):
 
 def test_later_slices_raise(setup):
     _, cfg, _, params = setup
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu",
-                    mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the mesh slice has landed (tests/test_torch_meshserve.py): a pod
+    # wider than the world asks for more processes, and a placement must
+    # carve one slice per instance
+    from repro_torch.meshserve import MeshError, MeshPlacement
+    with pytest.raises(MeshError, match="processes"):
         tapi.build_cluster(tapi.ServeSpec(device="cpu", mesh_tp=2),
                            cfg=cfg, params=params)
+    with pytest.raises(ValueError, match="slices"):
+        LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu",
+                    mesh=MeshPlacement.carve(1, tp=1, device="cpu"))
     # the prefix-cache slice has landed: every engine gets a cache
     # (tests/test_torch_prefixcache.py holds it against the JAX package)
     cluster = LiveCluster(cfg, params, 2, 2, 16, "accellm", device="cpu",

@@ -11,7 +11,9 @@ and dense decode kernels; the engine takes their payloads already on the
 card.  A train step on the card (reduced minicpm-2b and Jamba) gives
 every leaf the CPU's gradient within 1e-4 of its max, every attention
 and MLP leaf a nonzero one, and launches no kernel; each kernel wrapper
-refuses card inputs that require grad.
+refuses card inputs that require grad.  One engine at tensor-parallel
+width 2 runs as two processes on the one card (gloo) and gives the CPU
+engine's tokens.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode).  This file imports neither JAX nor the JAX package, so it
@@ -305,6 +307,52 @@ def test_prefill_chunk_on_card_matches_cpu():
         assert float((lg.cpu() - lc).abs().max()) <= 1e-4, (lo, hi)
     assert read_counts()["flash_attention"]["launches"] == \
         3 * cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_tp2_engine_on_card_matches_cpu():
+    """One engine at tp 2 on the card, both ranks on card 0 over gloo
+    (``tests/_torch_mesh_worker.py``): every rank's tokens equal one CPU
+    engine's, both ranks launch the prefill and paged kernels at their
+    per-rank heads with no plain version, and each holds half the pool."""
+    _need_cuda()
+    import _torch_mesh_worker as W
+    from repro_torch.meshserve.world import spawn
+    cfg, p_cpu, _ = _reduced_starcoder()
+    one, want = W.generate(cfg, p_cpu, None)
+    ranks = spawn("_torch_mesh_worker:card_engine", 2, device="cuda",
+                  share_card=True, timeout=600)
+    for out in ranks:
+        assert out["tokens"] == want
+        for name in ("flash_attention", "paged_decode_attention"):
+            assert out["counts"][name]["launches"] > 0, name
+            assert out["counts"][name]["plain_calls"] == 0, name
+        assert out["state_bytes"] * 2 == one.state_bytes()
+
+
+@pytest.mark.cuda
+def test_cross_slice_mirror_on_card_counts_host_copies():
+    """The cross-slice stream and mirror between two one-rank slices on
+    card 0 over gloo: gloo stages a CUDA broadcast through the host, so
+    every hop is counted as a host copy and none as device-to-device,
+    and the replica's rows equal the primary's."""
+    _need_cuda()
+    import numpy as np
+    from repro_torch.kvstore import LineCosts
+    from repro_torch.meshserve.world import spawn
+    cfg, _, _ = _reduced_starcoder()
+    ranks = spawn("_torch_mesh_worker:card_stream", 2, device="cuda",
+                  share_card=True, timeout=600)
+    for out in ranks:
+        for key in ("stream", "mirror"):
+            d2d, d2d_bytes, host, host_bytes = out[key]
+            assert d2d == d2d_bytes == 0, key
+            assert host > 0 and host_bytes > 0, key
+        assert out["moved"] == LineCosts.from_config(cfg).mirror_bytes(
+            out["delta"])
+    ra, rb = ranks[0]["rows_a"], ranks[1]["rows_b"]
+    assert ra.shape == rb.shape and np.array_equal(ra, rb)
+    assert np.abs(ra).max() > 0
 
 
 @pytest.mark.cuda

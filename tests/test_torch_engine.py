@@ -309,8 +309,13 @@ def test_later_slices_raise(setup):
     _, cfg, _, params = setup
     # the prefix-cache slice has landed (tests/test_torch_prefixcache.py)
     assert _engine(cfg, params, prefix_cache=True).prefix_cache is not None
-    with pytest.raises(NotImplementedError):
-        _engine(cfg, params, mesh=object())
+    # the mesh slice has landed for the attention-only GQA decoders
+    # (tests/test_torch_meshserve.py); the other stacks wait for slice 13
+    from repro_torch.meshserve import carve_slices
+    (sl,) = carve_slices(1, 1, device="cpu")
+    assert _engine(cfg, params, mesh=sl).mesh is sl
+    with pytest.raises(NotImplementedError, match="slice 13"):
+        _engine(tcfg.get_config("xlstm-1.3b").reduced(), params, mesh=sl)
     eng = _engine(cfg, params)
     # chunk resume and streamed exports run since the cluster slice; a
     # chunk of a prompt that would wrap the 16-line window still waits for

@@ -573,16 +573,16 @@ def test_launch_serve_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("flags,what", [
     (["--prefix-cache"], None),
     (["--prefix-cache-blocks", "8"], None),
-    (["--mesh-tp", "2"], "mesh slice")])
+    (["--mesh-tp", "1"], "mesh slice")])
 def test_launch_serve_later_slices_raise(flags, what, capsys):
-    """``--mesh-tp`` waits for its slice; the prefix-cache flags serve
-    since the prefix-cache slice."""
+    """The prefix-cache flags serve since the prefix-cache slice, and
+    ``--mesh-tp`` since the mesh slice: one gloo process per rank, whose
+    report the launcher prints (tests/test_torch_meshserve.py holds it
+    against the host cluster's at tp 2)."""
     argv = ["--arch", "starcoder2-3b", "--device", "cpu"] + flags
-    if what is not None:
-        with pytest.raises(NotImplementedError, match=what):
-            tlserve.main(argv)
-        return
     assert tlserve.main(argv + ["--instances", "2", "--requests", "3",
                                 "--slots", "4", "--kv-capacity", "64",
                                 "--scale", "0.02"]) == 0
-    assert "stats:" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "stats:" in out
+    assert what is None or what in out

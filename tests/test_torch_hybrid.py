@@ -307,15 +307,16 @@ def test_unported_blocks_raise():
     # the xLSTM blocks run since the xLSTM slice (tests/test_torch_xlstm.py)
     # and cross attention since the encoder-decoder slice
     # (tests/test_torch_encdec.py): every block builds; the mesh dispatch
-    # of MoE still raises
+    # of MoE runs under a mesh since the mesh slice
+    # (tests/test_torch_meshserve.py) and refuses to run without one
     cfg = tcfg.get_config("seamless-m4t-large-v2").reduced()
     layer = init_layer(torch.Generator().manual_seed(0), cfg,
                        LayerSpec("attn", False, 256, True), 1, torch.float32,
                        "cpu")
     assert {"cross_norm", "cross"} <= set(layer)
     for fn in (t_moe._routed_psum, t_moe._routed_a2a):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            fn()
+        with pytest.raises(RuntimeError, match="mesh"):
+            fn(cfg, {}, torch.zeros((1, 2, cfg.d_model)))
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,11 @@ def test_every_module_imports_without_jax_or_repro():
                                     "repro_torch.scheduling.registry",
                                     "repro_torch.training",
                                     "repro_torch.launch.train",
-                                    "repro_torch.launch.train_small"])
+                                    "repro_torch.launch.train_small",
+                                    "repro_torch.meshserve",
+                                    "repro_torch.meshserve.world",
+                                    "repro_torch.sharding",
+                                    "repro_torch.launch.specs"])
 def test_fleet_sim_and_launch_import_alone(module):
     """The fleet layer, the simulator, the launchers, the simulator's
     store, the prefix cache, the scale layer (whose kernels the registry
@@ -112,6 +116,35 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         serve_main(["--arch", "starcoder2-3b", "--instances", "2",
                     "--requests", "1"])
+
+
+def test_mesh_entry_points_refuse_cpu_fallback(monkeypatch):
+    """The mesh entry points default to the card too: without one they
+    raise unless given ``device="cpu"``; with fewer cards than ranks the
+    launcher raises ``MeshError`` (one process per card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.meshserve import MeshError, MeshPlacement, carve_slices
+    from repro_torch.models import init_params
+    from repro_torch.serving import InstanceEngine
+    cfg = get_config("starcoder2-3b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    (sl,) = carve_slices(1, 1, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MeshPlacement.carve(2, tp=1, world=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        InstanceEngine(cfg, params, num_slots=2, kv_capacity=16, mesh=sl)
+    argv = ["--arch", "starcoder2-3b", "--instances", "2", "--requests",
+            "1", "--mesh-tp", "2"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_main(argv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(MeshError, match="4 cards"):
+        serve_main(argv)
+    assert InstanceEngine(cfg, params, num_slots=2, kv_capacity=16,
+                          mesh=sl, device="cpu").mesh is sl
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
