@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs twenty-nine phases,
+port's kernels from ``src/repro_torch/csrc``, and runs thirty phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -29,7 +29,13 @@ each of which exits non-zero on failure:
    would pass a dropped key tile), causal at internvl2-1b's 256 patches + 300 tokens (14/2 heads: G = 7),
    and dense decode at hd 64 with G = 1 (W 512) and G = 7 (W 1024), lengths
    on each side of a split boundary, each checked as above and the main
-   ones timed;
+   ones timed; and at phase 30's shapes (minicpm-2b, 36/36 heads, hd 64):
+   the prefill kernel under an 8,192-token window over 12,288 rows
+   (every row checked, in twelve 1,024-row blocks at their q_offset;
+   timed at B 2, its plain version over twelve row blocks, SDPA with the
+   window's mask) and dense decode over an 8,192-line ring, both held in
+   bf16 row by row to 1e-2 x the row's max |expected| (f32 plain version
+   on the same values) and in f32 to 1e-4;
 3. serve — full-width starcoder2-3b in bf16 (random weights from a seed)
    behind one ``InstanceEngine``: six greedy requests admitted by
    ``prefill_batch`` and decoded by ``decode_multi(steps=8)``; every
@@ -50,8 +56,8 @@ each of which exits non-zero on failure:
    stream bytes must equal ``LineCosts`` over the lines each engine's
    ledger moved, and the prefill and paged kernels must have launched with
    no plain version run.  Prints the report, wall ms per iteration,
-   ``sched_us_per_iter`` and the card's busy share over 50 scheduling
-   steps (profiled in a rerun of the serve's first 90 steps);
+   ``sched_us_per_iter`` and the card's busy share over the serve's first
+   30 scheduling steps (profiled in a rerun of them);
 7. cluster-chunked — the same model and traffic shape, ~6 requests, under
    sarathi with 128-token chunks: chunks must resume past their prompt's
    start and the prefill kernel must launch at ``q_offset > 0``;
@@ -68,8 +74,9 @@ each of which exits non-zero on failure:
    the two tokens' f32 logits lie within the bf16 error measured on that
    row (printed); wall ms per iteration beside TTFT/TBT/JCT;
 9. cluster-prefix — the cluster phase's arrival and length processes
-   with shared prompt heads (two system prompts, 80% reuse, 256-token
-   heads) served on its weights with the prefix cache off and on, beside
+   over 60 iterations (12 requests) with shared prompt heads (two system
+   prompts, 80% reuse, 256-token heads) served on its weights with the
+   prefix cache off and on, beside
    a CPU rehearsal at reduced width: every request must finish with all
    its tokens; the cache-on serve must hit, with the rehearsal's hits,
    hit tokens, iterations and kernel and plan traces, and the cache-off
@@ -221,10 +228,24 @@ each of which exits non-zero on failure:
     the stats, trace and iterations equal the one-process cluster's; the
     prefill and paged kernels launch on both ranks.  The parent frees its
     weights before each world starts, and the kernels the children load
-    are the ones phase 1 built.
+    are the ones phase 1 built;
+30. long-context — run right after phase 11 on its weights: the
+    long-context policy (``long_context=True``) on full-width minicpm-2b in
+    bf16: ``init_state(cfg, 2, 524_288)`` (a ring of 8,192 lines; the
+    bytes the card allocates must equal the dry run's meta build of the
+    same call, 6,039,797,760 B), two 12,288-token prompts prefilled through
+    the prefill kernel under the 8,192-token window, then 64 greedy decode
+    steps through the dense decode kernel over the full ring, past its
+    wrap: both kernels launch once per layer per call, no plain version
+    and no paged kernel; ``sample`` at T = 0 equals argmax and at T = 1
+    with top_k 40 draws inside each row's top 40; then in f32 on 2 layers
+    the decode logits at t = 12,288 + j (j = 0, 31, 63) against a fresh
+    long-context prefill over the 12,288 + j + 1 tokens within 1e-3 *
+    max|logit|.  Prints decode ms per step beside phase 11's and the dry
+    run's long_500k record for minicpm-2b on the single mesh.
 
 Each phase group's weights are freed before the next: starcoder2's after
-phases 3-5, 6-9 and 10, minicpm-2b's after 11, the bf16 Jamba weights
+phases 3-5, 6-9 and 10, minicpm-2b's after 11 and 30, the bf16 Jamba weights
 before the f32 ones, deepseek's bf16 weights before its f32 ones,
 xlstm-1.3b's bf16 weights once upcast, seamless-m4t's after 22,
 internvl2-1b's after 23, the trained minicpm-2b's after 25 and each
@@ -298,29 +319,59 @@ def max_err(a, b):
 
 
 def _time_flash(torch, flash_mod, randn, flush, B, Sq, Skv, H, KVH, hd,
-                window, causal=True):
+                window, causal=True, plain_blocks=1):
     """One bf16 prefill-attention instance timed: the kernel, its plain
     version and SDPA, beside its bound (each input read once, the output
-    written once; the flops of the (query, key) pairs the mask keeps, with
-    no window narrower than the prompt)."""
+    written once; the flops of the (query, key) pairs the mask keeps,
+    ``flash_attention_flops``).  With ``plain_blocks`` > 1 the plain
+    version runs over that many query-row blocks, each at its q_offset
+    (its whole score tensor would not fit); where the window hides keys
+    SDPA takes a boolean mask on its memory-efficient kernel (None where
+    it refuses)."""
     q, k, v = (randn((B, Sq, H, hd), torch.bfloat16),
                randn((B, Skv, KVH, hd), torch.bfloat16),
                randn((B, Skv, KVH, hd), torch.bfloat16))
     kw = dict(causal=causal, window=window)
     ms = time_ms(lambda: flash_mod.flash_attention_cuda(q, k, v, **kw), 20,
                  flush)
-    plain = time_ms(lambda: flash_mod.flash_attention_torch(q, k, v, **kw),
-                    5, flush)
+    rows = Sq // plain_blocks
+
+    def plain():
+        for r0 in range(0, Sq, rows):
+            flash_mod.flash_attention_torch(
+                q[:, r0:r0 + rows], k[:, :r0 + rows] if causal else k,
+                v[:, :r0 + rows] if causal else v, q_offset=r0, **kw)
+
+    plain_ms = time_ms(plain, 5 if plain_blocks == 1 else 2, flush)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), 20, flush)
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    flops = flash_mod.flash_attention_flops(B, Sq, Skv, H, hd, **kw)
+    if flops == flash_mod.flash_attention_flops(B, Sq, Skv, H, hd,
+                                                causal=causal):
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20, flush)
+    else:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        qp = torch.arange(Sq, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None]
+        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True), 10,
+                    flush)
+        except RuntimeError as e:
+            log(f"kernels: SDPA refused the windowed mask: {e}")
+            lib = None
+        del mask
     bound, by = _bound(2 * (2 * B * Sq * H * hd + 2 * B * Skv * KVH * hd),
-                       4 * B * H * hd * pairs, "bfloat16")
+                       flops, "bfloat16")
     return {"shape": f"q {B}x{Sq}x{H}x{hd}, kv {Skv} x {KVH} heads, "
-                     f"{'causal' if causal else 'non-causal'}, bf16",
-            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib}
+                     f"{'causal' if causal else 'non-causal'}"
+                     + (f", window {window}" if window and window < Skv
+                        else "") + ", bf16",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib}
 
 
 def phase_kernels(torch, flash_mod, paged_mod, flush):
@@ -446,7 +497,8 @@ def phase_kernels(torch, flash_mod, paged_mod, flush):
         nbytes = (2 * (2 * Bp * H * hd)               # q in, out
                   + 2 * 2 * sum(lengths) * KVH * hd   # live K and V lines
                   + 4 * Bp * mb + 4 * Bp)             # tables, lengths
-        bound, by = _bound(nbytes, 4 * H * hd * sum(lengths), "bfloat16")
+        bound, by = _bound(nbytes, paged_mod.decode_attention_flops(
+            H, hd, sum(lengths)), "bfloat16")
         return {"shape": f"{Bp} requests, lengths {lengths}, {H}/{KVH} "
                          f"heads, hd {hd}, bf16, 16-line blocks",
                 "ms": ms, "plain_ms": plain, "bound_ms": bound,
@@ -575,7 +627,8 @@ def _time_dense(torch, dense_mod, randn, flush, lengths, W, H, KVH, hd):
     nbytes = (2 * (2 * B * H * hd)                # q in, out
               + 2 * 2 * sum(lengths) * KVH * hd   # live K and V lines
               + 4 * B)                            # lengths
-    bound, by = _bound(nbytes, 4 * H * hd * sum(lengths), "bfloat16")
+    bound, by = _bound(nbytes, dense_mod.decode_attention_flops(
+        H, hd, sum(lengths)), "bfloat16")
     return {"shape": f"{B} rows, lengths {lengths}, W {W}, {H}/{KVH} heads, "
                      f"hd {hd}, bf16",
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
@@ -631,7 +684,7 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
     s_ms = time_ms(lambda: scan_mod.mamba_scan_cuda(*args), 50, flush)
     s_plain = time_ms(lambda: scan_mod.mamba_scan_torch(*args), 3, flush)
     s_bytes = 4 * (3 * B * S * C + 2 * B * S * N + C * N + C + 2 * B * C * N)
-    s_flops = B * S * C * (6 * N + 3)        # per step: 6 per state + 3
+    s_flops = scan_mod.mamba_scan_flops(B, S, C, N)
     s_exps = B * S * C * N                   # one exp per state update
     s_bound, s_by = _bound(s_bytes, s_flops, "float32",
                            _sfu_ms(s_exps, sms))
@@ -1073,7 +1126,9 @@ def _record_moves(engine_cls):
 
 
 #: scheduling steps of the cluster phase's serve that the profiler covers
-CLUSTER_WINDOW = (40, 90)
+#: the cluster phase's profiled rerun: scheduling steps [lo, hi) of the
+#: serve's first hi steps
+CLUSTER_WINDOW = (0, 30)
 
 
 def _step_clock(torch, cluster_cls, window, prof=None):
@@ -1589,16 +1644,20 @@ def phase_cluster_fleet(torch, params, measured):
     return counts
 
 
-#: cluster-prefix: the cluster stream with shared prompt heads (two
-#: system prompts, 80% of requests open with one).  A CPU rehearsal at
-#: reduced width gives 8 hits over 17 requests at this prefix length.
+#: cluster-prefix: the cluster stream's processes over the first
+#: ``PREFIX_DURATION`` iterations with shared prompt heads (two system
+#: prompts, 80% of requests open with one).  A CPU rehearsal at reduced
+#: width gives 3 hits over 12 requests, one of them a whole 256-line head
+#: (the shortest such stream from seed 0: 55 iterations give 11 requests
+#: and no whole head).
 PREFIX_REUSE = dict(pool=2, reuse=0.8, prefix_len=256)
+PREFIX_DURATION = 60.0
 
 
 def _prefix_spec(prefix_cache, **kw):
     from repro_torch.workloads import PrefixReuse
     traffic = dataclasses.replace(
-        _light(120.0), name="light-prefix",
+        _light(PREFIX_DURATION), name="light-prefix",
         prefix_reuse=PrefixReuse(**PREFIX_REUSE))
     return _cluster_spec(traffic=traffic, prefix_cache=prefix_cache, **kw)
 
@@ -1930,7 +1989,7 @@ def phase_minicpm(torch, dev, np):
         f" GB drawn in {time.perf_counter() - t0:.1f} s")
     heads, restore = _watch_heads(attention_mod)
     try:
-        counts, _, (rng, _, _, _) = _serve_six(
+        counts, per_step, (rng, _, _, _) = _serve_six(
             torch, np, cfg, params, dev, "serve-minicpm")
     finally:
         restore()
@@ -1943,6 +2002,156 @@ def phase_minicpm(torch, dev, np):
               f"not only at {w} (G 1, hd 64)")
     _decode_vs_prefill(torch, np, cfg, params, dev, rng,
                        "serve-minicpm consistency")
+    return counts, params, per_step
+
+
+def _long_decode(torch, cfg, params, logits, state, steps, dev):
+    """``steps`` greedy long-context decode steps after a
+    ``LONG_PROMPT``-token prefill; returns (tokens fed (B, steps), logits
+    after each step, wall ms per step)."""
+    from repro_torch.models import decode_step
+    toks, rows = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(steps):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        t = torch.full((tok.shape[0],), LONG_PROMPT + j, dtype=torch.int32,
+                       device=dev)
+        logits, state = decode_step(cfg, params, tok, state, t,
+                                    long_context=True)
+        rows.append(logits)
+    torch.cuda.synchronize()
+    return (torch.cat(toks, dim=1), rows,
+            (time.perf_counter() - t0) * 1e3 / steps)
+
+
+def phase_long_context(torch, dev, np, cfg, params, per_step_11, card):
+    """Phase 30: serve-minicpm's full-width bf16 weights under the
+    long-context policy: a two-request state for 524,288 tokens (a ring
+    of 8,192 lines, as many bytes as the dry run's meta build of the same
+    call), two 12,288-token prompts prefilled through the prefill kernel
+    under the 8,192-token window, then 64 greedy decode steps through the
+    dense decode kernel over the full ring, past its wrap; no plain
+    version and no paged kernel.  Then in f32 on 2 layers the same flow,
+    the decode logits at t = 12,288 + j (j = 0, 31, 63) against a fresh
+    long-context prefill over the 12,288 + j + 1 tokens within 1e-3 *
+    max|logit|; ``sample`` at T = 0 against argmax and at T = 1 with
+    top_k 40 inside each row's top 40.  Prints decode ms per step beside
+    phase 11's and the dry run's long_500k record for minicpm-2b on the
+    single mesh.  Returns the bf16 flow's kernel counts."""
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import (decode_step, init_params, init_state,
+                                    prefill)
+    from repro_torch.models.state import state_bytes
+    from repro_torch.serving import sample
+    phase = "long-context"
+    B, seq = 2, 524_288
+    meta = state_bytes(init_state(cfg, B, seq, long_context=True,
+                                  device="meta"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = init_state(cfg, B, seq, long_context=True, device=dev)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    ring = state["layers"][0]["p0"]["k"].shape[2]
+    log(f"{phase}: {cfg.name} full width, bf16: init_state({B}, {seq}, "
+        f"long_context=True): a ring of {ring} lines; the card allocated "
+        f"{allocated:,} B, the dry run's meta build of the same call "
+        f"{meta:,} B")
+    check(ring == LONG_WINDOW, f"{phase}: ring of {ring} lines, not "
+          f"{LONG_WINDOW}")
+    check(allocated == meta == state_bytes(state), f"{phase}: the card "
+          f"allocated {allocated} B for the state, the meta build {meta} B")
+
+    rng = np.random.default_rng(30)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (B, LONG_PROMPT), dtype=np.int32),
+                              device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(cfg, params, {"tokens": prompts}, state,
+                            long_context=True)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    _, rows, step_ms = _long_decode(torch, cfg, params, logits, state,
+                                    LONG_STEPS, dev)
+    counts = read_counts()
+    check(all(bool(torch.isfinite(r).all()) for r in rows),
+          f"{phase}: non-finite logits")
+    log(f"{phase}: prefill of {B} x {LONG_PROMPT} tokens {prefill_ms:.1f} ms "
+        f"({B * LONG_PROMPT / prefill_ms * 1e3:.0f} tokens/s); {LONG_STEPS} "
+        f"decode steps at {B} active over the {ring}-line ring: "
+        f"{step_ms:.3f} ms per step, against serve-minicpm's paged decode "
+        + ", ".join(f"{n} active {v:.3f}" for n, v in per_step_11.items())
+        + f" ms per step (512-line window); {card}; launches {counts}")
+    L = cfg.num_layers
+    check(counts["flash_attention"] == {"launches": L, "plain_calls": 0},
+          f"{phase}: prefill kernel {counts['flash_attention']}, want {L} "
+          f"launches and no plain call")
+    check(counts["decode_attention"] == {"launches": L * LONG_STEPS,
+                                         "plain_calls": 0},
+          f"{phase}: dense decode {counts['decode_attention']}, want "
+          f"{L * LONG_STEPS} launches and no plain call")
+    check(counts["paged_decode_attention"]["launches"] == 0
+          and all(c["plain_calls"] == 0 for c in counts.values()),
+          f"{phase}: a paged kernel or a plain version ran: {counts}")
+    # where a step's time goes: one more step, timed, then profiled
+    t_next = torch.full((B,), LONG_PROMPT + LONG_STEPS, dtype=torch.int32,
+                        device=dev)
+    tok = rows[-1].argmax(-1).to(torch.int32)[:, None]
+    step = lambda: decode_step(cfg, params, tok, state, t_next,
+                               long_context=True)
+    wall = _wall_ms(torch, step)
+    _print_breakdown({"decode 2 active over the ring": _breakdown(
+        wall, _device_profile(torch, step))}, phase)
+
+    last = rows[-1]
+    greedy = sample(last)
+    check(torch.equal(greedy, last.argmax(-1).to(torch.int32)),
+          f"{phase}: sample at T = 0 is not argmax")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    # the row's 40th largest logit: ties with it are in the top 40 too, as
+    # the mask keeps every logit not below it
+    cutoff = torch.topk(last, 40, dim=-1).values[:, -1]
+    for _ in range(16):
+        draw = sample(last, temperature=1.0, top_k=40, generator=gen)
+        check(bool((last.gather(-1, draw[:, None].long())[:, 0]
+                    >= cutoff).all()),
+              f"{phase}: a top_k 40 draw fell outside its row's top 40")
+    log(f"{phase}: sample at T = 0 equals argmax; 16 draws at T = 1, top_k "
+        f"40 each inside its row's top 40 (at or above its 40th largest "
+        f"logit)")
+    del state, rows, logits
+
+    # -- f32, 2 layers: decode against a fresh long-context prefill -------------
+    cfg32 = _depth_cut(cfg, 2, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(31),
+                           device=dev)
+    state = init_state(cfg32, 1, seq, long_context=True, device=dev)
+    logits, state = prefill(cfg32, params32, {"tokens": prompts[:1]}, state,
+                            long_context=True)
+    toks, rows, _ = _long_decode(torch, cfg32, params32, logits, state,
+                                 LONG_STEPS, dev)
+    for j in (0, 31, 63):
+        seq_j = torch.cat([prompts[:1], toks[:, :j + 1]], dim=1)
+        fresh, _ = prefill(cfg32, params32, {"tokens": seq_j},
+                           init_state(cfg32, 1, seq, long_context=True,
+                                      device=dev), long_context=True)
+        err, scale = max_err(rows[j], fresh), float(fresh.abs().max())
+        log(f"{phase}: f32, 2 layers, t = {LONG_PROMPT} + {j}: max |decode - "
+            f"prefill over {seq_j.shape[1]} tokens| {err:.3e}, max |logit| "
+            f"{scale:.3f}, ratio {err / scale:.3e} (limit 1e-3)")
+        check(err <= 1e-3 * scale, f"{phase}: f32 t = {LONG_PROMPT} + {j} "
+              f"differs by {err} against max logit {scale}")
+    del params32, state, rows
+
+    rec = dryrun.run_one("minicpm-2b", "long_500k", False, save_trace=False)
+    log(f"{phase}: the dry run's long_500k record for minicpm-2b on the "
+        f"single mesh (meta device, on the host): {json.dumps(rec)}")
+    check(rec["ok"], f"{phase}: the dry run failed: {rec.get('error')}")
     return counts
 
 
@@ -2837,6 +3046,109 @@ def phase_encdec_kernels(torch, flash_mod, dense_mod, flush):
     return (flash_err, flash_inst), (dense_err, dense_inst)
 
 
+#: long-context (phase 30): minicpm-2b's ring and the prompts it serves
+LONG_WINDOW = 8_192
+LONG_PROMPT = 12_288
+LONG_STEPS = 64
+
+
+def _row_ratio(out, exp):
+    """(worst ratio, max abs error) of ``out`` against ``exp`` row by row,
+    a row being everything but the last two dims (heads, hd): each row's
+    max abs error over its scale, max |exp| in that row.  A row whose
+    expected values are all 0 must come out exactly 0 (ratio inf else)."""
+    err = (out.float() - exp.float()).abs().flatten(0, -3).flatten(1)
+    row_err = err.amax(dim=1)
+    scale = exp.float().abs().flatten(0, -3).flatten(1).amax(dim=1)
+    zero = scale == 0
+    ratio = (row_err / scale.masked_fill(zero, 1.0)).masked_fill(
+        zero, 0.0).masked_fill(zero & (row_err > 0), float("inf"))
+    return float(ratio.max()), float(row_err.max())
+
+
+def phase_long_kernels(torch, flash_mod, dense_mod, flush):
+    """The prefill and dense decode kernels at the long-context path's
+    shapes (minicpm-2b: 36/36 heads, hd 64) against their plain versions:
+    the prefill kernel causal under an 8,192-token window over a
+    12,288-token prompt, every one of its rows checked, in twelve
+    1,024-row blocks against the plain version at each block's q_offset
+    over the keys its window reaches; dense decode over an 8,192-line ring
+    at lengths on each side of a split boundary and full.  bf16 (the
+    tensor-core kernels the served path launches) is held row by row to
+    1e-2 x the row's max |expected|, the expected values being the plain
+    version's in f32 on the same bf16 values (a row that sees 8,192 keys
+    has values ~0.02, so an absolute limit would not see a dropped tile);
+    f32 to 1e-4 max abs.  Returns ((flash max err, timed instances),
+    (dense max err, timed instances))."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rel_tol, f32_tol, blk = 1e-2, 1e-4, 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    H, hd, S, W = 36, 64, LONG_PROMPT, LONG_WINDOW
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def held(out, exp, dtype, what):
+        """Checks ``out`` against ``exp`` (f32) by ``dtype``'s rule and
+        returns its max abs error."""
+        ratio, err = _row_ratio(out, exp)
+        if dtype == torch.bfloat16:
+            log(f"{what} bf16: max_abs_err {err:.3e}, worst row err / row "
+                f"max|exp| {ratio:.3e} (tol {rel_tol:.0e})")
+            check(ratio <= rel_tol, f"{what} bf16: a row's error is "
+                  f"{ratio} x its max |expected|, above {rel_tol}")
+        else:
+            log(f"{what} f32: max_abs_err {err:.3e} (tol {f32_tol:.0e})")
+            check(err <= f32_tol, f"{what} f32: error {err} above {f32_tol}")
+        return err
+
+    flash_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (randn((1, S, H, hd), dtype) for _ in range(3))
+        out = flash_mod.flash_attention_cuda(q, k, v, causal=True, window=W)
+        torch.cuda.synchronize()
+        errs = []
+        for r0 in range(0, S, blk):
+            k0 = max(0, r0 - W + 1)
+            exp = flash_mod.flash_attention_torch(
+                q[:, r0:r0 + blk].float(), k[:, k0:r0 + blk].float(),
+                v[:, k0:r0 + blk].float(), causal=True, window=W,
+                q_offset=r0 - k0)
+            errs.append(held(out[:, r0:r0 + blk], exp, dtype,
+                             f"kernels: flash_attention minicpm-2b long "
+                             f"context: q rows {r0}-{r0 + blk - 1} of 1 x "
+                             f"{S}, window {W}, 36/36 heads, hd 64"))
+            del exp
+        flash_err = max(flash_err, *errs)
+        del q, k, v, out
+    flash_inst = {"minicpm-2b long context, window 8192": _time_flash(
+        torch, flash_mod, randn, flush, 2, S, S, H, H, hd, W,
+        plain_blocks=12)}
+
+    splits, chunk = dense_mod.split_plan(2, H, 1, W, sms)
+    dense_err = 0.0
+    for lengths in ([W, W], [1, W - 1], [chunk - 1, chunk + 1], [0, W]):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (randn((2, 1, H, hd), dtype), randn((2, W, H, hd), dtype),
+                    randn((2, W, H, hd), dtype),
+                    torch.tensor(lengths, dtype=torch.int32, device=dev))
+            out = dense_mod.decode_attention_cuda(*args)
+            exp = dense_mod.decode_attention_torch(
+                *(a.float() for a in args[:3]), args[3])
+            torch.cuda.synchronize()
+            dense_err = max(dense_err, held(
+                out, exp, dtype, f"kernels: decode_attention minicpm-2b "
+                f"ring: 2 rows, 36/36 heads, hd 64, W {W}, {splits} splits "
+                f"of {chunk} lines, lengths {lengths}"))
+            if lengths[0] == 0:
+                check(float(out[0].abs().max()) == 0.0,
+                      "decode_attention: a length-0 row must give 0")
+    dense_inst = {"minicpm-2b ring W 8192": _time_dense(
+        torch, dense_mod, randn, flush, [W, W], W, H, H, hd)}
+    return (flash_err, flash_inst), (dense_err, dense_inst)
+
+
 def _check_modes(heads, want, phase):
     """The prefill kernel ran at ``want`` heads both causal and not (an
     encoder and a decoder), or causal only when ``want`` says so; the dense
@@ -3471,6 +3783,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
@@ -3512,9 +3825,11 @@ def main() -> int:
     kernels = phase_kernels(torch, flash_mod, decode_mod, flush)
     kernels += phase_hybrid_kernels(torch, decode_mod, scan_mod, flush)
     by_name = {r["name"]: r for r in kernels}
-    for name, (err, inst) in zip(
-            ("flash_attention", "decode_attention"),
-            phase_encdec_kernels(torch, flash_mod, decode_mod, flush)):
+    for name, (err, inst) in [
+            *zip(("flash_attention", "decode_attention"),
+                 phase_encdec_kernels(torch, flash_mod, decode_mod, flush)),
+            *zip(("flash_attention", "decode_attention"),
+                 phase_long_kernels(torch, flash_mod, decode_mod, flush))]:
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
         by_name[name]["instances"].update(inst)
     _log_records(kernels, "scaled_dot_product_attention")
@@ -3533,8 +3848,12 @@ def main() -> int:
     phase_cluster_consistency(torch, np)
     _free(torch)
     log(f"chip_smoke: cluster phases {time.perf_counter() - t0:.1f} s")
-    # -- 11. serve-minicpm -------------------------------------------------------
-    paths["serve-minicpm"] = phase_minicpm(torch, dev, np)
+    # -- 11. serve-minicpm, then 30. long-context on its weights --------------
+    paths["serve-minicpm"], params, per_step_11 = phase_minicpm(torch, dev,
+                                                                np)
+    paths["long-context"] = phase_long_context(
+        torch, dev, np, get_config("minicpm-2b"), params, per_step_11, card)
+    del params
     _free(torch)
     # -- 12. sim-calibration (host only) ------------------------------------------
     phase_sim_calibration(measured, per_step[8])

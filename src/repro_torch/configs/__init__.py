@@ -13,7 +13,8 @@ from __future__ import annotations
 from typing import List
 
 from repro_torch.configs.arctic_480b import CONFIG as _ARCTIC_480B
-from repro_torch.configs.base import ModelConfig  # noqa: F401  (re-exported)
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    INPUT_SHAPES, InputShape, ModelConfig)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _DEEPSEEK_V3_671B
 from repro_torch.configs.internvl2_1b import CONFIG as _INTERNVL2_1B
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as _JAMBA_1_5_LARGE

@@ -27,7 +27,11 @@ its plain version and ``scaled_dot_product_attention``.
 the entry points the model calls.  On CUDA tensors they launch the kernel
 or raise; on CPU tensors, and only there, they run the plain version.
 ``counts`` records, per kernel, launches (one per wrapper call, the dense
-kernel's two passes included) and plain-version calls.
+kernel's two passes included) and plain-version calls.  On meta tensors
+(the dry run) they return an empty output of the kernel's shape and
+credit :func:`decode_attention_flops` over every line of the cache or the
+table (a meta tensor carries no lengths) to the active counter of
+:mod:`repro_torch.core.opcount`, launching nothing and counting nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.core import opcount as count
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -164,6 +169,13 @@ def decode_attention_torch(q: torch.Tensor, k_cache: torch.Tensor,
                    scale)
 
 
+def decode_attention_flops(H: int, hd: int, lines: int) -> int:
+    """Either decode kernel's operations: both products over ``lines``
+    live K/V lines summed over the batch, 2 * hd multiply-adds each, for
+    every query head."""
+    return 4 * H * hd * lines
+
+
 @functools.lru_cache(maxsize=None)
 def split_plan(B: int, KVH: int, G: int, W: int, sm_count: int,
                heads_per_block: int = HEADS_PER_BLOCK) -> Tuple[int, int]:
@@ -216,6 +228,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_torch(q, k_cache, v_cache, lengths,
                                       scale=scale)
+    if q.is_meta:
+        count.credit("kernel:decode_attention", decode_attention_flops(
+            q.shape[-2], q.shape[-1], q.shape[0] * k_cache.shape[1]))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no decode kernel for device {q.device}")
     B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
@@ -305,6 +321,12 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_torch(q, k_pool, v_pool, block_tables,
                                             lengths, scale=scale)
+    if q.is_meta:
+        lines = block_tables.shape[0] * block_tables.shape[1] \
+            * k_pool.shape[1]
+        count.credit("kernel:paged_decode_attention", decode_attention_flops(
+            q.shape[-2], q.shape[-1], lines))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no paged decode kernel for device {q.device}")
     B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]

@@ -27,7 +27,10 @@ bound and what holds the kernel back.
 :func:`flash_attention_cuda` is the entry point the model calls.  On a
 CUDA tensor it launches the kernel or raises; on a CPU tensor, and only
 there, it runs :func:`flash_attention_torch`.  ``counts`` records kernel
-launches and plain-version calls, so a run can show which one ran.
+launches and plain-version calls, so a run can show which one ran.  On
+a meta tensor (the dry run) it returns an empty output of the kernel's
+shape and credits :func:`flash_attention_flops` to the active counter of
+:mod:`repro_torch.core.opcount`, launching nothing and counting nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.core import opcount as count
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,6 +82,27 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bkgqc,bckd->bkgqd", p, v.float())
     o = o / p.sum(dim=-1).clamp_min(1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def visible_pairs(Sq: int, Skv: int, *, causal: bool = True,
+                  window: Optional[int] = None, q_offset: int = 0) -> int:
+    """(query, key) pairs the mask keeps: query row i at absolute position
+    p = q_offset + i sees keys j <= p (causal) with p - j < window."""
+    p = q_offset + torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(p, max=Skv - 1) if causal else torch.full_like(
+        p, Skv - 1)
+    lo = (torch.clamp(p - window + 1, min=0) if window is not None
+          else torch.zeros_like(p))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def flash_attention_flops(B: int, Sq: int, Skv: int, H: int, hd: int, *,
+                          causal: bool = True, window: Optional[int] = None,
+                          q_offset: int = 0) -> int:
+    """The kernel's operations: both products over the visible pairs,
+    2 * hd multiply-adds each, for every head."""
+    return 4 * B * H * hd * visible_pairs(Sq, Skv, causal=causal,
+                                          window=window, q_offset=q_offset)
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,6 +153,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, scale=scale,
                                      window=window, q_offset=q_offset)
+    if q.is_meta:
+        B, Sq, H, hd = q.shape
+        count.credit("kernel:flash_attention", flash_attention_flops(
+            B, Sq, k.shape[1], H, hd, causal=causal, window=window,
+            q_offset=q_offset))
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     B, Sq, H, hd = q.shape

@@ -21,7 +21,10 @@ any C).
 :func:`mamba_scan_cuda` is the entry point the model calls.  On CUDA
 tensors it launches the kernel or raises; on CPU tensors, and only there,
 it runs :func:`mamba_scan_torch`.  ``counts`` records kernel launches and
-plain-version calls.
+plain-version calls.  On meta tensors (the dry run) it returns empty
+outputs of the kernel's shapes and credits :func:`mamba_scan_flops` to the
+active counter of :mod:`repro_torch.core.opcount`, launching nothing and
+counting nothing.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.core import opcount as count
 
 STATE_DIMS = (8, 16)
 
@@ -60,6 +64,13 @@ def mamba_scan_torch(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
         ys.append(torch.einsum("bcn,bn->bc", h, c_ssm[:, t]) + d * x_t)
     y = torch.stack(ys, 1) if ys else x.new_zeros(x.shape)
     return y, h
+
+
+def mamba_scan_flops(B: int, S: int, C: int, N: int) -> int:
+    """The kernel's operations: per step and channel, 6 for each of the N
+    states and 3 more; the B * S * C * N exponentials, which the
+    special-function units run, are priced apart by the bound."""
+    return B * S * C * (6 * N + 3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,6 +117,10 @@ def mamba_scan_cuda(x: torch.Tensor, dt: torch.Tensor, b_ssm: torch.Tensor,
     build.refuse_grad("mamba_scan", x, dt, b_ssm, c_ssm, a, d, h0)
     if x.device.type == "cpu":
         return mamba_scan_torch(x, dt, b_ssm, c_ssm, a, d, h0)
+    if x.is_meta:
+        count.credit("kernel:mamba_scan", mamba_scan_flops(
+            *x.shape, a.shape[1]))
+        return torch.empty_like(x), torch.empty_like(h0)
     if x.device.type != "cuda":
         raise ValueError(f"no selective-scan kernel for device {x.device}")
     B, S, C = x.shape

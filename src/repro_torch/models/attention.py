@@ -49,6 +49,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.core import opcount as count
 
 Clock = Union[int, torch.Tensor]
 
@@ -104,29 +105,44 @@ def flash_attention(
             blk = blk.repeat_interleave(G, dim=2)
         return blk.transpose(1, 2)
 
-    def q_block(i: int, kv_lo: int, kv_hi: int) -> torch.Tensor:
+    def kv_step(j: int, carry, qb, k, v, qp):
+        m, l, acc = carry
+        s = (qb @ kv_block(k, j).transpose(-1, -2)) * scale
+        kp = j * kc + arange_k
+        mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qp[:, None] >= kp[None, :]
+        if window is not None:
+            mask &= qp[:, None] - kp[None, :] < window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ kv_block(v, j)
+        return (m_new, l, acc), None
+
+    def q_block(i: int, q, k, v, kv_lo: int, kv_hi: int) -> torch.Tensor:
         qb = q[:, i * qc: (i + 1) * qc].float().transpose(1, 2)
         qp = q_offset + i * qc + arange_q
         m = torch.full((B, H, qc), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, H, qc, dv), dtype=torch.float32, device=dev)
-        for j in range(kv_lo, kv_hi):
-            s = (qb @ kv_block(k, j).transpose(-1, -2)) * scale
-            kp = j * kc + arange_k
-            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= qp[:, None] >= kp[None, :]
-            if window is not None:
-                mask &= qp[:, None] - kp[None, :] < window
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + p @ kv_block(v, j)
-            m = m_new
+        (m, l, acc), _ = count.steps(
+            "attention.kv_blocks", kv_hi - kv_lo,
+            lambda jj, carry, qb, k, v: kv_step(kv_lo + jj, carry, qb, k, v,
+                                                qp),
+            (m, l, acc), qb, k, v)
         out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B, H, qc, dv)
         return out.transpose(1, 2)                          # (B, qc, H, dv)
+
+    def q_blocks(i0: int, i1: int, kv_lo: int, kv_hi: int):
+        _, outs = count.steps(
+            "attention.q_blocks", i1 - i0,
+            lambda ii, carry, q, k, v: (carry, q_block(i0 + ii, q, k, v,
+                                                       kv_lo, kv_hi)),
+            None, q, k, v)
+        return outs
 
     outs = []
     if causal and nq > 1:
@@ -138,9 +154,9 @@ def flash_attention(
             kv_lo = 0
             if window is not None:
                 kv_lo = max(0, (q_offset + b0 * qc - window + 1) // kc)
-            outs += [q_block(i, kv_lo, kv_hi) for i in range(b0, b1)]
+            outs += q_blocks(b0, b1, kv_lo, kv_hi)
     else:
-        outs = [q_block(i, 0, nk) for i in range(nq)]
+        outs = q_blocks(0, nq, 0, nk)
     return torch.cat(outs, dim=1).to(q.dtype)
 
 

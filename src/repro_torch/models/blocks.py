@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import opcount
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (attention_forward,
@@ -207,7 +208,8 @@ def apply_segment(cfg: ModelConfig, seg: Segment, params, x: torch.Tensor,
     for r, lp in enumerate(_repeats(params, seg.repeats)):
         args = (x, aux, lp,
                 _at(seg_state, r) if seg_state is not None else None)
-        x, aux = (checkpoint(body, *args, use_reentrant=False) if remat
+        x, aux = (checkpoint(body, *args, use_reentrant=False,
+                             context_fn=opcount.remat_contexts) if remat
                   else body(*args))
     return x, aux
 
@@ -225,8 +227,9 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, device,
 
 def init_stack_state(cfg: ModelConfig, segs: List[Segment], batch: int,
                      seq_len: int, dtype, device,
-                     cross_len: Optional[int] = None):
-    cap = cache_capacity(cfg, seq_len)
+                     cross_len: Optional[int] = None,
+                     long_context: bool = False):
+    cap = cache_capacity(cfg, seq_len, long_context)
     return [init_segment_state(cfg, s, batch, cap, dtype, device, cross_len)
             for s in segs]
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.models.common import dense_init
+from repro_torch.core import opcount as count
 
 
 def _dims(cfg: ModelConfig):
@@ -117,11 +118,11 @@ def mamba_forward(
               else torch.zeros((B, d_in, mc.d_state), dtype=torch.float32,
                                device=x.device))
         if train:
-            hT, ys = h0, []
-            for t in range(S):
-                hT, y_t = _ssm_step(A, D, hT, x_c[:, t], dt[:, t],
-                                    b_ssm[:, t], c_ssm[:, t])
-                ys.append(y_t)
+            hT, ys = count.steps(
+                "mamba.ssm_steps", S,
+                lambda t, h, A, D, x_c, dt, b_ssm, c_ssm: _ssm_step(
+                    A, D, h, x_c[:, t], dt[:, t], b_ssm[:, t], c_ssm[:, t]),
+                h0, A, D, x_c, dt, b_ssm, c_ssm)
             y = torch.stack(ys, 1)                           # (B, S, d_in)
         else:
             y, hT = mamba_scan_cuda(x_c.contiguous(), dt.contiguous(),

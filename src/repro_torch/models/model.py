@@ -5,7 +5,7 @@ Functional API on nested-dict params, mirroring the JAX package's:
   init_params(cfg, generator, device)                  -> params
   forward_train(cfg, params, batch, remat)             -> (logits, aux_loss)
   forward_mtp(cfg, params, batch)                      -> mtp logits
-  init_state(cfg, batch, seq_len, device)             -> serving state
+  init_state(cfg, batch, seq_len, long_context)        -> serving state
   prefill(cfg, params, batch, state)                   -> (last_logits, state)
   prefill_batched(cfg, params, tokens, state, lengths) -> (logits, state)
   prefill_chunk(cfg, params, tokens, state, history)   -> (logits, state)
@@ -258,31 +258,35 @@ def forward_mtp(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
 
 
 def init_state(cfg: ModelConfig, batch: int, seq_len: int,
-               device: Device = "cuda"):
+               long_context: bool = False, device: Device = "cuda"):
     """Serving state for ``batch`` requests of up to ``seq_len`` lines; an
     enc-dec model's also holds the encoder memory ``enc_out`` (batch,
-    max_source_positions, D) and each decoder layer's cross K/V."""
+    max_source_positions, D) and each decoder layer's cross K/V.  With
+    ``long_context`` the attention caches are the long-context policy's
+    rings (:func:`repro_torch.models.state.cache_capacity`); the steps
+    that run on such a state take ``long_context=True`` too."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     cross_len = (cfg.encoder.max_source_positions
                  if cfg.is_encoder_decoder else None)
     state: Dict[str, Any] = {"layers": init_stack_state(
-        cfg, _segs(cfg), batch, seq_len, dtype, dev, cross_len=cross_len)}
+        cfg, _segs(cfg), batch, seq_len, dtype, dev, cross_len=cross_len,
+        long_context=long_context)}
     if cfg.is_encoder_decoder:
         state["enc_out"] = torch.zeros((batch, cross_len, cfg.d_model),
                                        dtype=dtype, device=dev)
     return state
 
 
-def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], state
-            ) -> Tuple[torch.Tensor, Any]:
+def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], state,
+            long_context: bool = False) -> Tuple[torch.Tensor, Any]:
     """Process the prompt, fill the caches, return last-token logits.  An
     enc-dec batch's ``frames`` are encoded first, into the state's
     ``enc_out``, and every decoder layer projects its cross K/V from them;
     a VLM batch's ``patch_embeds`` lead the sequence, so P + S rows of each
     cache are written."""
     ctx = {"mode": "full", "update_cache": True, "t": 0,
-           "window": cfg.sliding_window}
+           "window": _window(cfg, long_context)}
     if cfg.is_encoder_decoder:
         enc_out = _encode(cfg, params, batch["frames"])
         if enc_out.shape != state["enc_out"].shape:
@@ -303,7 +307,8 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], state
 
 
 def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor, state,
-                    lengths: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+                    lengths: torch.Tensor, long_context: bool = False
+                    ) -> Tuple[torch.Tensor, Any]:
     """Right-padded multi-prompt prefill: ``tokens`` (B, L) with each row's
     true length in ``lengths`` (B,); returns per-row logits at the last
     *real* token and the filled caches.  Padded positions write garbage
@@ -313,7 +318,7 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     positions = torch.arange(S, device=tokens.device)
     x = _embed_tokens(cfg, params, tokens, positions)
     ctx = {"mode": "full", "positions": positions, "update_cache": True,
-           "t": 0, "window": cfg.sliding_window}
+           "t": 0, "window": _window(cfg, long_context)}
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
                        state["layers"], ctx)
     last = x[torch.arange(B, device=x.device), lengths.long() - 1]
@@ -322,7 +327,8 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor, state,
 
 
 def prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, state,
-                  history: int) -> Tuple[torch.Tensor, Any]:
+                  history: int, long_context: bool = False
+                  ) -> Tuple[torch.Tensor, Any]:
     """Resumable chunked prefill: process ``tokens`` (B, C) at absolute
     positions ``[history, history + C)`` against a cache whose first
     ``history`` rows earlier chunks filled.  Returns logits at the chunk's
@@ -332,7 +338,8 @@ def prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     positions = history + torch.arange(C, device=tokens.device)
     x = _embed_tokens(cfg, params, tokens, positions)
     ctx = {"mode": "full", "positions": positions, "update_cache": True,
-           "t": history, "window": cfg.sliding_window, "history": history}
+           "t": history, "window": _window(cfg, long_context),
+           "history": history}
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
                        state["layers"], ctx)
     x = rms_norm(x[:, -1], params["final_norm"], cfg.rms_norm_eps)
@@ -340,7 +347,8 @@ def prefill_chunk(cfg: ModelConfig, params, tokens: torch.Tensor, state,
 
 
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,
-                t: torch.Tensor, paged: Optional[PagedDecode] = None
+                t: torch.Tensor, long_context: bool = False,
+                paged: Optional[PagedDecode] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode step: tokens (B, 1) at clock t (scalar or (B,)) ->
     (logits (B, V), state).  With ``paged`` the batch is compacted and
@@ -350,7 +358,7 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,
            else t[:, None] + torch.arange(1, device=t.device)[None])
     x = _embed_tokens(cfg, params, tokens, pos)
     ctx = {"mode": "decode", "positions": pos, "update_cache": True, "t": t,
-           "window": cfg.sliding_window, "paged": paged}
+           "window": _window(cfg, long_context), "paged": paged}
     if cfg.is_encoder_decoder:
         ctx["enc_out"] = state["enc_out"]
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
@@ -361,13 +369,15 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, state,
 
 def decode_step_paged(cfg: ModelConfig, params, tokens: torch.Tensor, state,
                       t: torch.Tensor, slots: torch.Tensor,
-                      tables: torch.Tensor, block_lines: int
+                      tables: torch.Tensor, block_lines: int,
+                      long_context: bool = False
                       ) -> Tuple[torch.Tensor, Any]:
     """One *compacted, paged* decode step: ``tokens`` (Bc, 1) / ``t`` (Bc,)
     cover only the active primary slots; ``slots`` (Bc,) names each row's
     slot in the full cache, ``tables`` (Bc, max_blocks) its physical line
     blocks in the pool view."""
     return decode_step(cfg, params, tokens, state, t,
+                       long_context=long_context,
                        paged=PagedDecode(slots, tables, block_lines))
 
 
@@ -375,7 +385,8 @@ def decode_multi(cfg: ModelConfig, params, tokens: torch.Tensor, state,
                  t: torch.Tensor, slots: torch.Tensor, tables: torch.Tensor,
                  budget: torch.Tensor, *, steps: int, block_lines: int,
                  temperature: float = 0.0,
-                 noise: Optional[torch.Tensor] = None, eos_token: int = -1
+                 noise: Optional[torch.Tensor] = None, eos_token: int = -1,
+                 long_context: bool = False
                  ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Fused multi-step paged decode: ``steps`` iterations of
     :func:`decode_step_paged` with on-device sampling and EOS / budget
@@ -398,7 +409,8 @@ def decode_multi(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     outs = []
     for i in range(steps):
         logits, state = decode_step_paged(cfg, params, toks, state, tt, slots,
-                                          tables, block_lines)
+                                          tables, block_lines,
+                                          long_context=long_context)
         nxt = sample_slots(logits, slots, temperature,
                            None if noise is None else noise[i])
         nxt = torch.where(alive, nxt, toks[:, 0])
@@ -408,3 +420,14 @@ def decode_multi(cfg: ModelConfig, params, tokens: torch.Tensor, state,
         toks = nxt[:, None]
         outs.append(nxt)
     return torch.stack(outs), state, emitted
+
+
+def _window(cfg: ModelConfig, long_context: bool) -> Optional[int]:
+    """The attention window of a serving step: the config's sliding window,
+    or under the long-context policy the ring's (none for the hybrid
+    stack, which keeps full KV)."""
+    if long_context:
+        if cfg.family == "hybrid":
+            return None
+        return cfg.sliding_window or cfg.long_context_window
+    return cfg.sliding_window

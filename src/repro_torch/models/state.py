@@ -28,12 +28,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 
-def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
-    """KV capacity for attention layers: the sliding window when it is
-    shorter than ``seq_len`` (a ring buffer), else full ``seq_len``."""
-    if cfg.sliding_window is not None and seq_len > cfg.sliding_window:
-        return cfg.sliding_window
-    return seq_len
+def cache_capacity(cfg: ModelConfig, seq_len: int,
+                   long_context: bool = False) -> int:
+    """KV capacity for attention layers: a ring buffer of the sliding
+    window when it is shorter than ``seq_len``, else full ``seq_len``.
+    Under the long-context policy every family but the hybrid keeps a ring
+    of ``sliding_window or long_context_window`` lines; the hybrid stack
+    (Jamba, whose few attention layers make it affordable) keeps full KV,
+    which the dry run shards over the data axis."""
+    if not long_context:
+        if cfg.sliding_window is not None and seq_len > cfg.sliding_window:
+            return cfg.sliding_window
+        return seq_len
+    if cfg.family == "hybrid":
+        return seq_len
+    return min(cfg.sliding_window or cfg.long_context_window, seq_len)
 
 
 def init_attn_kv(cfg: ModelConfig, repeats: int, batch: int, capacity: int,

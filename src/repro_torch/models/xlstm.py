@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, gelu
 from repro_torch.models.state import xlstm_dims
+from repro_torch.core import opcount as count
 
 #: chunk length of the chunkwise-parallel mLSTM
 MLSTM_CHUNK = 64
@@ -134,11 +135,12 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, carry0, chunk: int):
     stepwise decode.  q/k/v (B, S, H, hd) f32; i_pre/f_pre (B, S, H);
     carry0 (C, n, m).  Returns (carry, h (B, S, H, hd))."""
     L = chunk
-    C, n, m_c = carry0
     causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                    device=q.device))[None, :, :, None]
-    hs = []
-    for c0 in range(0, q.shape[1], L):
+
+    def chunk_step(ci: int, carry, q, k, v, i_pre, f_pre):
+        C, n, m_c = carry
+        c0 = ci * L
         qc, kc, vc, ic, fc = (t[:, c0: c0 + L]
                               for t in (q, k, v, i_pre, f_pre))
         b = torch.cumsum(fc, dim=1)                 # (B, L, H) log-decay
@@ -159,7 +161,7 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, carry0, chunk: int):
         n_comb = n[:, None] * inter_scale[..., None] + intra_n
         den = torch.maximum(torch.einsum("blhd,blhd->blh", qc, n_comb).abs(),
                             torch.exp(-m_t))
-        hs.append((inter_num + intra_num) / den[..., None])
+        h_c = (inter_num + intra_num) / den[..., None]
         # chunk-end state update
         m_new = b_last + torch.maximum(m_c, M[:, -1])
         w = torch.exp(a + (b_last - m_new)[:, None])          # (B, L, H)
@@ -167,8 +169,11 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, carry0, chunk: int):
         C = C * decay[..., None, None] + torch.einsum(
             "blhd,blhv->bhdv", kc * w[..., None], vc)
         n = n * decay[..., None] + torch.einsum("blh,blhd->bhd", w, kc)
-        m_c = m_new
-    return (C, n, m_c), torch.cat(hs, dim=1)
+        return (C, n, m_new), h_c
+
+    carry, hs = count.steps("xlstm.mlstm_chunks", -(-q.shape[1] // L),
+                            chunk_step, carry0, q, k, v, i_pre, f_pre)
+    return carry, torch.cat(hs, dim=1)
 
 
 def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
@@ -192,11 +197,12 @@ def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
             carry, h_seq = _mlstm_chunkwise(q, k, v, i_pre, f_pre, carry0,
                                             MLSTM_CHUNK)
         else:
-            carry, hs = carry0, []
-            for s in range(S):
-                carry, h_t = _mlstm_step(q[:, s], k[:, s], v[:, s],
-                                         i_pre[:, s], f_pre[:, s], carry)
-                hs.append(h_t)
+            carry, hs = count.steps(
+                "xlstm.mlstm_steps", S,
+                lambda s, carry, q, k, v, i_pre, f_pre: _mlstm_step(
+                    q[:, s], k[:, s], v[:, s], i_pre[:, s], f_pre[:, s],
+                    carry),
+                carry0, q, k, v, i_pre, f_pre)
             h_seq = torch.stack(hs, dim=1)                # (B, S, H, hd)
         if update_cache and state is not None:
             ks = cfg.xlstm.conv1d_kernel_size
@@ -283,11 +289,11 @@ def slstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
         carry = (z, z, z, z)
 
     if mode == "full":
-        hs = []
-        for s in range(S):
-            carry, h_t = _slstm_step(cfg, rec_w, params["b"], x_pre[:, s],
-                                     carry)
-            hs.append(h_t)
+        carry, hs = count.steps(
+            "xlstm.slstm_steps", S,
+            lambda s, carry, x_pre, rec_w, bias: _slstm_step(
+                cfg, rec_w, bias, x_pre[:, s], carry),
+            carry, x_pre, rec_w, params["b"])
         h_seq = torch.stack(hs, dim=1)
         if update_cache and state is not None:
             _write_state(state, keys, carry)

@@ -21,6 +21,34 @@ from typing import Optional
 import torch
 
 
+def sample(logits: torch.Tensor, temperature: float = 0.0, top_k: int = 0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """logits (B, V) -> (B,) int32, one draw for the whole batch: the
+    tokens depend on the batch's composition, so prefer
+    :func:`sample_slots` wherever a batch can be compacted.  Greedy at
+    temperature 0; otherwise Gumbel-max over the logits / temperature,
+    with the noise drawn from ``generator``, and with ``top_k`` every logit
+    below the row's k-th largest masked first."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    z = top_k_mask(logits.float() / temperature, top_k)
+    u = torch.rand(z.shape, generator=generator, device=z.device,
+                   dtype=torch.float32)
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.argmax(z - torch.log(-torch.log(u.clamp_min(tiny))),
+                        dim=-1).to(torch.int32)
+
+
+def top_k_mask(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The logits with every entry below its row's ``top_k``-th largest set
+    to -1e30, as the JAX package's ``sample`` masks them (0: no mask)."""
+    if not top_k:
+        return logits
+    cutoff = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+    return torch.where(logits < cutoff, torch.full_like(logits, -1e30),
+                       logits)
+
+
 def sample_slots(logits: torch.Tensor, slots: torch.Tensor,
                  temperature: float = 0.0,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:

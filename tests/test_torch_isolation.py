@@ -53,12 +53,20 @@ def test_every_module_imports_without_jax_or_repro():
                                     "repro_torch.meshserve",
                                     "repro_torch.meshserve.world",
                                     "repro_torch.sharding",
-                                    "repro_torch.launch.specs"])
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.quickstart",
+                                    "repro_torch.launch.serve_cluster",
+                                    "repro_torch.roofline",
+                                    "repro_torch.core.opcount",
+                                    "repro_torch.roofline.analysis",
+                                    "repro_torch.roofline.report"])
 def test_fleet_sim_and_launch_import_alone(module):
     """The fleet layer, the simulator, the launchers, the simulator's
     store, the prefix cache, the scale layer (whose kernels the registry
-    imports) and the training substrate import on their own without JAX
-    or the JAX package."""
+    imports), the training substrate, the dry run and the roofline import
+    on their own without JAX or the JAX package."""
     assert module in _modules()
     code = (
         "import importlib, sys\n"

@@ -235,11 +235,35 @@ def test_wrappers_take_plain_version_on_cpu_only():
                                                 "plain_calls": 1}
     # a device with no kernel and no plain path raises, never falls back
     with pytest.raises(ValueError):
-        flash_attention_cuda(q.to("meta"), kv.to("meta"), kv.to("meta"))
+        flash_attention_cuda(*_kernelless(q, kv, kv))
     with pytest.raises(ValueError):
-        paged_decode_attention_cuda(pq.to("meta"), pool.to("meta"),
-                                    pool.to("meta"), tables.to("meta"),
-                                    lengths.to("meta"))
+        paged_decode_attention_cuda(*_kernelless(pq, pool, pool, tables,
+                                                 lengths))
+    # the meta device (the dry run) gets an empty output and no plain call
+    _meta_runs_no_plain_version(
+        lambda: flash_attention_cuda(q.to("meta"), kv.to("meta"),
+                                     kv.to("meta")),
+        lambda: paged_decode_attention_cuda(
+            pq.to("meta"), pool.to("meta"), pool.to("meta"),
+            tables.to("meta"), lengths.to("meta")))
+
+
+def _kernelless(*tensors):
+    """The tensors as fake tensors on a device type that has no kernel
+    and no plain version (``xpu``)."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    mode = FakeTensorMode()
+    return [FakeTensor(mode, t.to("meta"), torch.device("xpu"))
+            for t in tensors]
+
+
+def _meta_runs_no_plain_version(*calls):
+    before = read_counts()
+    for call in calls:
+        out = call()
+        for t in out if isinstance(out, tuple) else (out,):
+            assert t.is_meta
+    assert read_counts() == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "contiguous", "heads"])
@@ -727,7 +751,10 @@ def test_new_wrappers_take_plain_version_on_cpu_only():
     assert counts["paged_decode_attention"] == {"launches": 0,
                                                 "plain_calls": 0}
     with pytest.raises(ValueError):
-        decode_attention_cuda(q.to("meta"), kc.to("meta"), kc.to("meta"),
-                              lengths.to("meta"))
+        decode_attention_cuda(*_kernelless(q, kc, kc, lengths))
     with pytest.raises(ValueError):
-        mamba_scan_cuda(*[a.to("meta") for a in scan])
+        mamba_scan_cuda(*_kernelless(*scan))
+    _meta_runs_no_plain_version(
+        lambda: decode_attention_cuda(q.to("meta"), kc.to("meta"),
+                                      kc.to("meta"), lengths.to("meta")),
+        lambda: mamba_scan_cuda(*[a.to("meta") for a in scan]))

@@ -7,8 +7,14 @@ paths with the same shapes.  ``param_pspecs`` must then give every leaf
 the same spec, compared as strings, in both modes ("serve", "train"),
 both layouts ("tp", "fsdp") and at ``model_n`` 16, 4 and 2 (a mesh
 slice's width).  ``pick_layout`` follows ``REPRO_LAYOUT`` as the JAX
-package's does; the input and state specs wait for the dry-run slice.
+package's does.  ``INPUT_SHAPES`` field by field; ``token_layout`` and
+``input_specs`` (shapes, dtypes, specs) for every arch x shape x mesh x
+layout; the serving state at full width (the port's on meta, the JAX
+package's through ``jax.eval_shape``) leaf by leaf, and ``state_pspecs``
+on it for every arch x serving shape x mesh.  ``launch.mesh``'s plain
+description against the JAX package's mesh shapes.
 """
+import dataclasses
 from types import SimpleNamespace
 
 import jax
@@ -18,10 +24,12 @@ from jax.sharding import PartitionSpec as P
 
 import repro.configs as rcfg
 import repro.models as rm
+from repro.launch import mesh as rmesh
 from repro.launch import specs as rspecs
 import repro_torch.configs as tcfg
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import specs as tspecs
-from repro_torch.models import init_params
+from repro_torch.models import init_params, init_state
 
 #: the JAX package's ``list_archs()`` (its ten assigned architectures)
 #: and the paper's evaluation model, which both registries also hold
@@ -123,5 +131,106 @@ def test_pick_layout_follows_repro_layout(monkeypatch, env):
 @pytest.mark.parametrize("name", ["token_layout", "input_specs",
                                   "state_pspecs"])
 def test_input_and_state_specs_wait_for_the_dry_run(name):
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        getattr(tspecs, name)(tcfg.get_config("starcoder2-3b"), None)
+    """The three specs that waited for the dry-run slice now answer (the
+    comparisons with the JAX package are below)."""
+    cfg, shape = tcfg.get_config("starcoder2-3b"), tcfg.INPUT_SHAPES[
+        "decode_32k"]
+    if name == "state_pspecs":
+        state = init_state(cfg, shape.global_batch, shape.seq_len,
+                           device="meta")
+        out = tspecs.state_pspecs(cfg, state, shape, long_context=False)
+        assert _port_flat(out)["layers/0/p0/k"] == (None, ("data",), None,
+                                                    None, None)
+    else:
+        out = getattr(tspecs, name)(cfg, shape)
+        assert out
+
+
+def test_input_shapes_match_reference():
+    assert list(tcfg.INPUT_SHAPES) == list(rcfg.INPUT_SHAPES)
+    for name, want in rcfg.INPUT_SHAPES.items():
+        got = tcfg.INPUT_SHAPES[name]
+        assert isinstance(got, tcfg.InputShape)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_matches_reference(multi_pod):
+    mesh = tmesh.make_production_mesh(multi_pod=multi_pod)
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    assert mesh.axis_names == axes and mesh.axis_sizes == shape
+    assert mesh.shape == dict(zip(axes, shape))
+    assert mesh.size == (512 if multi_pod else 256)
+    assert mesh.tag == ("2x16x16" if multi_pod else "16x16")
+    assert tmesh.batch_axes(multi_pod) == rmesh.batch_axes(multi_pod)
+
+
+_DTYPES = {"int32": torch.int32, "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("layout", ["tp", "fsdp"])
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("shape", list(rcfg.INPUT_SHAPES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_specs_match_reference(arch, shape, multi_pod, layout):
+    cfg_r, cfg = rcfg.get_config(arch), tcfg.get_config(arch)
+    shp_r, shp = rcfg.INPUT_SHAPES[shape], tcfg.INPUT_SHAPES[shape]
+    assert tspecs.token_layout(cfg, shp) == rspecs.token_layout(cfg_r, shp_r)
+    sds_r, specs_r = rspecs.input_specs(cfg_r, shp_r, multi_pod,
+                                        layout=layout)
+    sds, specs = tspecs.input_specs(cfg, shp, multi_pod, layout=layout)
+    assert list(sds) == list(sds_r) and list(specs) == list(specs_r)
+    for key, want in sds_r.items():
+        got = sds[key]
+        assert got.is_meta
+        assert tuple(got.shape) == want.shape, key
+        assert got.dtype == _DTYPES[str(want.dtype)], key
+        assert str(_fold(specs[key])) == str(tuple(specs_r[key])), key
+
+
+@pytest.fixture(scope="module")
+def states():
+    """(arch, shape) -> (ref state shape tree, port meta state)."""
+    cache = {}
+
+    def get(arch, shape):
+        if (arch, shape) not in cache:
+            cfg_r, cfg = rcfg.get_config(arch), tcfg.get_config(arch)
+            shp, long_ctx = rcfg.INPUT_SHAPES[shape], shape == "long_500k"
+            ref = jax.eval_shape(lambda: rm.init_state(
+                cfg_r, shp.global_batch, shp.seq_len, long_ctx))
+            port = init_state(cfg, shp.global_batch, shp.seq_len,
+                              long_context=long_ctx, device="meta")
+            cache[(arch, shape)] = (ref, port)
+        return cache[(arch, shape)]
+
+    return get
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_state_pspecs_match_reference(states, arch, shape, multi_pod):
+    """The serving state at full width, leaf by leaf (paths, shapes,
+    dtypes: the long-context rings included), and its specs."""
+    ref, port = states(arch, shape)
+    ref_flat, port_flat = _ref_flat(ref), _port_flat(port)
+    assert sorted(ref_flat) == sorted(port_flat)
+    for ps, leaf in port_flat.items():
+        assert leaf.is_meta
+        assert tuple(leaf.shape) == ref_flat[ps].shape, ps
+        assert str(leaf.dtype)[6:] == str(ref_flat[ps].dtype), ps
+    long_ctx = shape == "long_500k"
+    cfg_r, cfg = rcfg.get_config(arch), tcfg.get_config(arch)
+    shp_r, shp = rcfg.INPUT_SHAPES[shape], tcfg.INPUT_SHAPES[shape]
+    want = _ref_flat(rspecs.state_pspecs(cfg_r, ref, shp_r,
+                                         long_context=long_ctx,
+                                         multi_pod=multi_pod),
+                     is_leaf=lambda x: isinstance(x, P))
+    got = _port_flat(tspecs.state_pspecs(cfg, port, shp,
+                                         long_context=long_ctx,
+                                         multi_pod=multi_pod))
+    bad = {ps: (str(tuple(want[ps])), str(_fold(got[ps]))) for ps in got
+           if str(tuple(want[ps])) != str(_fold(got[ps]))}
+    assert not bad, bad
