@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs thirty phases,
+port's kernels from ``src/repro_torch/csrc``, and runs thirty-two phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -35,7 +35,17 @@ each of which exits non-zero on failure:
    timed at B 2, its plain version over twelve row blocks, SDPA with the
    window's mask) and dense decode over an 8,192-line ring, both held in
    bf16 row by row to 1e-2 x the row's max |expected| (f32 plain version
-   on the same values) and in f32 to 1e-4;
+   on the same values) and in f32 to 1e-4; and at phase 31's tp 2
+   per-rank shapes, held the same way and timed: the scan at 8,192
+   channels (S 256 and a ragged 131), dense decode at 32/4 (hd 128), 8/8
+   and 7/1 heads (hd 64), the prefill kernel causal at 32/4 and 7/1
+   (256 patches + 256 tokens) and non-causal at seamless' encoder's 8/8
+   over 4096 frames; and at phase 31's tp 2
+   per-rank shapes, held the same way and timed: the scan at 8,192
+   channels (S 256 and a ragged 131), dense decode at 32/4 (hd 128), 8/8
+   and 7/1 heads (hd 64), the prefill kernel causal at 32/4 and 7/1
+   (256 patches + 256 tokens) and non-causal at seamless' encoder's 8/8
+   over 4096 frames;
 3. serve — full-width starcoder2-3b in bf16 (random weights from a seed)
    behind one ``InstanceEngine``: six greedy requests admitted by
    ``prefill_batch`` and decoded by ``decode_multi(steps=8)``; every
@@ -64,15 +74,19 @@ each of which exits non-zero on failure:
 8. cluster-fleet — the cluster phase's stream on its weights, first once
    with no kill (the wall ms per iteration that sim-calibration and
    the kill runs are set beside, all timed on weights already drawn), then
-   with instance 1 killed at iteration 60 and rejoined at 90, under
-   accellm and under vllm, each beside a CPU rehearsal at reduced width:
+   on the weights' first ``FLEET_LAYERS`` (6) of 30 layers once with no
+   kill (the kill runs' token reference) and with instance 1 killed at
+   iteration 60 and rejoined at 90, under accellm and under vllm, each
+   beside a CPU rehearsal at reduced width cut to ``REHEARSAL_LAYERS`` (1)
+   layer (the depth cuts bound the phase's time):
    fleet stats, fleet trace, plan trace and iterations must equal the
    rehearsal's; accellm must absorb the kill by promotions (no re-queue,
    no re-prefilled token) and warm the rejoin, vllm must re-queue and
    re-prefill (the prefill kernel launching once per layer per prefill
-   plan); every request's tokens must equal the cluster serve's, unless
-   the two tokens' f32 logits lie within the bf16 error measured on that
-   row (printed); wall ms per iteration beside TTFT/TBT/JCT;
+   plan); every request's tokens must equal the cluster serve's (no-kill)
+   or the 6-layer no-kill run's (kill runs), unless the two tokens' f32
+   logits lie within the bf16 error measured on that row (printed); wall
+   ms per iteration beside TTFT/TBT/JCT;
 9. cluster-prefix — the cluster phase's arrival and length processes
    over 60 iterations (12 requests) with shared prompt heads (two system
    prompts, 80% reuse, 256-token heads) served on its weights with the
@@ -149,10 +163,13 @@ each of which exits non-zero on failure:
     history 128) against the whole prompt, within 1e-3 * max|logit|;
 20. serve-xlstm — xlstm-1.3b at full width and depth (48 blocks, 42 mLSTM
     and 6 sLSTM) in bf16 through the serve phase's six requests (one
-    prompt at a time, dense decode; no kernel launched), then in f32 16
-    decode steps against fresh prefills within 1e-3 * max|logit| (a
-    200-token prompt: the stepwise mLSTM), and the chunkwise mLSTM against
-    the stepwise one on a 256-token prompt (printed);
+    prompt at a time, dense decode; no kernel launched), then in f32 on
+    its first ``XLSTM_F32_LAYERS`` (8) blocks (one period of the pattern:
+    7 mLSTM and the sLSTM, drawn in f32; the depth cut bounds the phase's
+    time) 16 decode steps against fresh prefills within 1e-3 *
+    max|logit| (a 200-token prompt: the stepwise mLSTM), and the
+    chunkwise mLSTM against the stepwise one on a 256-token prompt
+    (printed);
 21. serve-seamless — seamless-m4t-large-v2 whole at full width in bf16
     (a 24-layer encoder over 4096 frames, a 24-layer decoder with cross
     attention; ~3.7 GB): the serve phase's six requests, each with its
@@ -242,17 +259,56 @@ each of which exits non-zero on failure:
     the decode logits at t = 12,288 + j (j = 0, 31, 63) against a fresh
     long-context prefill over the 12,288 + j + 1 tokens within 1e-3 *
     max|logit|.  Prints decode ms per step beside phase 11's and the dry
-    run's long_500k record for minicpm-2b on the single mesh.
+    run's long_500k record for minicpm-2b on the single mesh;
+31. mesh-families — seamless-m4t-large-v2 and internvl2-1b whole,
+    xlstm-1.3b on its first 8 blocks (one period of its pattern: over all
+    48 random-weight blocks a bf16 row lies ~100% of max|logit| from its
+    f32 replay, which leaves no token to judge), deepseek-v3-671b cut to
+    layers 0-3 (MLA, three dense layers,
+    the 256-expert MoE layer and its shared expert) and Jamba-1.5-Large
+    in the reduced config's layout at published widths (Mamba + dense
+    FFN, attention + MoE), in bf16, each as one engine at tp 2 on a world
+    of two processes on card 0 over gloo, one family after another.  The
+    ranks draw the whole weights in turn (a barrier between them), build
+    their engine, which keeps only the rank's cut, and free the whole
+    tree before the other draws; rank 0 first serves the same weights on
+    one device.  Six greedy requests (prompts 128-256, 16 tokens, each
+    with its payload): the tp 2 tokens equal one device's on both ranks
+    up to near-ties by phase 8's rule, read on an f32 replay (rank 0 feeds
+    the one-device tokens to the same weights upcast to f32: every row
+    the engines sampled gets its f32 twin): where a request's tp 2 token
+    first parts from one device's, the two tokens' f32 gap is within
+    twice that row's one-device max |bf16 - f32|, and that limit does not
+    span any replayed row; over the rows sampled on a common prefix, max
+    |tp 1 - tp 2| / max|f32| is within twice the family's one-device max
+    |bf16 - f32| / max|f32|; MoE dispatch dropless (capacity factor experts / top-k),
+    0 assignments dropped on either side; the scan, prefill and dense
+    decode kernels launch on both ranks with no plain version (MLA and
+    xLSTM reach none); then two layers of each family in f32 (the MoE
+    layers with fewer experts at their widths: deepseek 16, Jamba 4;
+    xlstm-1.3b an mLSTM and the sLSTM), prefill and 8 decode steps
+    within 1e-3 * max|logit| of one device's.
+    Prints weight and state bytes a rank against one device's, decode ms
+    per step at tp 1 and tp 2, ``sharding.reduce``/``gather`` calls per
+    decode step and the launch counts;
+32. mesh-cluster-hybrid — Jamba in that layout (capacity factor 1.25)
+    behind two one-rank slices on the same two processes, on phase 29's
+    stream: the hybrid stack's recurrent-state mirror across slices;
+    every hop a host copy, mirror and stream bytes equal ``LineCosts``,
+    the scan, prefill and dense decode kernels launch on both ranks, and
+    stats, decision trace, iterations and tokens equal a one-process
+    cluster's.
 
 Each phase group's weights are freed before the next: starcoder2's after
 phases 3-5, 6-9 and 10, minicpm-2b's after 11 and 30, the bf16 Jamba weights
 before the f32 ones, deepseek's bf16 weights before its f32 ones,
-xlstm-1.3b's bf16 weights once upcast, seamless-m4t's after 22,
+xlstm-1.3b's bf16 weights before its f32 ones, seamless-m4t's after 22,
 internvl2-1b's after 23, the trained minicpm-2b's after 25 and each
 family's after its steps; the mesh phases' ranks hold their own.  TF32 is
 off for matmuls and cuDNN.  ``python3 chip_smoke.py --mesh-only`` runs
-phase 1, the serve phase's six requests and phases 28-29 alone, and
-prints no result line.
+phase 1, the serve phase's six requests, phases 28-29, the kernels at
+phase 31's per-rank shapes and phases 31-32 alone, and prints no result
+line.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
 """
@@ -743,7 +799,7 @@ def phase_hybrid_kernels(torch, dense_mod, scan_mod, flush):
          "replaces": "src/repro/kernels/mamba_scan.py:84",
          "launches": 0, "max_abs_err": scan_err, "ms": s_ms,
          "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None},
+         "library_ms": None, "instances": {}},
     ]
     log(f"kernels: mamba_scan timed at B 1, S 512, C 16384, N 16: "
         f"{s_bytes / 1e6:.1f} MB ({_bound(s_bytes, 0, 'float32')[0]:.4f} ms), "
@@ -1356,6 +1412,10 @@ def phase_cluster(torch, np):
 FLEET_KILL, FLEET_JOIN = 60.0, 90.0
 #: cluster-fleet: timed serves of the stream with no kill
 NO_KILL_RUNS = 1
+#: cluster-fleet: the layers of the kill runs and their no-kill reference
+#: (of starcoder2-3b's 30), and of their CPU rehearsal (of the reduced 2)
+FLEET_LAYERS = 6
+REHEARSAL_LAYERS = 1
 
 
 def _fleet_spec(policy, kill=True, **kw):
@@ -1366,11 +1426,11 @@ def _fleet_spec(policy, kill=True, **kw):
                          **kw)
 
 
-def _serve_traced(spec, params=None):
+def _serve_traced(spec, params=None, cfg=None):
     """``api.serve`` with the planner's plan trace and the policy
     kernel's decision trace on."""
     from repro_torch.api import ServeReport, build_cluster
-    cluster = build_cluster(spec, params=params)
+    cluster = build_cluster(spec, cfg=cfg, params=params)
     cluster.planner.trace = []
     cluster.policy.trace = []
     finished = cluster.run(max_steps=spec.max_steps, source=spec.traffic.source(
@@ -1509,10 +1569,13 @@ def _tie_limits(torch, cfg, params, params32, window, requests, phase):
 def phase_cluster_fleet(torch, params, measured):
     """Phase 8: the cluster phase's stream on the same weights,
     ``NO_KILL_RUNS`` times with no kill (their wall ms per iteration go
-    into ``measured["ms_per_iteration"]``), then with instance 1 killed at
-    ``FLEET_KILL`` and rejoined at ``FLEET_JOIN``, under accellm and under
-    vllm; returns the kernel counts of the no-kill runs and of each kill
-    run."""
+    into ``measured["ms_per_iteration"]``), then on the same weights' first
+    ``FLEET_LAYERS`` layers once with no kill (the kill runs' reference)
+    and with instance 1 killed at ``FLEET_KILL`` and rejoined at
+    ``FLEET_JOIN``, under accellm and under vllm, beside a CPU rehearsal
+    at reduced width cut to ``REHEARSAL_LAYERS`` layer: the policy's and
+    the fleet's decisions depend on neither the widths nor the depth.
+    Returns the kernel counts of the no-kill runs and of each kill run."""
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
@@ -1558,15 +1621,37 @@ def phase_cluster_fleet(torch, params, measured):
         + f"; launches {counts[phase]}")
     _tie_limits(torch, cfg, params, params32, spec.kv_capacity,
                 measured["requests"], "cluster-fleet")
+    # the kill runs on the first FLEET_LAYERS layers, beside their own
+    # no-kill run, whose tokens they are held to
+    from repro_torch.configs import get_config
+    cfg = _depth_cut(cfg, FLEET_LAYERS)
+    params = _first_layers(params, FLEET_LAYERS)
+    params32 = _first_layers(params32, FLEET_LAYERS)
+    phase = f"cluster-fleet no-kill, {FLEET_LAYERS} layers"
+    t0 = time.perf_counter()
+    report = _serve_traced(_fleet_spec("accellm", kill=False), params=params,
+                           cfg=cfg)
+    torch.cuda.synchronize()
+    n_it = report.cluster.n_iterations
+    check(report.all_finished and n_it == measured["iterations"],
+          f"{phase}: {n_it} iterations against the cluster serve's "
+          f"{measured['iterations']}: {report.describe()}")
+    reference = {r.rid: r for r in report.finished}
+    log(f"{phase}: serve wall {time.perf_counter() - t0:.3f} s, {n_it} "
+        f"iterations; the kill runs' reference")
+    del report
     # the CPU rehearsal at reduced width: the policy's decisions depend on
     # neither the widths nor the tokens, so the card must repeat them
     t0 = time.perf_counter()
+    small = _depth_cut(get_config("starcoder2-3b").reduced(),
+                       REHEARSAL_LAYERS)
     rehearsal = {(policy, kill): _serve_traced(_fleet_spec(
-        policy, kill, reduced=True, device="cpu"))
+        policy, kill, reduced=True, device="cpu"), cfg=small)
         for policy, kill in (("accellm", True), ("vllm", True),
                              ("vllm", False))}
     log(f"cluster-fleet: kill instance 1 at iteration {FLEET_KILL:g}, "
-        f"rejoin at {FLEET_JOIN:g}; CPU rehearsal at reduced width in "
+        f"rejoin at {FLEET_JOIN:g}, on the first {FLEET_LAYERS} layers; CPU "
+        f"rehearsal at reduced width, {REHEARSAL_LAYERS} layer, in "
         f"{time.perf_counter() - t0:.1f} s")
     for policy in ("accellm", "vllm"):
         phase = f"cluster-fleet {policy}"
@@ -1575,7 +1660,7 @@ def phase_cluster_fleet(torch, params, measured):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        report = _serve_traced(spec, params=params)
+        report = _serve_traced(spec, params=params, cfg=cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[phase] = read_counts()
@@ -1636,8 +1721,8 @@ def phase_cluster_fleet(torch, params, measured):
                                spec.kv_capacity, reference, report.finished,
                                phase)
         log(f"{phase}: {len(report.finished)} requests' tokens equal the "
-            f"no-kill run's" + (f" up to {len(near)} near-ties" if near
-                                else ""))
+            f"{FLEET_LAYERS}-layer no-kill run's"
+            + (f" up to {len(near)} near-ties" if near else ""))
         del report, cluster
     del params32
     log(f"cluster-fleet: phase {time.perf_counter() - t_phase:.1f} s")
@@ -2410,6 +2495,15 @@ def _depth_cut(cfg, n, **kw):
                                block_pattern=cfg.block_pattern[:n], **kw)
 
 
+def _first_layers(params, n):
+    """Views of a one-segment stack's first ``n`` layers (starcoder2-3b's
+    30 attention layers are one segment of 30 repeats)."""
+    check(len(params["segments"]) == 1, "a depth cut by views needs one "
+          "segment")
+    return {**params, "segments": [_tree_map(lambda t: t[:n],
+                                             params["segments"][0])]}
+
+
 def _weight_bytes(params):
     return sum(t.numel() * t.element_size() for t in _leaves(params))
 
@@ -2868,10 +2962,15 @@ def phase_consistency_deepseek(torch, dev, np):
           f"by {err} against max logit {scale}")
 
 
+#: serve-xlstm: the blocks of its f32 checks (one period of the pattern)
+XLSTM_F32_LAYERS = 8
+
+
 def phase_xlstm(torch, dev, np):
     """Phase 20: xlstm-1.3b at full width and depth in bf16 through the
     serve phase's six requests (one prompt at a time, dense decode), then
-    its f32 decode-vs-prefill check; returns the serve's kernel counts."""
+    its f32 decode-vs-prefill check on the pattern's first
+    ``XLSTM_F32_LAYERS`` blocks; returns the serve's kernel counts."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     cfg = get_config("xlstm-1.3b")
@@ -2895,20 +2994,22 @@ def phase_xlstm(torch, dev, np):
     _print_breakdown({"decode 8 active x 8 steps": _breakdown(
         wall, _device_profile(torch, lambda: e.decode_multi(steps=8)))},
         "serve-xlstm")
-    del e, engine, admit, request
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = _tree_map(lambda t: t.float(), params)
-    del params
+    del e, engine, admit, request, params
     _free(torch)
-    log(f"serve-xlstm consistency: f32 weights "
-        f"{_weight_bytes(params32) / 1e9:.3f} GB")
+    # the f32 checks on the first XLSTM_F32_LAYERS blocks (one period of
+    # the pattern: 7 mLSTM and the sLSTM), drawn in f32
+    t_f32 = time.perf_counter()
+    cfg32 = _depth_cut(cfg, XLSTM_F32_LAYERS, dtype="float32")
+    params32 = _draw(torch, cfg32, 8, dev, "serve-xlstm consistency")
+    log(f"serve-xlstm consistency: blocks 0-{XLSTM_F32_LAYERS - 1} "
+        f"{cfg32.block_pattern} in f32")
     # a 200-token prompt and its extensions all run the stepwise mLSTM
     _decode_vs_prefill(torch, np, cfg32, params32, dev,
                        np.random.default_rng(11), "serve-xlstm consistency",
                        paged=False)
     # measured, not gated: the chunkwise mLSTM (256 = 4 chunks of 64)
     # against the stepwise one on one prompt; the JAX package's two forms
-    # part by ~1e-3 of max|logit| over 48 random-weight blocks as well
+    # part by ~1e-3 of max|logit| over 48 random-weight blocks
     from repro_torch.models import init_state, prefill
     from repro_torch.models import xlstm as xlstm_mod
     toks = torch.as_tensor(np.random.default_rng(12).integers(
@@ -2923,7 +3024,8 @@ def phase_xlstm(torch, dev, np):
             xlstm_mod.MLSTM_CHUNK = plain
         rows.append(logits)
     err, scale = max_err(rows[0], rows[1]), float(rows[1].abs().max())
-    log(f"serve-xlstm consistency: 256-token prefill, chunkwise against "
+    log(f"serve-xlstm consistency: 256-token prefill over {XLSTM_F32_LAYERS} "
+        f"blocks, chunkwise against "
         f"stepwise mLSTM: max |difference| {err:.3e}, max |logit| "
         f"{scale:.3f}, ratio {err / scale:.3e} (measured, not gated)")
     # the same two forms on the first block alone: what one block adds
@@ -2943,7 +3045,10 @@ def phase_xlstm(torch, dev, np):
     log(f"serve-xlstm consistency: block 0 alone, chunkwise against "
         f"stepwise: max |difference| {err:.3e}, max |output| {scale:.3f}, "
         f"ratio {err / scale:.3e} (measured, not gated)")
-    log(f"serve-xlstm: phase {time.perf_counter() - t_phase:.1f} s")
+    t_end = time.perf_counter()
+    log(f"serve-xlstm: phase {t_end - t_phase:.1f} s: bf16 serve "
+        f"{t_f32 - t_phase:.1f} s, f32 checks on {XLSTM_F32_LAYERS} blocks "
+        f"{t_end - t_f32:.1f} s")
     return counts
 
 
@@ -3147,6 +3252,124 @@ def phase_long_kernels(torch, flash_mod, dense_mod, flush):
     dense_inst = {"minicpm-2b ring W 8192": _time_dense(
         torch, dense_mod, randn, flush, [W, W], W, H, H, hd)}
     return (flash_err, flash_inst), (dense_err, dense_inst)
+
+
+def phase_mesh_kernels(torch, flash_mod, dense_mod, scan_mod, flush):
+    """The kernels at the per-rank shapes of the mesh-families phase
+    (tp 2): the scan at jamba's C = 16,384 / 2 = 8,192 channels; dense
+    decode at jamba's 64/8 / 2 = 32/4 heads (hd 128), seamless-m4t's
+    16/16 / 2 = 8/8 and internvl2-1b's 14/2 / 2 = 7/1 (hd 64), lengths on
+    each side of a split boundary; the prefill kernel causal at jamba's
+    32/4 and internvl2-1b's 7/1 (256 patches + 256 tokens), non-causal at
+    seamless-m4t's encoder (8/8 over 4096 frames).  bf16 is held row by
+    row to 1e-2 x the row's max |expected| (the plain version in f32 on
+    the same bf16 values), f32 to 1e-4 max abs, the scan (f32) to 1e-4
+    relative.  Returns ((flash max err, timed instances), (dense max err,
+    timed instances), (scan max err, timed instances))."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rel_tol, f32_tol = 1e-2, 1e-4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def held(out, exp, dtype, what):
+        ratio, err = _row_ratio(out, exp)
+        if dtype == torch.bfloat16:
+            log(f"{what} bf16: max_abs_err {err:.3e}, worst row err / row "
+                f"max|exp| {ratio:.3e} (tol {rel_tol:.0e})")
+            check(ratio <= rel_tol, f"{what} bf16: a row's error is "
+                  f"{ratio} x its max |expected|, above {rel_tol}")
+        else:
+            log(f"{what} f32: max_abs_err {err:.3e} (tol {f32_tol:.0e})")
+            check(err <= f32_tol, f"{what} f32: error {err} above {f32_tol}")
+        return err
+
+    flash_err, flash_inst = 0.0, {}
+    for label, B, S, H, KVH, hd, causal in (
+            ("jamba tp 2 rank prefill, 32/4", 1, 256, 32, 4, 128, True),
+            ("seamless encoder tp 2 rank, 8/8", 1, 4096, 8, 8, 64, False),
+            ("internvl2-1b tp 2 rank prefill, 7/1", 1, 512, 7, 1, 64,
+             True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (randn((B, S, H, hd), dtype),
+                       randn((B, S, KVH, hd), dtype),
+                       randn((B, S, KVH, hd), dtype))
+            out = flash_mod.flash_attention_cuda(q, k, v, causal=causal)
+            exp = flash_mod.flash_attention_torch(q.float(), k.float(),
+                                                  v.float(), causal=causal)
+            torch.cuda.synchronize()
+            flash_err = max(flash_err, held(
+                out, exp, dtype, f"kernels: flash_attention {label}: q "
+                f"{B}x{S}x{H}x{hd}, {'causal' if causal else 'non-causal'}"))
+            del q, k, v, out, exp
+        flash_inst[label] = _time_flash(torch, flash_mod, randn, flush, B, S,
+                                        S, H, KVH, hd, None, causal=causal)
+
+    dense_err, dense_inst = 0.0, {}
+    for label, H, KVH, hd, W in (("jamba tp 2 rank decode, 32/4", 32, 4, 128,
+                                  1024),
+                                 ("seamless tp 2 rank decode, 8/8", 8, 8, 64,
+                                  1024),
+                                 ("internvl2-1b tp 2 rank decode, 7/1", 7, 1,
+                                  64, 1024)):
+        splits, chunk = dense_mod.split_plan(8, KVH, H // KVH, W, sms)
+        lengths = [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, W - 1,
+                   W]
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (randn((8, 1, H, hd), dtype), randn((8, W, KVH, hd), dtype),
+                    randn((8, W, KVH, hd), dtype),
+                    torch.tensor(lengths, dtype=torch.int32, device=dev))
+            out = dense_mod.decode_attention_cuda(*args)
+            exp = dense_mod.decode_attention_torch(
+                *(a.float() for a in args[:3]), args[3])
+            torch.cuda.synchronize()
+            dense_err = max(dense_err, held(
+                out, exp, dtype, f"kernels: decode_attention {label}: 8 rows, "
+                f"hd {hd}, W {W}, {splits} splits of {chunk} lines, lengths "
+                f"{lengths}"))
+            check(float(out[0].abs().max()) == 0.0,
+                  "decode_attention: a length-0 row must give 0")
+        dense_inst[label] = _time_dense(
+            torch, dense_mod, randn, flush,
+            [140, 160, 180, 200, 220, 240, 1, 1], W, H, KVH, hd)
+
+    def scan_inputs(B, S, C, N):
+        return (randn((B, S, C)),
+                torch.nn.functional.softplus(randn((B, S, C)) - 1.0),
+                randn((B, S, N)), randn((B, S, N)),
+                -torch.exp(randn((C, N)) * 0.5), randn((C,)),
+                randn((B, C, N)) * 0.1)
+
+    scan_err = 0.0
+    for S in (256, 131):
+        args = scan_inputs(1, S, 8192, 16)
+        y, h = scan_mod.mamba_scan_cuda(*args)
+        y_p, h_p = scan_mod.mamba_scan_torch(*args)
+        torch.cuda.synchronize()
+        for name, a, b in (("y", y, y_p), ("h_final", h, h_p)):
+            err = max_err(a, b)
+            rel = err / float(b.abs().max())
+            log(f"kernels: mamba_scan jamba tp 2 rank, S {S}, C 8192 "
+                f"{name}: max_abs_err {err:.3e}, relative {rel:.3e} (tol "
+                f"1e-4 relative)")
+            check(rel <= 1e-4, f"mamba_scan tp 2 rank S {S} {name}: "
+                  f"relative error {rel} above 1e-4")
+            scan_err = max(scan_err, err)
+    B, S, C, N = 1, 256, 8192, 16
+    args = scan_inputs(B, S, C, N)
+    s_bytes = 4 * (3 * B * S * C + 2 * B * S * N + C * N + C + 2 * B * C * N)
+    s_bound, s_by = _bound(s_bytes, scan_mod.mamba_scan_flops(B, S, C, N),
+                           "float32", _sfu_ms(B * S * C * N, sms))
+    scan_inst = {"jamba tp 2 rank, S 256, C 8192": {
+        "shape": f"B {B}, S {S}, C {C}, N {N}, f32",
+        "ms": time_ms(lambda: scan_mod.mamba_scan_cuda(*args), 50, flush),
+        "plain_ms": time_ms(lambda: scan_mod.mamba_scan_torch(*args), 3,
+                            flush),
+        "bound_ms": s_bound, "bound_by": s_by, "library_ms": None}}
+    return ((flash_err, flash_inst), (dense_err, dense_inst),
+            (scan_err, scan_inst))
 
 
 def _check_modes(heads, want, phase):
@@ -3819,7 +4042,8 @@ def main() -> int:
 
     card = smi.splitlines()[0].strip()
     if sys.argv[1:] == ["--mesh-only"]:
-        return mesh_only(torch, np, dev, card)
+        return mesh_only(torch, np, dev, card, flash_mod, decode_mod,
+                         scan_mod, flush)
 
     # -- 2. kernels ------------------------------------------------------------
     kernels = phase_kernels(torch, flash_mod, decode_mod, flush)
@@ -3829,7 +4053,10 @@ def main() -> int:
             *zip(("flash_attention", "decode_attention"),
                  phase_encdec_kernels(torch, flash_mod, decode_mod, flush)),
             *zip(("flash_attention", "decode_attention"),
-                 phase_long_kernels(torch, flash_mod, decode_mod, flush))]:
+                 phase_long_kernels(torch, flash_mod, decode_mod, flush)),
+            *zip(("flash_attention", "decode_attention", "mamba_scan"),
+                 phase_mesh_kernels(torch, flash_mod, decode_mod, scan_mod,
+                                    flush))]:
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
         by_name[name]["instances"].update(inst)
     _log_records(kernels, "scaled_dot_product_attention")
@@ -3897,6 +4124,16 @@ def main() -> int:
     _free(torch)
     # -- 28-29. starcoder2-3b on a world of two ranks: mesh-engine, mesh-cluster
     paths.update(phase_mesh(torch, np, six, per_step[8], card))
+    _free(torch)
+    # -- 31-32. the other stacks on a mesh: mesh-families,
+    # mesh-cluster-hybrid ---------------------------------------------------------
+    t0 = time.perf_counter()
+    paths.update(phase_mesh_families(torch, np, card))
+    log(f"mesh-families: phase {time.perf_counter() - t0:.1f} s")
+    _free(torch)
+    t0 = time.perf_counter()
+    paths.update(phase_mesh_cluster_hybrid(torch, np, card))
+    log(f"mesh-cluster-hybrid: phase {time.perf_counter() - t0:.1f} s")
 
     for r in kernels:
         r["launches_by_path"] = {p: c[r["name"]]["launches"]
@@ -3913,6 +4150,8 @@ def main() -> int:
 MESH_WORLD = 2
 #: seconds each mesh phase's world may take
 MESH_TIMEOUT = 420.0
+#: seconds the mesh-families world may take (five stacks)
+MESH_FAMILIES_TIMEOUT = 600.0
 
 
 def _mesh_light():
@@ -3925,12 +4164,12 @@ def _mesh_light():
                         name="light-mesh")
 
 
-def _rank_setup():
+def _rank_setup(device="cuda"):
     """A rank of a mesh phase: TF32 off, as in the parent."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch, torch.device("cuda")
+    return torch, torch.device(device)
 
 
 def mesh_engine_rank(rank, world, window):
@@ -3944,7 +4183,7 @@ def mesh_engine_rank(rank, world, window):
     from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.meshserve import carve_slices
-    from repro_torch.meshserve.pool import local_config, shard_params
+    from repro_torch.meshserve.pool import local_state, shard_params
     from repro_torch.models import (decode_step_paged, init_params,
                                     init_state, prefill)
     from repro_torch.models.state import state_bytes
@@ -3985,7 +4224,7 @@ def mesh_engine_rank(rank, world, window):
                       device=dev)
     mine = shard_params(cfg2, p32, sl)
     st1 = init_state(cfg2, 1, 256, device=dev)
-    st2 = init_state(local_config(cfg2, sl), 1, 256, device=dev)
+    st2 = local_state(cfg2, sl, 1, 256)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
                                           dtype=np.int32), device=dev)
     l1, st1 = prefill(cfg2, p32, {"tokens": prompt}, st1)
@@ -4007,18 +4246,19 @@ def mesh_engine_rank(rank, world, window):
     return out
 
 
-def mesh_cluster_rank(rank, world, spec):
-    """Phase 29 on one rank: ``spec`` (the cluster phase's, on the mesh
-    stream, ``mesh_tp=1``) through ``api.build_cluster`` and the cluster's
-    run, as ``api.serve`` runs it, with the kernel's decision trace on;
-    returns what every rank must agree on and what it moved."""
+def mesh_cluster_rank(rank, world, spec, cfg=None):
+    """Phase 29 (and 32, with ``cfg``) on one rank: ``spec`` (the cluster
+    phase's, on the mesh stream, ``mesh_tp=1``) through
+    ``api.build_cluster`` and the cluster's run, as ``api.serve`` runs it,
+    with the kernel's decision trace on; returns what every rank must agree
+    on and what it moved."""
     from repro_torch.api import build_cluster
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.meshserve import STATS
     from repro_torch.serving import InstanceEngine
     torch, _ = _rank_setup()
     moved, unrecord = _record_moves(InstanceEngine)
-    cluster = build_cluster(spec)
+    cluster = build_cluster(spec, cfg=cfg)
     cluster.policy.trace = []
     torch.cuda.synchronize()
     STATS.reset()
@@ -4190,9 +4430,555 @@ def phase_mesh(torch, np, six, ms_tp1, card):
     return counts
 
 
-def mesh_only(torch, np, dev, card):
+# ---------------------------------------------------------------------------
+# 31-32: the Mamba, MLA, xLSTM, encoder-decoder and vision stacks on a mesh
+# ---------------------------------------------------------------------------
+
+#: mesh-families: the stacks served at tp 2, one after another
+MESH_FAMILIES = ("xlstm-1.3b", "seamless-m4t-large-v2", "internvl2-1b",
+                 "deepseek-v3-671b", "jamba-1.5-large-398b")
+#: the six requests' prompt lengths (multiples of the mLSTM chunk, so the
+#: xLSTM prefills chunkwise) and new tokens each
+MESH_PROMPTS = (128, 256, 192, 128, 256, 192)
+MESH_NEW = 16
+MESH_WINDOW = 1024
+#: the f32 check: prompt length and decode steps
+MESH_F32_PROMPT, MESH_F32_STEPS = 128, 8
+#: the kernels each family's engine launches (none for MLA and xLSTM)
+MESH_PATHS = {"xlstm-1.3b": (), "deepseek-v3-671b": (),
+              "seamless-m4t-large-v2": DENSE_PATH,
+              "internvl2-1b": DENSE_PATH,
+              "jamba-1.5-large-398b": DENSE_PATH + ("mamba_scan",)}
+
+
+def _dropless(cfg):
+    """MoE capacity factor experts / top-k: no assignment is ever dropped,
+    so a token's output does not depend on how the batch is cut."""
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+
+
+def _jamba_cut(cfg):
+    """Jamba in the reduced config's layout at published widths: Mamba +
+    dense FFN, then attention + MoE (16 experts top-2)."""
+    return dataclasses.replace(cfg, num_layers=2,
+                               block_pattern=("mamba", "attn"))
+
+
+def mesh_family_configs(arch):
+    """(the bf16 config served at tp 1 and tp 2, the f32 two-layer
+    config: xlstm-1.3b's an mLSTM and the sLSTM) of a mesh-families
+    stack, MoE dispatch dropless in both.  xlstm-1.3b is served on its
+    first ``XLSTM_F32_LAYERS`` blocks (one period of the pattern): over
+    all 48 random-weight blocks a bf16 row lies ~100% of max|logit| from
+    its f32 replay, which leaves no token to judge.  The f32 MoE layers keep their
+    widths with fewer experts (deepseek 16 top-8, jamba 4 top-2): a rank
+    holds a whole f32 tree in its turn beside the other rank's cut."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    if arch == "deepseek-v3-671b":
+        return (_deepseek(4, dropless=True),
+                _deepseek(2, dropless=True, dtype="float32",
+                          moe=dataclasses.replace(full.moe, num_experts=16,
+                                                  first_dense_layers=1)))
+    if arch == "jamba-1.5-large-398b":
+        cut = _jamba_cut(full)
+        return (_dropless(cut), _dropless(dataclasses.replace(
+            cut, dtype="float32",
+            moe=dataclasses.replace(cut.moe, num_experts=4))))
+    if arch == "xlstm-1.3b":
+        return (_depth_cut(full, XLSTM_F32_LAYERS),
+                dataclasses.replace(full, num_layers=2, dtype="float32",
+                                    block_pattern=("mlstm", "slstm")))
+    return full, _depth_cut(full, 2, dtype="float32")
+
+
+def _watch_drops(moe_mod):
+    """Patch the MoE dispatch to count the assignments it drops (within-
+    expert rank at or past the capacity); returns (counts, restore)."""
+    drops, cap = [], [0]
+    plain_cap, plain_ranks = moe_mod._capacity, moe_mod._ranks_of
+
+    def capacity(*a):
+        cap[0] = plain_cap(*a)
+        return cap[0]
+
+    def ranks_of(e_flat, num_experts):
+        ranks = plain_ranks(e_flat, num_experts)
+        drops.append((ranks >= cap[0]).sum())
+        return ranks
+
+    def restore():
+        moe_mod._capacity, moe_mod._ranks_of = plain_cap, plain_ranks
+
+    moe_mod._capacity, moe_mod._ranks_of = capacity, ranks_of
+    return drops, restore
+
+
+def _watch_collectives(sharding_mod):
+    """Patch the TP helpers to count their calls; returns (count,
+    restore)."""
+    n = [0]
+    plain = sharding_mod.reduce, sharding_mod.gather
+
+    def reduce(x):
+        n[0] += 1
+        return plain[0](x)
+
+    def gather(x, dim, full):
+        n[0] += 1
+        return plain[1](x, dim, full)
+
+    def restore():
+        sharding_mod.reduce, sharding_mod.gather = plain
+
+    sharding_mod.reduce, sharding_mod.gather = reduce, gather
+    return n, restore
+
+
+def _mesh_requests(np, cfg, seed):
+    """The six requests and their payloads, the same on every call."""
+    from repro_torch.serving import Request
+    from repro_torch.workloads import default_extras
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt_len=n, max_new_tokens=MESH_NEW, rid=i,
+                    prompt_tokens=rng.integers(0, cfg.vocab_size, (1, n),
+                                               dtype=np.int32))
+            for i, n in enumerate(MESH_PROMPTS)]
+    return reqs, [default_extras(cfg, seed, i) for i in range(len(reqs))]
+
+
+def _mesh_serve(torch, np, cfg, eng, seed):
+    """The six requests through ``eng``: each prefilled alone, then dense
+    decode steps until all finish; every sampled row's logits kept (f32,
+    on the host) by (request, token index), the kernel counts, the
+    dropped MoE assignments, the TP collectives per decode step."""
+    from repro_torch import sharding
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import moe as moe_mod
+    reqs, extras = _mesh_requests(np, cfg, seed)
+    last = []
+    plain = eng._sample
+
+    def sample(logits, row_slots):
+        last[:] = [logits]
+        return plain(logits, row_slots)
+
+    eng._sample = sample
+    drops, undrop = _watch_drops(moe_mod)
+    rows = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for r, extra in zip(reqs, extras):
+        eng.prefill_request(r, extra)
+        rows[r.rid, 0] = last[0][0].float().cpu()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    calls, uncount = _watch_collectives(sharding)
+    steps = 0
+    t0 = time.perf_counter()
+    while eng.slot_req:
+        live = {s: (q.rid, len(q.output_tokens))
+                for s, q in eng.slot_req.items()}
+        eng.decode()
+        for s, key in live.items():
+            rows[key] = last[0][s].float().cpu()
+        steps += 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    uncount()
+    counts = read_counts()
+    undrop()
+    del eng._sample
+    return {"tokens": [list(map(int, r.output_tokens)) for r in reqs],
+            "rows": rows, "prefill_s": prefill_s, "decode_s": decode_s,
+            "steps": steps, "collectives": calls[0] / max(1, steps),
+            "counts": counts, "dropped": int(sum(int(d) for d in drops)),
+            "state": eng.state_bytes()}
+
+
+def _mesh_batch(torch, np, cfg, dev, seed):
+    """The f32 check's prompt (``MESH_F32_PROMPT`` tokens) and extras."""
+    from repro_torch.workloads import default_extras
+    rng = np.random.default_rng(seed + 1)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, MESH_F32_PROMPT), dtype=np.int32),
+        device=dev)}
+    for key, value in (default_extras(cfg, seed, 99) or {}).items():
+        batch[key] = torch.as_tensor(value, device=dev)
+    return batch
+
+
+def _mesh_rows(torch, cfg, params, sl, dev, batch, steps, fed=None,
+               clock=None):
+    """A prompt's prefill logits and ``steps`` dense decode steps', fed
+    ``fed`` (else greedy), the first step at ``clock`` (default: after
+    the vision prefix and the prompt); under the slice's TP context with
+    its per-rank state, or whole with ``sl`` None.  Returns (rows, tokens
+    fed)."""
+    import contextlib
+    from repro_torch import sharding
+    from repro_torch.meshserve.pool import local_state
+    from repro_torch.models import decode_step, init_state, prefill
+    offset = (cfg.frontend.num_prefix_tokens if cfg.frontend is not None
+              and cfg.frontend.kind == "vision" else 0)
+    if clock is None:
+        clock = offset + batch["tokens"].shape[1]
+    state = (local_state(cfg, sl, 1, MESH_WINDOW) if sl is not None
+             else init_state(cfg, 1, MESH_WINDOW, device=dev))
+    ctx = (sharding.use_mesh(sl.group) if sl is not None
+           else contextlib.nullcontext())
+    rows, toks = [], []
+    with ctx:
+        logits, state = prefill(cfg, params, batch, state)
+        rows.append(logits[0].float())
+        for step in range(steps):
+            tok = (fed[step] if fed is not None
+                   else logits.argmax(-1).to(torch.int32))
+            toks.append(tok)
+            t = torch.full((1,), clock + step, dtype=torch.int32,
+                           device=dev)
+            logits, state = decode_step(cfg, params, tok[:, None], state, t)
+            rows.append(logits[0].float())
+    return rows, toks
+
+
+def _upcast(torch, tree):
+    """Each bf16 leaf of ``tree`` replaced by its f32 copy, one leaf at a
+    time (the whole tree is never held twice); f32 leaves stay."""
+    for key in (tree.keys() if isinstance(tree, dict) else range(len(tree))):
+        leaf = tree[key]
+        if isinstance(leaf, (dict, list)):
+            _upcast(torch, leaf)
+        elif leaf.dtype != torch.float32:
+            tree[key] = leaf.float()
+
+
+def _mesh_judge(torch, np, cfg, dev, seed, one, two):
+    """Phase 8's near-tie rule against an f32 replay: the one-device
+    engine's tokens fed to the same weights upcast to f32, so each row
+    the two engines sampled has its f32 twin.  The one-device bf16
+    reading is max |bf16 - f32| over all those rows (one row's reading
+    misses the MoE stacks' routing flips, where a near-tied expert choice
+    moves a row far more than its neighbours: either run may flip on a
+    row the other does not).  Where a request's tp 2 token first parts
+    from one device's, the pair is a near-tie when the two tokens' f32
+    gap is within twice the reading.  Returns (the parting pairs as (rid,
+    index, one-device token, tp 2 token, f32 gap, twice the row's own
+    reading: printed, not gated), the reading, the
+    reading / max|f32| at its worst row, the worst max |tp 1 - tp 2| /
+    max|f32| over the rows sampled on a common prefix, the parting rows
+    whose whole f32 range the limit spans, seconds)."""
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    _upcast(torch, params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    reqs, extras = _mesh_requests(np, cfg, seed)
+    pairs, spans, reading, ratio, worst = [], {}, 0.0, 0.0, 0.0
+    for r, extra in zip(reqs, extras):
+        ta, tb = one["tokens"][r.rid], two["tokens"][r.rid]
+        batch = {"tokens": torch.as_tensor(r.prompt_tokens, device=dev)}
+        for key, value in (extra or {}).items():
+            batch[key] = torch.as_tensor(value, device=dev)
+        fed = [torch.tensor([t], dtype=torch.int32, device=dev)
+               for t in ta[:-1]]
+        # at the engine's clock: a vision request decodes from its prompt
+        # length S, not P + S, as the reference's engine does
+        rows, _ = _mesh_rows(torch, cfg32, params, None, dev, batch,
+                             len(ta) - 1, fed=fed, clock=r.prompt_len)
+        j = next((i for i, (a, b) in enumerate(zip(ta, tb)) if a != b),
+                 len(ta))
+        for i, f in enumerate(rows):
+            f = f.cpu()
+            top = float(f.abs().max())
+            e1 = float((one["rows"][r.rid, i] - f).abs().max())
+            reading, ratio = max(reading, e1), max(ratio, e1 / top)
+            if i <= j:
+                worst = max(worst, float(
+                    (one["rows"][r.rid, i] - two["rows"][r.rid, i]).abs()
+                    .max()) / top)
+            if i == j:
+                pairs.append((r.rid, j, ta[j], tb[j],
+                              abs(float(f[ta[j]] - f[tb[j]])), 2 * e1))
+                spans[r.rid, j] = float(f.max() - f.min())
+    del params
+    _free(torch)
+    blunt = [key for key, span in spans.items() if 2 * reading >= span]
+    return (pairs, reading, ratio, worst, blunt,
+            time.perf_counter() - t0)
+
+
+def _mesh_family(torch, np, rank, world, sl, arch, cfg, cfg32, dev, seed):
+    """One family on this rank: in turn the ranks draw the whole tree
+    (rank 0 serves it on one device first), build their tp 2 engine,
+    which keeps only the rank's cut, and free the whole tree before the
+    next rank draws; then the tp 2 serve, rank 0's f32 replay of the
+    one-device tokens (:func:`_mesh_judge`), and the two-layer f32 check
+    drawn in turn likewise."""
+    import torch.distributed as dist
+    from repro_torch.meshserve.pool import shard_params
+    from repro_torch.models import init_params
+    from repro_torch.serving import InstanceEngine
+    out = {"rank": rank}
+    one = eng = None
+    for turn in range(world):
+        if rank == turn:
+            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                seed), device=dev)
+            out["whole_bytes"] = _weight_bytes(whole)
+            if rank == 0:
+                one = _mesh_serve(torch, np, cfg, InstanceEngine(
+                    cfg, whole, num_slots=8, kv_capacity=MESH_WINDOW,
+                    block_lines=16, device=dev), seed)
+            eng = InstanceEngine(cfg, whole, num_slots=8,
+                                 kv_capacity=MESH_WINDOW, block_lines=16,
+                                 mesh=sl, device=dev)
+            del whole
+            _free(torch)
+        dist.barrier()
+    out["rank_bytes"] = _weight_bytes(eng.params)
+    two = _mesh_serve(torch, np, cfg, eng, seed)
+    del eng
+    _free(torch)
+    out.update({k: v for k, v in two.items() if k != "rows"})
+    if one is not None:
+        # the f32 replay on rank 0 alone: the other ranks hold nothing now
+        (out["ties"], out["reading"], out["ratio"], out["worst"],
+         out["blunt"], out["replay_s"]) = _mesh_judge(torch, np, cfg, dev,
+                                                      seed, one, two)
+        out["one"] = {k: v for k, v in one.items() if k != "rows"}
+    del one, two
+    dist.barrier()
+    # f32, two layers: each rank's own one-device rows, then tp 2's
+    mine = ref = fed = None
+    batch = _mesh_batch(torch, np, cfg32, dev, seed)
+    for turn in range(world):
+        if rank == turn:
+            whole = init_params(cfg32, torch.Generator(
+                device=dev).manual_seed(seed), device=dev)
+            ref, fed = _mesh_rows(torch, cfg32, whole, None, dev, batch,
+                                  MESH_F32_STEPS)
+            mine = shard_params(cfg32, whole, sl)
+            del whole
+            _free(torch)
+        dist.barrier()
+    rows, _ = _mesh_rows(torch, cfg32, mine, sl, dev, batch, MESH_F32_STEPS,
+                         fed=fed)
+    out["f32"] = [(float((a - b).abs().max()), float(a.abs().max()))
+                  for a, b in zip(ref, rows)]
+    del mine, ref, rows
+    _free(torch)
+    return out
+
+
+def mesh_families_rank(rank, world, plan):
+    """Phase 31 on one rank: every family of ``plan`` one after another on
+    one tp-``world`` slice; returns each family's record."""
+    import numpy as np
+    from repro_torch.meshserve import carve_slices
+    torch, dev = _rank_setup(plan["device"])
+    (sl,) = carve_slices(world, 1, device=dev)
+    out = {}
+    for arch, cfg, cfg32, seed in plan["families"]:
+        t0 = time.perf_counter()
+        out[arch] = _mesh_family(torch, np, rank, world, sl, arch, cfg,
+                                 cfg32, dev, seed)
+        out[arch]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_mesh_families(torch, np, card, device="cuda"):
+    """Phase 31: seamless-m4t-large-v2 and internvl2-1b whole,
+    xlstm-1.3b's first 8 blocks, deepseek-v3-671b cut to layers 0-3 and
+    Jamba in the reduced layout at published widths, each as one engine at tp 2 on a world of
+    ``MESH_WORLD`` processes on this one card over gloo; returns the
+    kernel counts summed over the ranks, by family."""
+    from repro_torch.meshserve.world import spawn
+    phase = "mesh-families"
+    plan = {"device": device, "families": [
+        (arch, *mesh_family_configs(arch), 31 + i)
+        for i, arch in enumerate(MESH_FAMILIES)]}
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_families_rank", MESH_WORLD, device=device,
+                  share_card=device == "cuda", args=(plan,),
+                  timeout=MESH_FAMILIES_TIMEOUT, threads=2)
+    log(f"{phase}: {MESH_WORLD} ranks on card 0 in "
+        f"{time.perf_counter() - t0:.1f} s; gloo stages every CUDA "
+        f"collective through the host: the phase checks the sharded compute "
+        f"and the kernels at per-rank shapes, not a card-to-card wire")
+    counts = {}
+    for arch, cfg, cfg32, _ in plan["families"]:
+        name = f"{phase} {arch}"
+        outs = [r[arch] for r in ranks]
+        lead = outs[0]
+        one = lead["one"]
+        check(all(o["tokens"] == lead["tokens"] for o in outs),
+              f"{name}: the ranks' tokens differ")
+        check(all(len(t) == MESH_NEW for t in lead["tokens"] + one["tokens"]),
+              f"{name}: a request ended short")
+        # phase 8's rule on the f32 replay of the one-device tokens
+        limit = 2 * lead["reading"]
+        for rid, j, a, b, gap, _ in lead["ties"]:
+            check(gap <= limit, f"{name}: request {rid}'s token {j} is {b} "
+                  f"at tp 2 and {a} on one device, {gap:.3e} apart in the "
+                  f"f32 replay, beyond twice one device's max |bf16 - f32| "
+                  f"{lead['reading']:.3e}")
+        check(not lead["blunt"], f"{name}: on the parting rows "
+              f"{lead['blunt']} twice one device's max |bf16 - f32| spans "
+              f"the whole f32 row: the near-tie rule would pass any token")
+        check(lead["worst"] <= 2 * lead["ratio"], f"{name}: max |tp 1 - tp "
+              f"2| / max|f32| {lead['worst']:.3e} over the common prefixes, "
+              f"beyond twice one device's max |bf16 - f32| / max|f32| "
+              f"{lead['ratio']:.3e}")
+        for r, o in enumerate(outs):
+            label = f"{name} rank {r}"
+            _check_path_counts(o["counts"], MESH_PATHS[arch], label)
+            if not MESH_PATHS[arch]:
+                _check_no_kernel(o["counts"], label)
+            if cfg.moe is not None:
+                check(o["dropped"] == 0, f"{label}: {o['dropped']} MoE "
+                      f"assignments dropped at capacity factor "
+                      f"{cfg.moe.capacity_factor}")
+            for step, (err, scale) in enumerate(o["f32"]):
+                check(err <= 1e-3 * scale, f"{label}: f32 row {step} "
+                      f"differs by {err} against max logit {scale}")
+            check(o["rank_bytes"] < o["whole_bytes"], f"{label}: "
+                  f"{o['rank_bytes']} B of weights, the whole tree's "
+                  f"{o['whole_bytes']} B")
+        if cfg.moe is not None:
+            check(one["dropped"] == 0, f"{name}: one device dropped "
+                  f"{one['dropped']} MoE assignments")
+        ms1 = one["decode_s"] * 1e3 / one["steps"]
+        log(f"{name}: {cfg.num_layers} layers {cfg.block_pattern[:8]}, "
+            f"d_model {cfg.d_model}, heads {cfg.num_heads}/"
+            f"{cfg.num_kv_heads}, {cfg.dtype}; {len(MESH_PROMPTS)} requests "
+            f"(prompts {MESH_PROMPTS}) x {MESH_NEW} tokens; "
+            f"{lead['seconds']:.1f} s on rank 0")
+        log(f"{name}: weights per rank "
+            + ", ".join(f"{o['rank_bytes'] / 1e9:.3f}" for o in outs)
+            + f" GB of one device's {lead['whole_bytes'] / 1e9:.3f} GB; "
+            f"state per rank " + ", ".join(f"{o['state'] / 1e6:.1f}"
+                                           for o in outs)
+            + f" MB of one device's {one['state'] / 1e6:.1f} MB")
+        log(f"{name}: decode ms per step (6 active, dense): tp 1 {ms1:.3f}, "
+            f"tp 2 " + ", ".join(
+                f"rank {r} {o['decode_s'] * 1e3 / o['steps']:.3f}"
+                for r, o in enumerate(outs))
+            + f"; prefill of the six: tp 1 {one['prefill_s']:.3f} s, tp 2 "
+            f"{lead['prefill_s']:.3f} s; {lead['collectives']:.1f} "
+            f"sharding.reduce/gather calls per decode step; {card}")
+        log(f"{name}: launches tp 1 {one['counts']}; tp 2 "
+            + "; ".join(f"rank {r} {o['counts']}" for r, o in enumerate(outs)))
+        if cfg.moe is not None:
+            log(f"{name}: MoE capacity factor {cfg.moe.capacity_factor} "
+                f"(dropless): assignments dropped on one device "
+                f"{one['dropped']}, at tp 2 "
+                + ", ".join(f"rank {r} {o['dropped']}"
+                            for r, o in enumerate(outs)))
+        log(f"{name}: tokens equal one device's"
+            + (f" up to {len(lead['ties'])} near-ties (rid, index, one "
+               f"device's token, tp 2's, f32 gap, twice the row's own max "
+               f"|bf16 - f32|) {lead['ties']}, limit {limit:.3e}"
+               if lead["ties"] else "")
+            + f"; over the {len(MESH_PROMPTS) * MESH_NEW} rows of the f32 "
+            f"replay of one device's tokens, one device's max |bf16 - f32| "
+            f"{lead['reading']:.3e}, / max|f32| at most {lead['ratio']:.3e}; "
+            f"max |tp 1 - tp 2| / max|f32| over the rows sampled on a common "
+            f"prefix {lead['worst']:.3e} (limit {2 * lead['ratio']:.3e}); "
+            f"replay {lead['replay_s']:.1f} s")
+        log(f"{name}: f32 at 2 layers {cfg32.block_pattern}: max |tp 2 - tp "
+            f"1| / max|logit| over prefill + {MESH_F32_STEPS} decode steps: "
+            + ", ".join(f"rank {r} {max(e / s for e, s in o['f32']):.3e}"
+                        for r, o in enumerate(outs)) + " (limit 1e-3)")
+        counts[name] = _sum_counts(outs)
+    return counts
+
+
+def phase_mesh_cluster_hybrid(torch, np, card, device="cuda"):
+    """Phase 32: Jamba in the reduced layout at published widths (capacity
+    factor 1.25) behind two one-rank slices, two processes on this one
+    card over gloo, on the mesh-cluster stream, beside a one-process
+    cluster: the hybrid stack's recurrent-state mirror across slices.
+    Returns the kernel counts summed over the ranks."""
+    from repro_torch.api import build_cluster
+    from repro_torch.configs import get_config
+    from repro_torch.meshserve.world import spawn
+    phase = "mesh-cluster-hybrid"
+    cfg = _jamba_cut(get_config("jamba-1.5-large-398b"))
+    spec = _cluster_spec(arch=cfg.name, traffic=_mesh_light(), device=device)
+    one = build_cluster(spec, cfg=cfg)
+    one.policy.trace = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = one.run(max_steps=spec.max_steps, source=spec.traffic.source(
+        seed=spec.seed, cfg=one.cfg))
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one_stats, one_trace, one_it = (dict(one.stats), one.policy.trace,
+                                    one.n_iterations)
+    one_tokens = sorted((r.rid, tuple(r.output_tokens)) for r in done)
+    del one, done
+    _free(torch)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_cluster_rank", MESH_WORLD, device=device,
+                  share_card=device == "cuda",
+                  args=(dataclasses.replace(spec, mesh_tp=1), cfg),
+                  timeout=MESH_TIMEOUT, threads=2)
+    log(f"{phase}: {cfg.name} {cfg.block_pattern} at published widths, "
+        f"capacity factor {cfg.moe.capacity_factor}; {spec.n_instances} "
+        f"instances, one rank each, on card 0 in "
+        f"{time.perf_counter() - t0:.1f} s; traffic "
+        f"{spec.traffic.describe()}")
+    for key in ("stats", "trace", "tokens", "iterations", "moved"):
+        check(all(o[key] == ranks[0][key] for o in ranks),
+              f"{phase}: the ranks' {key} differ")
+    out = ranks[0]
+    st = out["stats"]
+    check(out["finished"] == out["submitted"] and out["whole"],
+          f"{phase}: {out['finished']} of {out['submitted']} requests "
+          f"finished whole")
+    check(st["mirror_syncs"] > 0, f"{phase}: no mirror sync")
+    for key in ("mirror", "stream"):
+        check(st[f"{key}_bytes"] == out["moved"][key],
+              f"{phase}: stats {key}_bytes {st[f'{key}_bytes']} != "
+              f"{out['moved'][key]} priced by LineCosts")
+    for r, o in enumerate(ranks):
+        d2d, d2d_bytes, host, host_bytes = o["transfers"]
+        check(host > 0 and host_bytes > 0 and d2d == d2d_bytes == 0,
+              f"{phase} rank {r}: {d2d} device-to-device hops and {host} "
+              f"host copies over gloo, where every hop stages through the "
+              f"host")
+        _check_path_counts(o["counts"], MESH_PATHS["jamba-1.5-large-398b"],
+                           f"{phase} rank {r}")
+        log(f"{phase} rank {r}: {host} cross-slice hops, {host_bytes} B, "
+            f"all host copies (gloo stages them); pools {o['pool']} B; wall "
+            f"{o['wall']:.3f} s, {o['wall'] * 1e3 / o['iterations']:.3f} ms "
+            f"per iteration; launches {o['counts']}")
+    for key, value in one_stats.items():
+        check(st[key] == value, f"{phase}: {key} {st[key]} against the "
+              f"one-process cluster's {value}")
+    check(out["trace"] == one_trace,
+          f"{phase}: the decision trace differs from the one-process one's")
+    check(out["iterations"] == one_it, f"{phase}: {out['iterations']} "
+          f"iterations against the one-process cluster's {one_it}")
+    check(out["tokens"] == one_tokens,
+          f"{phase}: tokens differ from the one-process cluster's")
+    log(f"{phase}: stats {st}; mirror_bytes {st['mirror_bytes']:.0f} = "
+        f"LineCosts over {out['moved']['mirror_lines']} lines plus the "
+        f"recurrent state on every sync; stats, trace, iterations and "
+        f"tokens equal the one-process cluster's (wall {one_wall:.3f} s, "
+        f"{one_wall * 1e3 / one_it:.3f} ms per iteration); {card}")
+    return {phase: _sum_counts(ranks)}
+
+
+def mesh_only(torch, np, dev, card, flash_mod, decode_mod, scan_mod, flush):
     """``python3 chip_smoke.py --mesh-only``: the serve phase's six
-    requests on one engine (the reference), then phases 28-29 alone; for
+    requests on one engine (the reference), then phases 28-29, the
+    kernels at phase 31's per-rank shapes and phases 31-32 alone; for
     bringing the mesh phases up without the rest.  Prints no result
     line."""
     from repro_torch.configs import get_config
@@ -4206,7 +4992,13 @@ def mesh_only(torch, np, dev, card):
     del params
     _free(torch)
     phase_mesh(torch, np, six, per_step[8], card)
-    log("chip_smoke --mesh-only: serve, mesh-engine and mesh-cluster passed")
+    _free(torch)
+    phase_mesh_kernels(torch, flash_mod, decode_mod, scan_mod, flush)
+    phase_mesh_families(torch, np, card)
+    _free(torch)
+    phase_mesh_cluster_hybrid(torch, np, card)
+    log("chip_smoke --mesh-only: serve, mesh-engine, mesh-cluster, the "
+        "per-rank kernels, mesh-families and mesh-cluster-hybrid passed")
     return 0
 
 

@@ -25,7 +25,9 @@ The state is updated in place.  Whatever leaves the store (an exported
 slot) is a copy, so later in-place writes on either side never alias.
 
 On a mesh slice (``repro_torch.meshserve.shard_store``) each rank's state
-holds its own KV heads and ``holders`` says where the rest lives; a rank
+holds its part by the mesh's rule table (its KV heads, its block of a
+recurrent state's channels or heads, the rest whole) and ``holders`` says
+where the rest lives; a rank
 outside the slice holds no state (``state`` is None) and keeps only the
 ledger.  Then :meth:`stream_slot` yields
 :class:`~repro_torch.meshserve.collectives.SliceChunk`s, and
@@ -60,8 +62,6 @@ from repro_torch.models.state import cache_capacity
 LINE_KEYS = ("k", "v", "c_kv", "k_rope")
 #: attention-state keys written once at prefill (enc-dec cross caches)
 STATIC_KEYS = ("xk", "xv")
-#: keys whose slot view ``(R, W, KVH, hd)`` has its KV heads on axis 2
-HEAD_KEYS = ("k", "v", "xk", "xv")
 
 
 def pick_block_lines(kv_capacity: int, requested: int = 16) -> int:
@@ -139,7 +139,7 @@ class PagedStore:
         if self.holders is not None:
             return self.holders
         from repro_torch.meshserve.collectives import whole_holders
-        return whole_holders(self.cfg.num_kv_heads)
+        return whole_holders()
 
     # -- capacity ------------------------------------------------------------
     @property
@@ -362,10 +362,9 @@ class PagedStore:
                     f"(LiveCluster(mesh=))")
             dst.copy_(view)
             return
-        src = (chunk.holders if sliced
-               else coll.whole_holders(self.cfg.num_kv_heads))
-        axis = 2 if not enc and path[2] in HEAD_KEYS else None
-        coll.pull([(dst, view, axis)], self._pull_holders(), src)
+        src = chunk.holders if sliced else coll.whole_holders()
+        coll.pull([(dst, view, None if enc else path[:3])],
+                  self._pull_holders(), src)
 
     # -- delta line copy (the mirror) ------------------------------------------
     def copy_lines(self, src: "PagedStore", src_slot: int, dst_slot: int,
@@ -402,11 +401,9 @@ class PagedStore:
                 src_leaf = self._leaf(src.state, path)
                 views = [(slice(None),)] if path[3] == "recurrent" else [
                     (slice(None), slice(a, b)) for a, b in spans]
-                axis = 2 if path[2] in HEAD_KEYS else None
                 items += [(None if dst is None else dst[:, dst_slot][v],
                            None if src_leaf is None
-                           else src_leaf[:, src_slot][v],
-                           None if path[3] == "recurrent" else axis)
+                           else src_leaf[:, src_slot][v], path[:3])
                           for v in views]
             if items:
                 coll.pull(items, self._pull_holders(), src._pull_holders())

@@ -11,22 +11,27 @@ host), and as a host copy where it does not (gloo on CUDA tensors, which
 stages every collective through host memory).  So ``host_copies == 0``
 is the fast path's contract, and a world that breaks it says so.
 
-A store's state is spread over its slice's ranks: each rank holds whole
-KV heads of the head-sharded leaves (:class:`Holders`), and every other
-leaf whole.  A pull plans, for every destination rank, which source rank
-supplies each KV head it holds (itself where it holds the head on the
-source slice too, else the first source rank that does), then moves each
-(source, destination) pair's rows as ONE ``broadcast`` in the pair's
-two-rank group: the leaves packed as bytes, so a copy is one collective
-per pair whatever the dtype.  ``broadcast`` is the collective every
+A store's state is spread over its slice's ranks (:class:`Holders`):
+each cut leaf lists, per rank, the global indices of its cut dim that
+the rank holds (its KV heads, its block of a recurrent state's channels
+or heads, as ``meshserve.pool.shard_store`` cut them), and every other
+leaf is whole on every rank.  A pull plans, for every destination rank
+and every cut leaf, which source rank supplies each index it holds
+(itself where it holds that index on the source slice too, else the
+first source rank that does), and takes the whole leaves from itself,
+else from the source's first rank; then it moves each (source,
+destination) pair's rows as ONE ``broadcast`` in the pair's two-rank
+group: the leaves packed as bytes, so a copy is one collective per pair
+whatever the dtype.  ``broadcast`` is the collective every
 backend runs on every device (gloo has no ``send``/``recv`` on CUDA
 tensors, and NCCL puts one rank on one card).  Every rank runs every
 pull in the same order (SPMD); a rank outside both slices does nothing.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+import functools
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,32 +58,28 @@ class TransferStats:
 #: the transfer counter: one per process
 STATS = TransferStats()
 
+#: a state leaf's path in its store: (segment, layer part, key)
+Path = Tuple[int, str, str]
+#: a cut leaf's layout: per model rank, the global indices of the cut dim
+#: it holds, in local order (a ``range`` for a block)
+Layout = Tuple[Sequence[int], ...]
+
 
 @dataclass(frozen=True)
 class Holders:
-    """Where a store's state lives: its ranks and, per rank, the global
-    KV heads of its head-sharded leaves, in local order (a head may repeat
-    where a rank's query heads each read their own copy)."""
+    """Where a store's state lives: its ranks, and per cut leaf its
+    (negative) cut dim and :data:`Layout`; a leaf not in ``cuts`` is whole
+    on every rank."""
 
     ranks: Tuple[int, ...]
-    heads: Tuple[Tuple[int, ...], ...]
-
-    @classmethod
-    def everywhere(cls, world: int, kv_heads: int) -> "Holders":
-        """A whole store built on every rank (an unsharded engine)."""
-        whole = tuple(range(kv_heads))
-        return cls(tuple(range(world)), (whole,) * world)
-
-    def heads_of(self, rank: int) -> Tuple[int, ...]:
-        return self.heads[self.ranks.index(rank)]
+    cuts: Mapping[Path, Tuple[int, Layout]] = field(default_factory=dict)
 
 
-def whole_holders(kv_heads: int) -> Holders:
+def whole_holders() -> Holders:
     """A whole store that every rank of the world builds (one rank with
     no world)."""
     dist = active_world()
-    return Holders.everywhere(dist.get_world_size() if dist else 1,
-                              kv_heads)
+    return Holders(tuple(range(dist.get_world_size() if dist else 1)))
 
 
 @dataclass
@@ -92,47 +93,75 @@ class SliceChunk:
 
 
 #: one copy item: (destination view or None, source view or None, the
-#: KV-head axis of both views, or None for a leaf held whole)
-Item = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[int]]
+#: leaf's path in both stores, or None for a leaf whole everywhere)
+Item = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[Path]]
+
+#: a cut's plan key: (the destination's layout, the source's), either
+#: None where that side holds the leaf whole on every rank
+Kind = Tuple[Optional[Layout], Optional[Layout]]
+
+#: one pair's move: (src rank, dst rank, per kind the dst positions it
+#: fills and the src positions they come from, whether the pair also
+#: moves the whole leaves)
+Move = Tuple[int, int, Dict[Kind, Tuple[List[int], List[int]]], bool]
 
 
-def _plan(dst: Holders, src: Holders
-          ) -> List[Tuple[int, int, List[int], List[int], bool]]:
-    """``(src rank, dst rank, dst positions, src positions, whole)``
-    per pair that moves anything: the destination's local head positions
-    it fills from that source, the source's local positions they come
-    from, and whether the pair also moves the whole (unsharded) leaves."""
+def _units(layout: Optional[Layout], other: Optional[Layout], i: int
+           ) -> Sequence[int]:
+    """The indices model rank ``i`` holds: its part of ``layout``, or,
+    where it holds the leaf whole, every index the other side's ranks
+    hold between them (the whole dim)."""
+    if layout is not None:
+        return layout[i]
+    return sorted(set().union(*map(set, other)))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(dst: Tuple[int, ...], src: Tuple[int, ...],
+          kinds: Tuple[Kind, ...]) -> List[Move]:
+    """The moves of a pull between the ranks ``dst`` and ``src``: every
+    destination rank fills each index it holds of each cut from itself
+    where it holds that index on the source slice too, else from the
+    first source rank that does, and takes the whole leaves from itself,
+    else from the source's first rank."""
+    at = {kind: {r: {u: p for p, u in enumerate(_units(kind[1], kind[0], i))}
+                 for i, r in enumerate(src)} for kind in kinds}
     out = []
-    for d in dst.ranks:
-        want = dst.heads_of(d)
-        by_src: Dict[int, Tuple[List[int], List[int]]] = {}
-        for p, h in enumerate(want):
-            s = d if d in src.ranks and h in src.heads_of(d) else next(
-                r for r in src.ranks if h in src.heads_of(r))
-            dp, sp = by_src.setdefault(s, ([], []))
-            dp.append(p)
-            sp.append(src.heads_of(s).index(h))
-        whole_from = d if d in src.ranks else src.ranks[0]
-        by_src.setdefault(whole_from, ([], []))
+    for i, d in enumerate(dst):
+        by_src: Dict[int, Dict[Kind, Tuple[List[int], List[int]]]] = {}
+        for kind in kinds:
+            held = at[kind]
+            for p, u in enumerate(_units(kind[0], kind[1], i)):
+                s = d if d in held and u in held[d] else next(
+                    r for r in src if u in held[r])
+                dp, sp = by_src.setdefault(s, {}).setdefault(kind, ([], []))
+                dp.append(p)
+                sp.append(held[s][u])
+        whole_from = d if d in src else src[0]
+        by_src.setdefault(whole_from, {})
         for s in sorted(by_src):
-            dp, sp = by_src[s]
-            out.append((s, d, dp, sp, s == whole_from))
+            out.append((s, d, by_src[s], s == whole_from))
     return out
 
 
 def _pick(view: torch.Tensor, axis: Optional[int], pos: List[int]):
-    if axis is None:
+    if axis is None or _all(view, axis, pos):
         return view
     return view.index_select(axis, torch.as_tensor(pos, device=view.device))
 
 
 def _put(view: torch.Tensor, axis: Optional[int], pos: List[int],
          part: torch.Tensor) -> None:
-    if axis is None:
+    if axis is None or _all(view, axis, pos):
         view.copy_(part)
     else:
         view.index_copy_(axis, torch.as_tensor(pos, device=view.device),
                          part)
+
+
+def _all(view: torch.Tensor, axis: int, pos: List[int]) -> bool:
+    """Whether ``pos`` is every index of ``view``'s ``axis``, in order."""
+    return pos == list(range(view.shape[axis]))
 
 
 def _shape(view: torch.Tensor, axis: Optional[int], n: int):
@@ -148,29 +177,43 @@ def pull(items: Sequence[Item], dst: Holders, src: Holders) -> None:
     leaves, in the same order, on every rank."""
     import torch.distributed as dist
     me = this_rank()
-    for s, d, dp, sp, whole in _plan(dst, src):
+    cuts = []                         # per item: None, or (axis, kind)
+    for _, _, path in items:
+        dc, sc = dst.cuts.get(path), src.cuts.get(path)
+        cut = dc or sc
+        cuts.append(None if cut is None else (
+            cut[0], (dc and dc[1], sc and sc[1])))
+    kinds = tuple(dict.fromkeys(c[1] for c in cuts if c is not None))
+    for s, d, pos, whole in _plan(dst.ranks, src.ranks, kinds):
         if me not in (s, d):
             continue
-        moves = [(dv, sv, ax) for dv, sv, ax in items
-                 if ax is not None or whole]
-        if not any(ax is None or dp for _, _, ax in moves):
+        # (dst view, src view, axis, dst positions, src positions) of
+        # every leaf this pair moves
+        moves = []
+        for (dv, sv, _), cut in zip(items, cuts):
+            if cut is None:
+                if whole:
+                    moves.append((dv, sv, None, [], []))
+            elif cut[1] in pos:
+                dp, sp = pos[cut[1]]
+                moves.append((dv, sv, cut[0], dp, sp))
+        if not moves:
             continue
         if s == d:                       # held on this rank: a local copy
-            for dv, sv, ax in moves:
-                if ax is None or dp:
-                    _put(dv, ax, dp, _pick(sv, ax, sp))
+            for dv, sv, ax, dp, sp in moves:
+                _put(dv, ax, dp, _pick(sv, ax, sp))
             continue
         if me == s:
-            parts = [_pick(sv, ax, sp).contiguous().view(-1).view(torch.uint8)
-                     for dv, sv, ax in moves if ax is None or dp]
-            buf = torch.cat(parts)
+            buf = torch.cat([_pick(sv, ax, sp).contiguous().view(-1)
+                             .view(torch.uint8)
+                             for _, sv, ax, _, sp in moves])
         else:
-            shapes = [(dv, ax, _shape(dv, ax, len(dp))) for dv, _, ax in moves
-                      if ax is None or dp]
+            shapes = [(dv, ax, dp, _shape(dv, ax, len(dp)))
+                      for dv, _, ax, dp, _ in moves]
             n = sum(int(torch.Size(sh).numel()) * dv.element_size()
-                    for dv, _, sh in shapes)
-            buf = torch.empty((n,), dtype=torch.uint8, device=next(
-                dv for dv, _, _ in moves).device)
+                    for dv, _, _, sh in shapes)
+            buf = torch.empty((n,), dtype=torch.uint8,
+                              device=moves[0][0].device)
         group = group_of((s, d))
         dist.broadcast(buf, src=s, group=group)
         if _through_host(buf, group):
@@ -181,7 +224,7 @@ def pull(items: Sequence[Item], dst: Holders, src: Holders) -> None:
             STATS.d2d_bytes += int(buf.numel())
         if me == d:
             off = 0
-            for dv, ax, sh in shapes:
+            for dv, ax, dp, sh in shapes:
                 nb = int(torch.Size(sh).numel()) * dv.element_size()
                 part = buf[off: off + nb].view(dv.dtype).view(sh)
                 _put(dv, ax, dp, part)

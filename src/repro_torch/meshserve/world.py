@@ -4,7 +4,9 @@
 of which joins one ``torch.distributed`` world through a rendezvous file
 in a fresh temporary directory and calls ``target(rank, world, *args)``;
 it returns every rank's result, in rank order.  A rank that fails stops
-the others, and its traceback is raised here.
+the others, and its traceback is raised here; a rank whose process dies
+after it has handed its result over has not failed (its exit code is
+logged).
 
 The backend follows the device:
   * ``"cpu"``: gloo;
@@ -20,6 +22,7 @@ The backend follows the device:
 from __future__ import annotations
 
 import importlib
+import logging
 import os
 import pickle
 import shutil
@@ -33,6 +36,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.meshserve.topology import MeshError
+
+_LOG = logging.getLogger(__name__)
 
 
 def _child(target: str, rank: int, world: int, device: str,
@@ -58,9 +63,33 @@ def _child(target: str, rank: int, world: int, device: str,
         if dist.is_initialized():
             dist.destroy_process_group()
     finally:
-        out.write_bytes(pickle.dumps(payload))
+        # written whole, then renamed: the parent never reads half a file
+        tmp = out.with_suffix(".tmp")
+        tmp.write_bytes(pickle.dumps(payload))
+        os.replace(tmp, out)
     if payload[0] != "ok":
         raise SystemExit(1)
+
+
+def _result(root: str, rank: int):
+    """A rank's (status, value), or None before it has written one."""
+    path = Path(root) / f"rank{rank}.pkl"
+    return pickle.loads(path.read_bytes()) if path.exists() else None
+
+
+def _reap(procs, wait: float = 10.0) -> None:
+    """Give ranks that handed over their results ``wait`` seconds to exit,
+    and log any that exits with an error code or a signal, or is still
+    running (then it is stopped); it has not failed: its result is in."""
+    deadline = time.monotonic() + wait
+    for r, p in enumerate(procs):
+        p.join(max(0.0, deadline - time.monotonic()))
+        if p.exitcode is None:
+            _LOG.warning("rank %d still runs %.0f s after handing over its "
+                         "result; stopping it", r, wait)
+        elif p.exitcode:
+            _LOG.warning("rank %d exited with code %d after handing over "
+                         "its result", r, p.exitcode)
 
 
 def spawn(target: str, world: int, *, device: str = "cuda",
@@ -85,27 +114,36 @@ def spawn(target: str, world: int, *, device: str = "cuda",
         for p in procs:
             p.start()
         deadline = None if timeout is None else time.monotonic() + timeout
-        while any(p.is_alive() for p in procs):
-            failed = [p for p in procs if p.exitcode not in (None, 0)]
-            if failed or (deadline is not None
-                          and time.monotonic() > deadline):
+        # wait until every rank has its result, or one rank failed (an
+        # error, or an exit with no result); a rank whose process dies
+        # after it wrote its result (in the backend's teardown, say) has
+        # not failed
+        got: List[Any] = [None] * world
+        while True:
+            got = [g if g is not None else _result(root, r)
+                   for r, g in enumerate(got)]
+            if all(g is not None and g[0] == "ok" for g in got):
+                break
+            if any(g is not None and g[0] != "ok" for g in got) or any(
+                    g is None and p.exitcode is not None
+                    for g, p in zip(got, procs)):
+                break
+            if deadline is not None and time.monotonic() > deadline:
                 break
             time.sleep(0.05)
         results, errors = [], []
-        for r, p in enumerate(procs):
-            path = Path(root) / f"rank{r}.pkl"
-            if p.is_alive() or not path.exists():
+        for r, (g, p) in enumerate(zip(got, procs)):
+            if g is None:
                 errors.append(f"rank {r}: exit code {p.exitcode} "
                               f"(no result)")
-                continue
-            status, value = pickle.loads(path.read_bytes())
-            if status == "ok":
-                results.append(value)
+            elif g[0] == "ok":
+                results.append(g[1])
             else:
-                errors.append(f"rank {r}:\n{value}")
+                errors.append(f"rank {r}:\n{g[1]}")
         if errors:
             raise RuntimeError(f"{target} on a world of {world} failed:\n"
                                + "\n".join(errors))
+        _reap(procs)
         return results
     finally:
         for p in procs:

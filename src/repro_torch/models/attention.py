@@ -25,6 +25,10 @@ encoder memory through the plain chunked :func:`flash_attention`, as the
 JAX package does on every backend; its K/V are projected once at prefill
 and cached per layer (``xk``/``xv``).
 
+:func:`gqa_forward`, :func:`cross_attn_forward` and :func:`mla_forward`
+run under tensor parallelism on the rank's whole heads, read from the
+weights' shapes, and sum their row-parallel ``wo`` partials.
+
 :func:`mla_forward` computes MLA as the JAX package does, outside any
 kernel: in full mode it expands the latent into per-head K/V (qk head dim
 192, v 128) and attends through the plain chunked online softmax
@@ -364,7 +368,9 @@ def cross_attn_forward(
     attends through the plain chunked :func:`flash_attention` on every
     device, so it reaches no kernel."""
     B, S, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    # under tensor parallelism the rank's whole heads, as in gqa_forward
+    h, kvh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     scale = 1.0 / math.sqrt(hd)
     q = (x @ params["wq"]).reshape(B, S, h, hd)
     cached = state is not None and "xk" in state
@@ -385,7 +391,10 @@ def cross_attn_forward(
     else:
         k, v = state["xk"], state["xv"]
     out = flash_attention(q, k, v, causal=False, scale=scale)
-    return out.reshape(B, S, h * hd) @ params["wo"], state
+    out = out.reshape(B, S, h * hd) @ params["wo"]
+    if h != cfg.num_heads:
+        out = sharding.reduce(out)
+    return out, state
 
 
 # ---------------------------------------------------------------------------
@@ -416,11 +425,14 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
 def _mla_qkv_latent(cfg: ModelConfig, params, x: torch.Tensor,
                     positions: torch.Tensor):
     """The shared projections: roped q split into (nope, rope), the normed
-    latent and the roped shared key-rope."""
+    latent and the roped shared key-rope.  Under tensor parallelism q
+    holds the rank's whole heads (the head count comes from ``wq_b``);
+    the latent and the key-rope are whole on every rank."""
     m = cfg.mla
     B, S, _ = x.shape
     q = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.rms_norm_eps)
-    q = (q @ params["wq_b"]).reshape(B, S, cfg.num_heads, m.qk_head_dim)
+    h = params["wq_b"].shape[-1] // m.qk_head_dim
+    q = (q @ params["wq_b"]).reshape(B, S, h, m.qk_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv = x @ params["wkv_a"]
@@ -463,7 +475,7 @@ def mla_forward(
                          "path")
     m = cfg.mla
     B, S, _ = x.shape
-    h = cfg.num_heads
+    h = params["wq_b"].shape[-1] // m.qk_head_dim     # this rank's heads
     nope, vd = m.qk_nope_head_dim, m.v_head_dim
     scale = 1.0 / math.sqrt(m.qk_head_dim)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(cfg, params, x, positions)
@@ -517,6 +529,8 @@ def mla_forward(
         raise ValueError(mode)
 
     out = out.reshape(B, S, h * vd) @ params["wo"]
+    if h != cfg.num_heads:
+        out = sharding.reduce(out)       # sum the ranks' head partials
     return out, state
 
 

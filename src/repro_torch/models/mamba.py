@@ -11,6 +11,14 @@ in plain PyTorch, as the JAX package does.
 Dtypes follow the JAX package: the scan runs in f32; ``A_log``, ``D`` and
 ``dt_b`` are f32 leaves; the ``conv`` state is in the model dtype and the
 ``ssm`` state in f32.  State leaves are written in place.
+
+Under tensor parallelism (``repro_torch.meshserve``) a rank holds its
+block of the inner channels ``d_in``: both halves of ``in_proj``, the
+conv, ``dt_w``'s columns, ``dt_b``, ``A_log``, ``D``, and the rows of
+``x_proj`` and ``out_proj``; the scan runs on its channels alone.  dt, B
+and C read every channel, so the ranks' ``x_proj`` partials are summed
+(in f32) before they split, and the ``out_proj`` partials after.  The
+weights' shapes tell a shard from the whole layer.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.models.common import dense_init
@@ -57,9 +66,11 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
     }
 
 
-def _split_proj(cfg, params, x):
-    d_in = cfg.mamba.expand * cfg.d_model
+def _split_proj(params, x):
+    """x and z from the packed ``in_proj`` [x | z] (this rank's channels
+    of each half under TP)."""
     xz = x @ params["in_proj"]
+    d_in = xz.shape[-1] // 2
     return xz[..., :d_in], xz[..., d_in:]
 
 
@@ -75,9 +86,16 @@ def _causal_conv_full(params, xp: torch.Tensor, d_conv: int) -> torch.Tensor:
     return acc + params["conv_b"].float()
 
 
-def _ssm_inputs(cfg, params, x_c, dt_rank):
+def _ssm_inputs(cfg, params, x_c, dt_rank, sharded: bool):
     mc = cfg.mamba
-    dbc = x_c.to(params["x_proj"].dtype) @ params["x_proj"]
+    w = params["x_proj"]
+    if sharded:
+        # row-parallel: the ranks' partials over their channels, summed
+        # in f32, then rounded once to the weights' dtype
+        dbc = sharding.reduce(x_c.to(w.dtype).float() @ w.float()).to(
+            w.dtype)
+    else:
+        dbc = x_c.to(w.dtype) @ w
     dt = dbc[..., :dt_rank]
     b_ssm = dbc[..., dt_rank: dt_rank + mc.d_state].float()
     c_ssm = dbc[..., dt_rank + mc.d_state:].float()
@@ -107,13 +125,15 @@ def mamba_forward(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     mc, d_in, dt_rank = _dims(cfg)
     B, S, _ = x.shape
-    xp, z = _split_proj(cfg, params, x)
+    xp, z = _split_proj(params, x)
+    sharded = xp.shape[-1] != d_in
+    d_in = xp.shape[-1]
     A = -torch.exp(params["A_log"])
     D = params["D"]
 
     if mode == "full":
         x_c = F.silu(_causal_conv_full(params, xp, mc.d_conv))
-        dt, b_ssm, c_ssm = _ssm_inputs(cfg, params, x_c, dt_rank)
+        dt, b_ssm, c_ssm = _ssm_inputs(cfg, params, x_c, dt_rank, sharded)
         h0 = (state["ssm"] if state is not None
               else torch.zeros((B, d_in, mc.d_state), dtype=torch.float32,
                                device=x.device))
@@ -144,7 +164,7 @@ def mamba_forward(
         w = params["conv_w"].float()
         x_c = F.silu(torch.einsum("bkd,kd->bd", conv.float(), w)
                      + params["conv_b"].float())[:, None]   # (B, 1, d_in)
-        dt, b_ssm, c_ssm = _ssm_inputs(cfg, params, x_c, dt_rank)
+        dt, b_ssm, c_ssm = _ssm_inputs(cfg, params, x_c, dt_rank, sharded)
         h, y = _ssm_step(A, D, state["ssm"], x_c[:, 0], dt[:, 0],
                          b_ssm[:, 0], c_ssm[:, 0])
         y = y[:, None]
@@ -154,4 +174,7 @@ def mamba_forward(
         raise ValueError(mode)
 
     y = (y.to(x.dtype) * F.silu(z)).to(x.dtype)
-    return y @ params["out_proj"], state
+    out = y @ params["out_proj"]
+    if sharded:
+        out = sharding.reduce(out)       # sum the ranks' channel partials
+    return out, state

@@ -146,7 +146,9 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token (+ visual prefix) embedding for decoder-only models, and the
     positions of the whole sequence.  The projector runs in f32 and its
-    output is cast to the embedding's dtype."""
+    output is cast to the embedding's dtype; under tensor parallelism a
+    rank holds ``w1``'s columns and ``w2``'s rows of its block of the
+    hidden width."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     dev = tokens.device
@@ -154,7 +156,12 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
         pe = batch["patch_embeds"]
         proj = params["proj"]
         prefix = gelu(pe.float() @ proj["w1"].float())
-        prefix = (prefix @ proj["w2"].float()).to(params["embed"].dtype)
+        prefix = prefix @ proj["w2"].float()
+        if proj["w1"].shape[-1] != cfg.d_model:
+            # tensor parallelism: column-parallel w1, row-parallel w2,
+            # the ranks' f32 partials summed before the cast
+            prefix = sharding.reduce(prefix)
+        prefix = prefix.to(params["embed"].dtype)
         P = pe.shape[1]
         positions = torch.arange(P + S, device=dev)
         tok_x = _embed_tokens(cfg, params, tokens, positions[P:])

@@ -10,8 +10,10 @@ rank order is flat assignment order, token-major.
 Experts held whole run locally.  Split over a mesh's model ranks
 (``repro_torch.meshserve``), they run the JAX package's two strategies
 on ``torch.distributed``: ``psum`` (an all-reduce of the ranks' partial
-outputs) and ``a2a`` (two all-to-alls over the model group, which gloo
-runs on the CPU; the port does not run it on the card yet).
+outputs) and ``a2a`` (two all-to-alls over the model group).  ``a2a``
+drops assignments against each shard's capacity, as the JAX package's
+does, so at a capacity factor that binds a mesh's tokens can differ from
+one device's.
 """
 from __future__ import annotations
 

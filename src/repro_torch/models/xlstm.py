@@ -18,6 +18,15 @@ Faithfulness notes, as in the JAX package:
   * i/f gates are per-head scalars from the conv features; the o gate is an
     elementwise sigmoid on the up-projected stream.
   * sLSTM recurrent gates use headwise block-diagonal recurrent matrices.
+
+Under tensor parallelism (``repro_torch.meshserve``) an mLSTM rank holds
+whole heads: its heads' columns of ``w_up``, ``w_z``, the conv and
+``w_o``, its heads of the q/k/v and i/f gate leaves, ``w_down``'s rows
+and its heads' state, so the whole recurrence runs locally and only
+``w_down``'s partials are summed.  The sLSTM recurrence stays whole on
+every rank (its headwise recurrent product feeds every unit's gates);
+its gated FFN is cut, each half of ``w_up`` and ``w_down``'s rows, and
+its partials summed.  The weights' shapes tell a shard from the whole.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, gelu
 from repro_torch.models.state import xlstm_dims
@@ -98,9 +108,10 @@ def _mlstm_step(q_t, k_t, v_t, i_t, f_t, carry):
 
 def _mlstm_qkvif(cfg: ModelConfig, params, x: torch.Tensor,
                  conv_hist: Optional[torch.Tensor] = None):
-    """conv_hist: (B, ksize - 1, d_in) previous inputs (decode continuity)."""
-    d_in, hd = xlstm_dims(cfg, "mlstm")
-    h = cfg.num_heads
+    """conv_hist: (B, ksize - 1, d_in) previous inputs (decode continuity).
+    ``d_in`` and the heads are this rank's under TP (from the weights)."""
+    d_in, h = params["w_up"].shape[-1], params["wq"].shape[-3]
+    hd = d_in // h
     B, S, _ = x.shape
     x_up = x @ params["w_up"]
     z = x @ params["w_z"]
@@ -179,8 +190,9 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, carry0, chunk: int):
 def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
                   state=None, update_cache: bool = False
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
-    d_in, hd = xlstm_dims(cfg, "mlstm")
-    h = cfg.num_heads
+    d_whole, _ = xlstm_dims(cfg, "mlstm")
+    d_in, h = params["w_up"].shape[-1], params["wq"].shape[-3]
+    hd = d_in // h
     B, S, _ = x.shape
     conv_hist = (state["conv"][:, 1:] if mode == "decode"
                  and state is not None else None)
@@ -225,8 +237,10 @@ def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
         raise ValueError(mode)
 
     out = (h_seq.reshape(B, S, d_in) * o).to(x.dtype)
-    out = out * F.silu(z)
-    return out @ params["w_down"], state
+    out = (out * F.silu(z)) @ params["w_down"]
+    if d_in != d_whole:
+        out = sharding.reduce(out)       # sum the ranks' head partials
+    return out, state
 
 
 def _write_state(state, keys, values):
@@ -308,4 +322,7 @@ def slstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
 
     up = h_seq.to(x.dtype) @ params["w_up"]
     gate, val = up.chunk(2, dim=-1)
-    return (gelu(gate) * val) @ params["w_down"], state
+    out = (gelu(gate) * val) @ params["w_down"]
+    if params["w_down"].shape[-2] != xlstm_dims(cfg, "slstm")[0]:
+        out = sharding.reduce(out)       # the rank's rows of the FFN
+    return out, state

@@ -42,8 +42,8 @@ and its dispatches run under the slice's TP context
 keeps only the host bookkeeping (ledger, slots, lengths, tokens) and
 computes nothing.  After each plan the slice's lead rank broadcasts the
 sampled tokens to the whole world, so every rank's scheduler sees the same
-state and makes the same decisions.  The attention-only GQA decoders (with
-dense or MoE FFNs) serve on a mesh; the other stacks wait for slice 13.
+state and makes the same decisions.  Every stack serves on a mesh: each
+leaf's cut is the rule table's (``repro_torch.meshserve.pool``).
 """
 from __future__ import annotations
 
@@ -94,20 +94,14 @@ class InstanceEngine:
         self.seed = seed
         self.store = PagedStore(cfg, num_slots, kv_capacity,
                                 block_lines=block_lines, device=self.device)
-        #: the config of this rank's state (its KV heads on a mesh slice)
-        self._state_cfg = cfg
         #: whether this process computes for the engine (not a shadow)
         self._computes = mesh is None or mesh.holds
         self._model_axis = None
         if mesh is not None:
-            from repro_torch.meshserve.pool import (local_config,
-                                                    shard_params,
-                                                    shard_store)
+            from repro_torch.meshserve.pool import shard_params, shard_store
             self.params = (shard_params(cfg, params, mesh)
                            if mesh.holds else None)
             shard_store(self.store, mesh)
-            if mesh.holds:
-                self._state_cfg = local_config(cfg, mesh)
             self._model_axis = mesh.model_axis_for(cfg)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.last_tokens = np.zeros((num_slots,), np.int32)
@@ -161,6 +155,14 @@ class InstanceEngine:
     @property
     def state(self):
         return self.store.state
+
+    def _fresh_state(self, batch: int, window: int):
+        """A zero scratch state: this rank's part of it on a mesh slice
+        (``meshserve.pool.local_state``), else whole."""
+        if self.mesh is None:
+            return init_state(self.cfg, batch, window, device=self.device)
+        from repro_torch.meshserve.pool import local_state
+        return local_state(self.cfg, self.mesh, batch, window)
 
     def _mesh_ctx(self):
         """The TP context of this engine's dispatches: the slice's group,
@@ -411,7 +413,7 @@ class InstanceEngine:
                   if self._attn_only and not extra else self.kv_capacity)
         tok = np.zeros((1,), np.int32)
         if self._computes:
-            fresh = init_state(self._state_cfg, 1, window, device=self.device)
+            fresh = self._fresh_state(1, window)
             batch = {"tokens": self._tokens(req).to(self.device)}
             for key, value in (extra or {}).items():
                 batch[key] = torch.as_tensor(value, device=self.device)
@@ -448,8 +450,7 @@ class InstanceEngine:
         next_toks = np.zeros((Bp,), np.int32)
         fresh = None
         if self._computes:
-            fresh = init_state(self._state_cfg, Bp, bucket,
-                               device=self.device)
+            fresh = self._fresh_state(Bp, bucket)
             with self._mesh_ctx():
                 logits, fresh = prefill_batched(
                     self.cfg, self.params,
@@ -782,15 +783,8 @@ class InstanceEngine:
 
 
 def _check_mesh(cfg: ModelConfig, mesh, device: torch.device) -> None:
-    """A mesh engine needs a stack the port's TP covers, the slice's kind
-    of device, and a world behind a slice wider than one rank."""
-    if (cfg.attention_kind != "gqa" or cfg.is_encoder_decoder
-            or cfg.frontend is not None
-            or any(b != "attn" for b in cfg.block_pattern)):
-        raise NotImplementedError(
-            f"{cfg.name}: mesh serving of the Mamba, MLA, xLSTM, "
-            f"encoder-decoder and vision stacks waits for slice 13 of the "
-            f"port (the attention-only GQA decoders serve on a mesh)")
+    """A mesh engine needs the slice's kind of device, and a world behind
+    a slice wider than one rank."""
     if mesh.device.type != device.type:
         raise ValueError(f"a mesh slice on {mesh.device} for an engine on "
                          f"{device}")

@@ -14,7 +14,7 @@ import torch
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.meshserve import STATS, MeshPlacement, carve_slices
-from repro_torch.meshserve.pool import shard_params
+from repro_torch.meshserve.pool import local_state, shard_params
 from repro_torch.meshserve.topology import group_of
 from repro_torch.models import (decode_step_paged, init_state,
                                 prefill_batched)
@@ -64,9 +64,9 @@ def logits_at(cfg, params, sl):
         lens[i] = r.prompt_len
     if sl is not None:
         params = shard_params(cfg, params, sl)
-    kv = params["segments"][0]["p0"]["mixer"]["wk"].shape[-1] // cfg.head_dim
-    scfg = dataclasses.replace(cfg, num_kv_heads=kv)
-    state = init_state(scfg, 4, L, device=CPU)
+        state = local_state(cfg, sl, 4, L)
+    else:
+        state = init_state(cfg, 4, L, device=CPU)
     ctx = sharding.use_mesh(sl.group if sl is not None else None)
     with ctx:
         pre, state = prefill_batched(cfg, params, torch.as_tensor(toks),
@@ -305,3 +305,210 @@ def card_stream(rank, world):
     cfg = get_config("starcoder2-3b").reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
     return stream_and_mirror(cfg, params, tp=1, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the other stacks on a mesh: Mamba, MLA, xLSTM, encoder-decoder, vision
+# ---------------------------------------------------------------------------
+
+#: the families served on a mesh beside the GQA decoders
+FAMILIES = ("jamba-1.5-large-398b", "deepseek-v3-671b", "xlstm-1.3b",
+            "seamless-m4t-large-v2", "internvl2-1b")
+
+
+def family_extras(cfg, n, seed=5):
+    """Request ``i``'s modality payload (numpy), or None."""
+    from repro_torch.workloads import default_extras
+    return [default_extras(cfg, seed, i) for i in range(n)]
+
+
+def family_generate(cfg, params, mesh, steps=5, device=CPU):
+    """Three requests, each with its payload, prefilled one by one, then
+    ``steps - 1`` decode steps (dense: these stacks do not page)."""
+    eng = InstanceEngine(cfg, params, num_slots=4, kv_capacity=64,
+                         temperature=0.0, mesh=mesh, device=device)
+    reqs = requests(cfg, 3, steps=steps)
+    for r, extra in zip(reqs, family_extras(cfg, 3)):
+        eng.prefill_request(r, extra)
+    eng.decode_multi(steps=steps - 1)
+    return eng, [list(map(int, r.output_tokens)) for r in reqs]
+
+
+def family_batch(cfg, B=2, S=8):
+    """Two equal-length prompts and their payloads, stacked (numpy)."""
+    toks = np.concatenate([prompt(i, S, cfg.vocab_size, seed=9)
+                           for i in range(B)])
+    batch = {"tokens": toks}
+    extras = family_extras(cfg, B, seed=9)
+    if extras[0]:
+        for key in extras[0]:
+            batch[key] = np.concatenate([e[key] for e in extras])
+    return batch
+
+
+def family_clock(cfg, S=8):
+    """The decode clock after a prefill of ``S`` tokens: a VLM's patches
+    lead the sequence."""
+    vlm = cfg.frontend is not None and cfg.frontend.kind == "vision"
+    return S + (cfg.frontend.num_prefix_tokens if vlm else 0)
+
+
+def family_logits(cfg, params, sl, steps=2):
+    """Prefill logits of ``family_batch`` and ``steps`` greedy dense decode
+    steps' logits, under the slice's TP context (whole params without a
+    slice)."""
+    from repro_torch.models import decode_step, prefill
+    batch = {k: torch.as_tensor(v) for k, v in family_batch(cfg).items()}
+    B = batch["tokens"].shape[0]
+    if sl is not None:
+        params = shard_params(cfg, params, sl)
+        state = local_state(cfg, sl, B, 32)
+    else:
+        state = init_state(cfg, B, 32, device=CPU)
+    t = family_clock(cfg)
+    out = []
+    with sharding.use_mesh(sl.group if sl is not None else None):
+        logits, state = prefill(cfg, params, batch, state)
+        out.append(logits.numpy())
+        for j in range(steps):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            logits, state = decode_step(cfg, params, tok, state,
+                                        torch.full((B,), t + j,
+                                                   dtype=torch.int32))
+            out.append(logits.numpy())
+    return out
+
+
+def _shapes(tree, path=""):
+    """{path: shape} of a nested dict/list tree's tensors."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        return {p: n for k, v in tree.items()
+                for p, n in _shapes(v, f"{path}/{k}" if path else k).items()}
+    if isinstance(tree, list):
+        return {p: n for i, v in enumerate(tree)
+                for p, n in _shapes(v, f"{path}/{i}" if path else str(i))
+                .items()}
+    return {path: tuple(tree.shape)}
+
+
+def with_capacity(cfg, factor):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+
+
+def family_ranks(cfg, params, tps=(2, 4), mutate=None):
+    """Per tp: this rank's tokens, logits and per-leaf numels, on a slice
+    of the first ``tp`` ranks.  ``mutate`` maps a block kind to leaf rules
+    that replace the rule table's (a deliberately wrong cut)."""
+    from repro_torch.meshserve import pool
+    out = {}
+    saved = {k: dict(v) for k, v in pool.PARAM_RULES.items()}
+    try:
+        for kind, rules in (mutate or {}).items():
+            pool.PARAM_RULES[kind].update(rules)
+        for tp in tps:
+            (sl,) = carve_slices(tp, 1, device=CPU)
+            eng, toks = family_generate(cfg, params, sl)
+            mine = {"tokens": toks, "holds": sl.holds,
+                    "params": _shapes(eng.params),
+                    "state": _shapes(eng.state),
+                    "logits": (family_logits(cfg, params, sl)
+                               if sl.holds else None)}
+            out[tp] = mine
+    finally:
+        for kind, rules in saved.items():
+            pool.PARAM_RULES[kind].clear()
+            pool.PARAM_RULES[kind].update(rules)
+    return out
+
+
+def mutated(payload):
+    """Each mutation case: its config's tokens and logits at tp 2 under
+    the rule table and under the mutated cuts, on weights drawn on every
+    rank from one seed; MoE dispatch dropless, so that one device's
+    logits are the answer."""
+    from repro_torch.models import init_params
+    out = {}
+    for name, (arch, xlstm, rules) in payload.items():
+        cfg = get_config(arch).reduced()
+        if xlstm:
+            cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(
+                cfg.xlstm, **xlstm))
+        if cfg.moe is not None:
+            cfg = with_capacity(cfg, cfg.moe.num_experts / cfg.moe.top_k)
+        params = init_params(cfg, torch.Generator().manual_seed(1),
+                             device=CPU)
+        one = family_logits(cfg, params, None)
+        out[name] = {"one": one,
+                     "kept": family_ranks(cfg, params, tps=(2,)),
+                     "mutated": family_ranks(cfg, params, tps=(2,),
+                                             mutate=rules)}
+    return out
+
+
+def families(rank, world, payload):
+    """Every family at tp 2 and 4 on a world of 4: tokens, logits, bytes;
+    the MoE families also at the dropless capacity factor; the mutation
+    cases at tp 2."""
+    out = {}
+    for arch, params_np in payload["params"].items():
+        cfg = get_config(arch).reduced()
+        params = params_from_numpy(params_np, device=CPU)
+        got = {"published": family_ranks(cfg, params,
+                                         tps=payload["tps"].get(arch,
+                                                                (2, 4)))}
+        if cfg.moe is not None and arch != "arctic-480b":
+            dropless = with_capacity(cfg, cfg.moe.num_experts
+                                     / cfg.moe.top_k)
+            got["dropless"] = family_ranks(dropless, params, tps=(2,))
+        out[arch] = got
+    out["mutated"] = mutated(payload["mutate"])
+    return out
+
+
+def family_cluster(cfg, params, shapes, mesh=True, seed=11):
+    """``mesh_cluster`` with each request's modality payload: two
+    instances, on two tp-2 slices of a world of 4 (``mesh``) or whole in
+    this process."""
+    kernel = AcceLLMScheduler()
+    kernel.trace = []
+    cluster = LiveCluster(cfg, params, n_instances=2, num_slots=6,
+                          kv_capacity=64, policy=kernel,
+                          mesh=(MeshPlacement.carve(2, tp=2, device=CPU)
+                                if mesh else None), device=CPU)
+    STATS.reset()
+    reqs = [Request(prompt_len=p, max_new_tokens=d, rid=i,
+                    prompt_tokens=prompt(i, p, cfg.vocab_size, seed=seed))
+            for i, (p, d) in enumerate(shapes)]
+    for r, extra in zip(reqs, family_extras(cfg, len(reqs), seed=seed)):
+        cluster.submit(r, extra)
+    done = cluster.run(max_steps=200)
+    return {"finished": len(done), "stats": dict(cluster.stats),
+            "trace": kernel.trace,
+            "tokens": [list(map(int, r.output_tokens)) for r in reqs],
+            "transfers": (STATS.d2d_copies, STATS.host_copies),
+            "pools": [e.state_bytes() for e in cluster.engines]}
+
+
+def api_serve_arch(arch, mesh_tp=2):
+    from repro_torch.api import ServeSpec, serve
+    rep = serve(ServeSpec(arch=arch, n_instances=2, num_slots=4,
+                          kv_capacity=64, n_requests=6, request_scale=0.02,
+                          mesh_tp=mesh_tp, device=CPU))
+    return {"stats": dict(rep.stats), "finished": len(rep.finished),
+            "tokens": sorted((r.rid, tuple(r.output_tokens))
+                             for r in rep.finished)}
+
+
+def family_clusters(rank, world, payload):
+    """Mesh clusters of two tp-2 slices for each family of the payload,
+    and ``api.serve`` with ``mesh_tp=2`` on xlstm-1.3b."""
+    out = {}
+    for arch, params_np in payload["params"].items():
+        cfg = get_config(arch).reduced()
+        params = params_from_numpy(params_np, device=CPU)
+        out[arch] = family_cluster(cfg, params, payload["shapes"])
+    out["serve"] = api_serve_arch("xlstm-1.3b")
+    return out

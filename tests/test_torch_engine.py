@@ -309,13 +309,18 @@ def test_later_slices_raise(setup):
     _, cfg, _, params = setup
     # the prefix-cache slice has landed (tests/test_torch_prefixcache.py)
     assert _engine(cfg, params, prefix_cache=True).prefix_cache is not None
-    # the mesh slice has landed for the attention-only GQA decoders
-    # (tests/test_torch_meshserve.py); the other stacks wait for slice 13
+    # the mesh slices have landed for every stack: the GQA decoders
+    # (tests/test_torch_meshserve.py) and the Mamba, MLA, xLSTM,
+    # encoder-decoder and vision stacks
+    # (tests/test_torch_meshserve_families.py)
     from repro_torch.meshserve import carve_slices
+    from repro_torch.models import init_params
     (sl,) = carve_slices(1, 1, device="cpu")
     assert _engine(cfg, params, mesh=sl).mesh is sl
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        _engine(tcfg.get_config("xlstm-1.3b").reduced(), params, mesh=sl)
+    xcfg = tcfg.get_config("xlstm-1.3b").reduced()
+    xlstm = _engine(xcfg, init_params(xcfg, torch.Generator().manual_seed(0),
+                                      device="cpu"), mesh=sl)
+    assert xlstm.mesh is sl and xlstm.state_bytes() > 0
     eng = _engine(cfg, params)
     # chunk resume and streamed exports run since the cluster slice; a
     # chunk of a prompt that would wrap the 16-line window still waits for

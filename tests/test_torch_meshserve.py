@@ -65,7 +65,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.kvstore import KVStoreError, LineCosts, PagedStore
 from repro_torch.launch import serve as tlserve
 from repro_torch.meshserve import MeshError, carve_slices
-from repro_torch.meshserve.pool import head_split, local_config, shard_params
+from repro_torch.meshserve.pool import head_split, local_state, shard_params
 from repro_torch.models import init_state, prefill_batched
 from repro_torch.meshserve.world import spawn
 from repro_torch.models.moe import moe_forward
@@ -198,13 +198,12 @@ def test_a_shard_refuses_to_run_without_a_mesh(bridge, part):
     tree = dict(params)
     if part in ("embed", "lm_head"):
         tree[part] = shard[part]
-        state_cfg = cfg
     else:
         seg = dict(params["segments"][0]["p0"])
         seg[part] = shard["segments"][0]["p0"][part]
         tree["segments"] = [{"p0": seg}] + params["segments"][1:]
-        state_cfg = local_config(cfg, sl) if part == "mixer" else cfg
-    state = init_state(state_cfg, 1, 16, device="cpu")
+    state = (local_state(cfg, sl, 1, 16) if part == "mixer"
+             else init_state(cfg, 1, 16, device="cpu"))
     toks = torch.as_tensor(W.prompt(0, 8, cfg.vocab_size))
     with pytest.raises(RuntimeError, match="no mesh installed"):
         prefill_batched(cfg, tree, toks, state, torch.tensor([8]))
