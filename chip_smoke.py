@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and the CUDA toolkit (``nvcc``), builds the
-port's kernels from ``src/repro_torch/csrc``, and runs thirty-two phases,
+port's kernels from ``src/repro_torch/csrc``, and runs thirty-three phases,
 each of which exits non-zero on failure:
 
 1. build — compile every kernel (one ``nvcc`` per source, in parallel);
@@ -89,8 +89,9 @@ each of which exits non-zero on failure:
    ms per iteration beside TTFT/TBT/JCT;
 9. cluster-prefix — the cluster phase's arrival and length processes
    over 60 iterations (12 requests) with shared prompt heads (two system
-   prompts, 80% reuse, 256-token heads) served on its weights with the
-   prefix cache off and on, beside
+   prompts, 80% reuse, 256-token heads) served on its weights' first
+   ``PREFIX_LAYERS`` (6) of 30 layers with the prefix cache off and on,
+   beside
    a CPU rehearsal at reduced width: every request must finish with all
    its tokens; the cache-on serve must hit, with the rehearsal's hits,
    hit tokens, iterations and kernel and plan traces, and the cache-off
@@ -149,7 +150,8 @@ each of which exits non-zero on failure:
     profiled decode plan.  MLA computes outside every kernel, as in the
     JAX package: no kernel may launch and no plain version run;
 18. cluster-deepseek — the same weights through ``api.serve`` with the
-    cluster phase's spec and stream, MoE dispatch dropless (capacity
+    cluster phase's spec and stream, its lengths scaled by
+    ``DEEPSEEK_CLUSTER_SCALE`` (0.3), MoE dispatch dropless (capacity
     factor 32): every request must finish, mirror syncs and a promotion
     must happen, mirror and stream bytes must equal ``LineCosts`` over
     the lines moved (4 x 1,152 B a line), tokens must equal one 8-slot
@@ -162,8 +164,10 @@ each of which exits non-zero on failure:
     against a fresh materialized prefill, and a prompt's final chunk (at
     history 128) against the whole prompt, within 1e-3 * max|logit|;
 20. serve-xlstm — xlstm-1.3b at full width and depth (48 blocks, 42 mLSTM
-    and 6 sLSTM) in bf16 through the serve phase's six requests (one
-    prompt at a time, dense decode; no kernel launched), then in f32 on
+    and 6 sLSTM) in bf16 through three of the serve phase's six requests
+    (``XLSTM_PROMPTS``: 128, 200 and 256 tokens; one prompt at a time,
+    dense decode; no kernel launched; its decode timings after
+    ``XLSTM_TIMING_PROMPT`` (16) tokens), then in f32 on
     its first ``XLSTM_F32_LAYERS`` (8) blocks (one period of the pattern:
     7 mLSTM and the sLSTM, drawn in f32; the depth cut bounds the phase's
     time) 16 decode steps against fresh prefills within 1e-3 *
@@ -297,7 +301,17 @@ each of which exits non-zero on failure:
     every hop a host copy, mirror and stream bytes equal ``LineCosts``,
     the scan, prefill and dense decode kernels launch on both ranks, and
     stats, decision trace, iterations and tokens equal a one-process
-    cluster's.
+    cluster's;
+33. train-mesh — minicpm-2b at published widths cut to
+    ``TRAIN_MESH_LAYERS`` (4) of 40 layers, in f32: three AdamW steps of
+    the sharded train step (TP on "model", FSDP on "data") on the
+    training data pipeline (``training.batches``), on a (data 2, model 2) world of four processes on
+    card 0 over gloo, against one process's f32 steps on the same
+    weights and batches: every step's loss within 1e-4, each leaf of
+    every rank's part of the params after the steps within 1e-4 of the
+    whole leaf's max|.|, each rank's param and moment bytes below one
+    process's; no kernel runs.  Prints seconds per step, each rank's
+    peak memory and the collectives a step makes by kind and axis.
 
 Each phase group's weights are freed before the next: starcoder2's after
 phases 3-5, 6-9 and 10, minicpm-2b's after 11 and 30, the bf16 Jamba weights
@@ -872,15 +886,22 @@ def _check_no_kernel(counts, phase):
               f"{phase}: {name} ran on a path that reaches no kernel: {c}")
 
 
+#: the serve phase's six prompt lengths
+SIX_PROMPTS = (100, 128, 200, 256, 384, 500)
+
+
 def _serve_six(torch, np, cfg, params, dev, phase, window=512,
-               path_kernels=PAGED_PATH, keep=None):
-    """Six greedy requests (prompts 100 to 500, 32 tokens each) behind one
+               path_kernels=PAGED_PATH, keep=None, prompts=SIX_PROMPTS,
+               timing_prompt=256):
+    """Six greedy requests (prompts 100 to 500, 32 tokens each; or
+    ``prompts``) behind one
     8-slot engine with a ``window``-line window: bucketed (or, for a
     recurrent stack, one-prompt) ``prefill_batch``,
     ``decode_multi(steps=8)`` and the ring wrap; every request must finish,
     every logit be finite, the ``path_kernels`` must launch and no plain
     version run (with no path kernels: no kernel may launch at all).  Then
-    decode ms per step at 1, 4 and 8 active.  ``keep`` (a list) gets the
+    decode ms per step at 1, 4 and 8 active after ``timing_prompt``-token
+    prompts.  ``keep`` (a list) gets the
     six requests.  Returns (counts, per_step, (rng, request, engine,
     admit))."""
     from repro_torch.kernels import read_counts, reset_counts
@@ -892,7 +913,7 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
     finite, restore = _watch_logits(torch, sampling_mod, engine_mod)
     reset_counts()
     reqs, eng, prefill_s, decode_s, decode_steps = _run_six(
-        torch, request, engine, admit, phase)
+        torch, request, engine, admit, phase, prompts)
     counts = read_counts()
     restore()
     if keep is not None:
@@ -902,7 +923,8 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
     if not path_kernels:
         _check_no_kernel(counts, phase)
     prompts = [r.prompt_len for r in reqs]
-    log(f"{phase}: 6 requests x 32 tokens done; prefill {sum(prompts)} tokens "
+    log(f"{phase}: {len(reqs)} requests x 32 tokens done; prefill "
+        f"{sum(prompts)} tokens "
         f"in {prefill_s * 1e3:.1f} ms = "
         f"{sum(prompts) / prefill_s:.0f} tokens/s; {decode_steps} "
         f"decode steps in {decode_s * 1e3:.1f} ms; host_syncs "
@@ -911,7 +933,7 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
     per_step = {}
     for n in (1, 4, 8):
         e = engine()
-        admit(e, [request(256, 33) for _ in range(n)])
+        admit(e, [request(timing_prompt, 33) for _ in range(n)])
         e.decode_multi(steps=8)                     # warm this shape
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -920,17 +942,18 @@ def _serve_six(torch, np, cfg, params, dev, phase, window=512,
         per_step[n] = (time.perf_counter() - t0) / 16 * 1e3
         check(e.batch_size == n, f"{phase}: {n}-slot timing lost a request")
         del e
-    log(f"{phase}: decode ms per step (256-token prompts, steps=8): "
+    log(f"{phase}: decode ms per step ({timing_prompt}-token prompts, "
+        f"steps=8): "
         + ", ".join(f"{n} active {v:.3f}" for n, v in per_step.items()))
     return counts, per_step, helpers
 
 
-def _run_six(torch, request, engine, admit, phase):
-    """The serve phase's six greedy requests (prompts 100 to 500, 32 tokens
-    each) through one fresh engine: ``prefill_batch`` while slots are free,
+def _run_six(torch, request, engine, admit, phase, prompts=SIX_PROMPTS):
+    """The serve phase's six greedy requests (``prompts``, 32 tokens each)
+    through one fresh engine: ``prefill_batch`` while slots are free,
     else ``decode_multi(steps=8)``; every request must finish.  Returns
     (requests, engine, prefill s, decode s, decode steps)."""
-    reqs = [request(n, 32) for n in (100, 128, 200, 256, 384, 500)]
+    reqs = [request(n, 32) for n in prompts]
     eng = engine()
     pending = list(reqs)
     prefill_s = decode_s = 0.0
@@ -1737,6 +1760,10 @@ def phase_cluster_fleet(torch, params, measured):
 #: and no whole head).
 PREFIX_REUSE = dict(pool=2, reuse=0.8, prefix_len=256)
 PREFIX_DURATION = 60.0
+#: cluster-prefix serves both streams on the cluster weights' first
+#: ``PREFIX_LAYERS`` of 30 layers (its checks count per layer; the
+#: rehearsal's decisions depend on neither widths nor depth)
+PREFIX_LAYERS = 6
 
 
 def _prefix_spec(prefix_cache, **kw):
@@ -1865,8 +1892,9 @@ def _suffix_vs_whole_f32(torch, cfg, params32, spec, requests, phase):
 def phase_cluster_prefix(torch, params, measured):
     """Phase 9: a shared-prefix stream (the cluster stream's arrival and
     length processes with ``PREFIX_REUSE``) served on the cluster phase's
-    weights with the prefix cache off and on, each against a CPU rehearsal
-    at reduced width; returns the kernel counts of both serves.  Puts the
+    weights' first ``PREFIX_LAYERS`` layers with the prefix cache off and
+    on, each against a CPU rehearsal at reduced width; returns the kernel
+    counts of both serves.  Puts the
     cache-on serve's ms per iteration and spec into ``measured``."""
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.kvstore import PagedStore
@@ -1887,6 +1915,11 @@ def phase_cluster_prefix(torch, params, measured):
     check(rehearsal.all_finished and rehearsal.stats["prefix_hits"] > 0,
           f"cluster-prefix: the rehearsal gave no hit: "
           f"{rehearsal.describe()}")
+    from repro_torch.configs import get_config
+    cut = _depth_cut(get_config("starcoder2-3b"), PREFIX_LAYERS)
+    params = _first_layers(params, PREFIX_LAYERS)
+    log(f"cluster-prefix: both serves on the first {PREFIX_LAYERS} of 30 "
+        f"layers")
     params32 = _tree_map(lambda t: t.float(), params)
     counts, runs = {}, {}
     for cache in (False, True):
@@ -1902,7 +1935,7 @@ def phase_cluster_prefix(torch, params, measured):
         reset_counts()
         t0 = time.perf_counter()
         try:
-            report = _serve_traced(spec, params=params)
+            report = _serve_traced(spec, params=params, cfg=cut)
             torch.cuda.synchronize()
         finally:
             for undo in (uncopy, unsave, unrecord, unwatch, restore):
@@ -2667,6 +2700,13 @@ def phase_consistency_hybrid(torch, dev, np):
 # ---------------------------------------------------------------------------
 
 
+#: cluster-deepseek: the cluster stream's lengths scaled by this (8
+#: requests, prompts and decodes 6-150): a CPU rehearsal of the stream at
+#: reduced width takes 187 iterations to 519 at full length, with mirror
+#: syncs and promotions
+DEEPSEEK_CLUSTER_SCALE = 0.3
+
+
 def _deepseek(layers=4, dropless=False, **kw):
     """deepseek-v3-671b at its published widths, depth cut to its first
     ``layers`` layers; ``dropless`` sets the capacity factor to experts /
@@ -2777,6 +2817,7 @@ def phase_deepseek(torch, dev, np):
     from repro_torch.serving import InstanceEngine, Request
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
+    from repro_torch.workloads import TableLengths
 
     # -- 17. serve-deepseek -----------------------------------------------------
     t_phase = time.perf_counter()
@@ -2810,7 +2851,9 @@ def phase_deepseek(torch, dev, np):
     # factor 1.25 a decode step's 8 rows get 1 slot per expert, and which
     # assignment drops depends on the batch, so no two schedules agree
     ccfg = _deepseek(dropless=True)
-    spec = _cluster_spec(arch=cfg.name, traffic=_light(120.0))
+    spec = _cluster_spec(arch=cfg.name, traffic=dataclasses.replace(
+        _light(120.0), lengths=TableLengths(
+            "light", scale=DEEPSEEK_CLUSTER_SCALE)))
     n_req = len(list(spec.traffic.source(seed=spec.seed)))
     log(f"cluster-deepseek: {spec.arch} cut as serve-deepseek, capacity "
         f"factor {ccfg.moe.capacity_factor} (dropless), policy "
@@ -2964,11 +3007,21 @@ def phase_consistency_deepseek(torch, dev, np):
 
 #: serve-xlstm: the blocks of its f32 checks (one period of the pattern)
 XLSTM_F32_LAYERS = 8
+#: serve-xlstm: its bf16 serve's prompts, three of the six: 200 (not a
+#: multiple of 64: the stepwise mLSTM at full depth) and 128 and 256
+#: (chunkwise); the stepwise 100 and 500 and the 384 cost ~35 s
+XLSTM_PROMPTS = (128, 200, 256)
+#: serve-xlstm: the prompt behind its decode timings (1, 4 and 8 active,
+#: and the profiled 8 x 8 plan): a recurrent stack's decode step costs
+#: the same after any prompt, and its prefill runs at ~80 tokens/s, so
+#: 256-token prompts cost ~40 s of the phase
+XLSTM_TIMING_PROMPT = 16
 
 
 def phase_xlstm(torch, dev, np):
-    """Phase 20: xlstm-1.3b at full width and depth in bf16 through the
-    serve phase's six requests (one prompt at a time, dense decode), then
+    """Phase 20: xlstm-1.3b at full width and depth in bf16 through three
+    of the serve phase's six requests (``XLSTM_PROMPTS``, one prompt at a
+    time, dense decode), then
     its f32 decode-vs-prefill check on the pattern's first
     ``XLSTM_F32_LAYERS`` blocks; returns the serve's kernel counts."""
     from repro_torch.configs import get_config
@@ -2983,12 +3036,13 @@ def phase_xlstm(torch, dev, np):
         f"{cfg.vocab_size}, {cfg.dtype}")
     params = _draw(torch, cfg, 8, dev, "serve-xlstm")
     counts, _, (_, request, engine, admit) = _serve_six(
-        torch, np, cfg, params, dev, "serve-xlstm", path_kernels=())
+        torch, np, cfg, params, dev, "serve-xlstm", path_kernels=(),
+        prompts=XLSTM_PROMPTS, timing_prompt=XLSTM_TIMING_PROMPT)
     e = engine()
     check(not (e.supports_paged_decode or e.supports_chunked_prefill),
           "serve-xlstm: an xLSTM engine must neither page nor chunk")
     # where the time goes: one fused plan of 8 active x 8 steps
-    admit(e, [request(64, 40) for _ in range(8)])
+    admit(e, [request(XLSTM_TIMING_PROMPT, 40) for _ in range(8)])
     e.decode_multi(steps=2)
     wall = _wall_ms(torch, lambda: e.decode_multi(steps=8))
     _print_breakdown({"decode 8 active x 8 steps": _breakdown(
@@ -4134,6 +4188,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_mesh_cluster_hybrid(torch, np, card))
     log(f"mesh-cluster-hybrid: phase {time.perf_counter() - t0:.1f} s")
+    _free(torch)
+    # -- 33. train-mesh: the sharded train step on a (data 2, model 2) world
+    paths["train-mesh"] = phase_train_mesh(torch, np, card)
 
     for r in kernels:
         r["launches_by_path"] = {p: c[r["name"]]["launches"]
@@ -4973,6 +5030,210 @@ def phase_mesh_cluster_hybrid(torch, np, card, device="cuda"):
         f"tokens equal the one-process cluster's (wall {one_wall:.3f} s, "
         f"{one_wall * 1e3 / one_it:.3f} ms per iteration); {card}")
     return {phase: _sum_counts(ranks)}
+
+
+# ---------------------------------------------------------------------------
+# 33: train-mesh, the sharded train step on a (data, model) world
+# ---------------------------------------------------------------------------
+
+#: train-mesh: minicpm-2b at published widths cut to its first
+#: ``TRAIN_MESH_LAYERS`` of 40 layers, in f32, on a (data 2, model 2)
+#: world of processes on the one card over gloo
+TRAIN_MESH_LAYERS = 4
+TRAIN_MESH = (2, 2)
+TRAIN_MESH_STEPS = 3
+#: rows of each step's batch (128 tokens each; the data ranks take 2 each)
+TRAIN_MESH_BATCH = 4
+TRAIN_MESH_SEED = 33
+#: seconds the world may take
+TRAIN_MESH_TIMEOUT = 600.0
+
+
+def _train_mesh_setup(torch, dev):
+    """The phase's config, AdamW config, the schedule's LR scales and its
+    batches (``training.batches``, seed 0), the same on every process."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import AdamWConfig, DataConfig, batches, wsd
+    cfg = _depth_cut(get_config("minicpm-2b"), TRAIN_MESH_LAYERS,
+                     dtype="float32")
+    data = batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_MESH_BATCH, seed=0))
+    out = []
+    for _ in range(TRAIN_MESH_STEPS):
+        b = torch.from_numpy(next(data)).to(dev)
+        out.append({"tokens": b[:, :-1], "labels": b[:, 1:]})
+    lrs = [float(wsd(i, warmup=1, total=TRAIN_MESH_STEPS))
+           for i in range(TRAIN_MESH_STEPS)]
+    return cfg, AdamWConfig(), lrs, out
+
+
+def train_mesh_rank(rank, world, payload):
+    """Phase 33 on one rank of the (data, model) world: the whole weights
+    drawn from the phase's seed and cut to this rank's part
+    (``ShardedStep.shard``), ``TRAIN_MESH_STEPS`` sharded steps timed on
+    the global batches, the collectives of this module's ``sharding``
+    counted by kind and axis, and this rank's part of the params after
+    the steps against the one-process run's (``payload["reference"]``,
+    cut the same way)."""
+    from repro_torch import sharding
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import init_params
+    from repro_torch.training import init_opt_state
+    from repro_torch.training.fsdp import leaf_bytes, train_mesh
+    from repro_torch.training.train_step import make_train_step
+    torch, dev = _rank_setup(payload["device"])
+    cfg, opt_cfg, lrs, data = _train_mesh_setup(torch, dev)
+    mesh = train_mesh(*TRAIN_MESH)
+    step = make_train_step(cfg, opt_cfg, mesh)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        TRAIN_MESH_SEED), device=dev)
+    params = step.shard(whole)
+    del whole
+    opt = init_opt_state(opt_cfg, params)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    calls = {}
+    plain = sharding._issue
+
+    def counted(kind, axis, *args, **kw):
+        calls[kind, axis] = calls.get((kind, axis), 0) + 1
+        return plain(kind, axis, *args, **kw)
+
+    sharding._issue = counted
+    losses, seconds = [], []
+    reset_counts()
+    try:
+        for i, batch in enumerate(data):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch, lrs[i])
+            losses.append(float(metrics["loss"]))
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        sharding._issue = plain
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    ref = torch.load(payload["reference"], mmap=True, weights_only=True)
+    errs = {}
+    want = step.shard(ref, device=dev)
+    for path, x in _named_leaves(params):
+        errs[path] = max_err(x, _at_path(want, path))
+    return {"rank": rank, "cut": (mesh.data_rank, mesh.model_rank),
+            "losses": losses, "seconds": seconds, "errs": errs,
+            "calls": {f"{k} over {a}": n / len(data)
+                      for (k, a), n in sorted(calls.items())},
+            "param_bytes": leaf_bytes(params),
+            "moment_bytes": leaf_bytes(opt.m) + leaf_bytes(opt.v),
+            "peak": peak, "counts": counts}
+
+
+def _at_path(tree, path):
+    for key in path.strip("/").split("/"):
+        tree = tree[int(key)] if isinstance(tree, list) else tree[key]
+    return tree
+
+
+def phase_train_mesh(torch, np, card, device="cuda"):
+    """Phase 33, train-mesh: minicpm-2b at published widths cut to
+    ``TRAIN_MESH_LAYERS`` layers, in f32, ``TRAIN_MESH_STEPS`` AdamW steps
+    of the sharded train step (TP on "model", FSDP on "data") on a
+    (data 2, model 2) world of four processes on this one card over gloo,
+    against one process's f32 steps on the same weights and batches: every
+    step's loss within 1e-4, each leaf of every rank's part of the params
+    after the steps within 1e-4 of the whole leaf's max|.| (the parts
+    cover every leaf), each rank's param and moment bytes below one
+    process's; no kernel runs (training takes the model-level paths).
+    Prints seconds per step, each rank's peak memory and the collectives
+    a step makes.  Returns the kernel counts summed over the ranks."""
+    from repro_torch.meshserve.world import spawn
+    from repro_torch.models import init_params
+    from repro_torch.training import init_opt_state, train_step
+    from repro_torch.training.fsdp import leaf_bytes
+    phase = "train-mesh"
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cfg, opt_cfg, lrs, data = _train_mesh_setup(torch, dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        TRAIN_MESH_SEED), device=dev)
+    whole_bytes = leaf_bytes(params)
+    opt = init_opt_state(opt_cfg, params)
+    losses, seconds = [], []
+    for i, batch in enumerate(data):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, metrics = train_step(cfg, opt_cfg, params, opt, batch,
+                                          lrs[i])
+        losses.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    moment_bytes = leaf_bytes(opt.m) + leaf_bytes(opt.v)
+    del opt
+    scale = {path: float(x.abs().max()) for path, x in _named_leaves(params)}
+    ref_path = ROOT / "build" / "train_mesh_reference.pt"
+    ref_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(_tree_map(lambda t: t.cpu(), params), ref_path)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"{phase}: {cfg.name} at published widths, {cfg.num_layers} of 40 "
+        f"layers, f32, {whole_bytes / 1e9:.3f} GB of weights; "
+        f"{TRAIN_MESH_STEPS} AdamW steps (LR scales {lrs}) of "
+        f"{TRAIN_MESH_BATCH} x {TRAIN_SEQ} tokens; one process: losses "
+        f"{[round(x, 6) for x in losses]}, s per step "
+        f"{[round(x, 3) for x in seconds]}")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn("chip_smoke:train_mesh_rank", TRAIN_MESH[0]
+                      * TRAIN_MESH[1], device=device,
+                      share_card=device == "cuda",
+                      args=({"reference": str(ref_path), "device": device},),
+                      timeout=TRAIN_MESH_TIMEOUT, threads=2)
+    finally:
+        ref_path.unlink(missing_ok=True)
+    log(f"{phase}: a (data {TRAIN_MESH[0]}, model {TRAIN_MESH[1]}) world of "
+        f"{len(ranks)} processes on this card over gloo in "
+        f"{time.perf_counter() - t0:.1f} s (gloo stages every collective "
+        f"through the host); {card}")
+    counts = {}
+    for out in ranks:
+        label = f"{phase} rank {out['rank']} (data {out['cut'][0]}, model "\
+                f"{out['cut'][1]})"
+        for i, (a, b) in enumerate(zip(out["losses"], losses)):
+            check(abs(a - b) <= 1e-4 * abs(b), f"{label}: step {i} loss {a} "
+                  f"against one process's {b}")
+        worst = (0.0, "")
+        for path, err in out["errs"].items():
+            ratio = err / max(scale[path], 1e-30)
+            check(ratio <= 1e-4, f"{label}: {path} after {TRAIN_MESH_STEPS} "
+                  f"steps off by {ratio:.3e} of the whole leaf's max")
+            worst = max(worst, (ratio, path))
+        check(out["param_bytes"] < whole_bytes
+              and out["moment_bytes"] == 2 * out["param_bytes"]
+              and out["moment_bytes"] < moment_bytes,
+              f"{label}: {out['param_bytes']} B of params and "
+              f"{out['moment_bytes']} B of moments against one process's "
+              f"{whole_bytes} and {moment_bytes}")
+        _check_no_kernel(out["counts"], label)
+        for name, c in out["counts"].items():
+            acc = counts.setdefault(name, {"launches": 0, "plain_calls": 0})
+            for key in acc:
+                acc[key] += c[key]
+        log(f"{label}: losses {[round(x, 6) for x in out['losses']]}; "
+            f"params within 1e-4 of one process's (worst {worst[0]:.3e}, "
+            f"{worst[1]}); s per step "
+            f"{[round(x, 3) for x in out['seconds']]}; params "
+            f"{out['param_bytes'] / 1e9:.3f} GB ({out['param_bytes'] / whole_bytes:.3f} "
+            f"of one process's), moments {out['moment_bytes'] / 1e9:.3f} GB; "
+            f"peak {out['peak'] / 1e9:.3f} GB; {card}")
+    log(f"{phase}: collectives a step on each rank: " + ", ".join(
+        f"{k} {n:g}" for k, n in ranks[0]["calls"].items()))
+    log(f"{phase}: phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return counts
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def mesh_only(torch, np, dev, card, flash_mod, decode_mod, scan_mod, flush):

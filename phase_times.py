@@ -1,16 +1,26 @@
-"""Seconds of chip_smoke.py's serve-xlstm phase (phase 20) from one or
-more checkouts, on one card, each run in its own process.
+"""Seconds of chip_smoke.py's phases from one or more checkouts, on one
+card, each phase of each checkout run in a process of its own.
 
-    python3 phase_times.py DIR [DIR ...]
+    python3 phase_times.py [--phase NAME ...] DIR [DIR ...]
 
-runs ``phase_xlstm`` of ``DIR/chip_smoke.py`` against ``DIR/src`` for each
-``DIR`` in turn, with TF32 off as chip_smoke.py runs it, and prints the
-card's name and power limit, then one JSON line per run: the checkout, the
-phase's seconds and the kernel counts it returned.  The phase builds no
-kernel (the xLSTM stacks reach none), so a run needs no build step.  To
-compare a change with its parent, unpack the parent into a directory that
-``.gitignore`` lists and pass the two in the order parent, change, change,
-parent.
+runs each named phase (default ``serve-xlstm``) of ``DIR/chip_smoke.py``
+against ``DIR/src`` for each ``DIR`` in turn, with TF32 off as
+chip_smoke.py runs it, and prints the card's name and power limit, then
+one JSON line per run: the checkout, the phase, its seconds and the
+kernel counts it returned.  The phases:
+
+  serve-xlstm     phase 20 (``phase_xlstm``): no kernel, no build step;
+  deepseek        phases 17-18 (``phase_deepseek``: serve-deepseek, then
+                  cluster-deepseek and its chunked serve; no kernel);
+  cluster-prefix  phase 9 (``phase_cluster_prefix``) on the cluster
+                  phase's weights (``build_cluster`` of its spec draws
+                  them); builds the checkout's kernels first, untimed;
+  train-mesh      phase 33 (``phase_train_mesh``; no kernel).
+
+A checkout whose chip_smoke.py lacks a phase prints ``"seconds": null``
+for it.  To compare a change with its parent, unpack the parent into a
+directory that ``.gitignore`` lists and pass the two in the order parent,
+change, change, parent.
 """
 from __future__ import annotations
 
@@ -20,8 +30,10 @@ import sys
 import time
 from pathlib import Path
 
+PHASES = ("serve-xlstm", "deepseek", "cluster-prefix", "train-mesh")
 
-def _one(root: Path) -> dict:
+
+def _one(root: Path, phase: str) -> dict:
     sys.path.insert(0, str(root / "src"))
     sys.path.insert(0, str(root))
     import numpy as np
@@ -31,17 +43,48 @@ def _one(root: Path) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    counts = chip_smoke.phase_xlstm(torch, dev, np)
+    out = {"checkout": str(root), "phase": phase, "seconds": None}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    if phase == "serve-xlstm":
+        run = lambda: chip_smoke.phase_xlstm(torch, dev, np)
+    elif phase == "deepseek":
+        run = lambda: chip_smoke.phase_deepseek(torch, dev, np)
+    elif phase == "cluster-prefix":
+        from repro_torch.api import build_cluster
+        from repro_torch.kernels import build
+        build.build_all()
+        cluster = build_cluster(chip_smoke._cluster_spec(
+            traffic=chip_smoke._light(120.0)))
+        params = cluster.engines[0].params
+        del cluster
+        run = lambda: chip_smoke.phase_cluster_prefix(torch, params, {})
+    elif hasattr(chip_smoke, "phase_train_mesh"):
+        run = lambda: chip_smoke.phase_train_mesh(torch, np, card)
+    else:
+        return out
     torch.cuda.synchronize()
-    return {"checkout": str(root), "phase": "serve-xlstm",
-            "seconds": time.perf_counter() - t0, "counts": counts}
+    t0 = time.perf_counter()
+    out["counts"] = run()
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(_one(Path(argv[1]).resolve())), flush=True)
+    if len(argv) == 3 and argv[0] == "--one":
+        print(json.dumps(_one(Path(argv[1]).resolve(), argv[2])),
+              flush=True)
         return 0
+    phases = []
+    while len(argv) >= 2 and argv[0] == "--phase":
+        if argv[1] not in PHASES:
+            print(f"phase_times: unknown phase {argv[1]!r}; one of "
+                  f"{PHASES}", file=sys.stderr)
+            return 2
+        phases.append(argv[1])
+        argv = argv[2:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -49,8 +92,10 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     print(smi.splitlines()[0].strip(), flush=True)
-    for root in argv:
-        subprocess.run([sys.executable, __file__, "--one", root], check=True)
+    for phase in phases or ["serve-xlstm"]:
+        for root in argv:
+            subprocess.run([sys.executable, __file__, "--one", root, phase],
+                           check=True)
     return 0
 
 

@@ -54,6 +54,9 @@ class Counter:
         self.credited: Dict[str, float] = {}
         #: the backward share of ``credited`` (a replay reads it)
         self.credited_bwd = 0.0
+        #: the recording mesh's collectives: (kind, result bytes, group
+        #: size) -> calls (a loop's skipped trips included)
+        self.collectives: Dict[Tuple[str, int, int], float] = {}
 
     def __enter__(self) -> "Counter":
         _stack().append(self)
@@ -82,6 +85,11 @@ class Counter:
         self.credited[name] = self.credited.get(name, 0.0) + fwd + bwd
         self.credited_bwd += bwd
 
+    def add_collectives(self, calls: Dict[Tuple[str, int, int], float],
+                        times: float = 1.0) -> None:
+        for key, n in calls.items():
+            self.collectives[key] = self.collectives.get(key, 0.0) + n * times
+
 
 def active() -> Optional[Counter]:
     stack = _stack()
@@ -94,6 +102,17 @@ def credit(name: str, flops: float) -> None:
     counter = active()
     if counter is not None:
         counter.credit(name, float(flops))
+
+
+def collective(kind: str, nbytes: int, group: int,
+               fallback: Dict[Tuple[str, int, int], float]) -> None:
+    """Record one collective of the recording mesh with the active
+    counter (in a loop's replay, the replay's own), or in ``fallback``
+    where none is active."""
+    counter = active()
+    log = counter.collectives if counter is not None else fallback
+    key = (kind, int(nbytes), int(group))
+    log[key] = log.get(key, 0.0) + 1.0
 
 
 def on_meta(*tensors) -> bool:
@@ -148,9 +167,11 @@ def _in_recompute() -> bool:
 
 
 def _measure(body: Callable, i: int, carry, operands: Sequence,
-             grad: bool, backward: bool) -> Tuple[float, float]:
-    """(forward, backward) FLOPs of one trip of ``body``, replayed on
-    detached inputs in a thread of its own under a fresh counter."""
+             grad: bool, backward: bool
+             ) -> Tuple[float, float, Dict[Tuple[str, int, int], float]]:
+    """(forward FLOPs, backward FLOPs, collectives) of one trip of
+    ``body``, replayed on detached inputs in a thread of its own under a
+    fresh counter."""
     result: Dict[str, Any] = {}
 
     def replay():
@@ -172,7 +193,7 @@ def _measure(body: Callable, i: int, carry, operands: Sequence,
                                                  for t in outs],
                         allow_unused=True)
                     bwd += c.traced - traced_fwd
-            result["flops"] = (fwd, bwd)
+            result["flops"] = (fwd, bwd, dict(c.collectives))
         except BaseException as e:  # noqa: BLE001  (re-raised below)
             result["error"] = e
 
@@ -213,11 +234,13 @@ def steps(name: str, n: int, body: Callable, carry, *operands
             backward = grad and not _in_recompute() and any(
                 isinstance(t, torch.Tensor) and t.requires_grad
                 for t in _flat(outs[-1]) + _flat(carry))
-            fwd, bwd = _measure(body, i, carry, operands, grad, backward)
+            fwd, bwd, calls = _measure(body, i, carry, operands, grad,
+                                       backward)
             counter = active()
             if counter is not None:
                 counter.credit(f"loop:{name}", skipped * fwd,
                                skipped * bwd if backward else 0.0)
+                counter.add_collectives(calls, skipped)
             outs.extend([outs[-1]] * skipped)
             i = n - 1
             continue

@@ -304,11 +304,14 @@ def _units(idx: List[int]):
         range(lo, lo + len(idx))) else tuple(idx)
 
 
-def local_state(cfg, sl: MeshSlice, batch: int, seq_len: int):
+def local_state(cfg, sl: MeshSlice, batch: int, seq_len: int,
+                long_context: bool = False):
     """A zero serving state of this rank's part (``init_state``'s tree at
-    the rule table's per-rank shapes) on the slice's device."""
+    the rule table's per-rank shapes) on the slice's device (the meta
+    device for the dry run's per-rank program)."""
     from repro_torch.models import init_state
-    meta = init_state(cfg, batch, seq_len, device="meta")
+    meta = init_state(cfg, batch, seq_len, long_context=long_context,
+                      device="meta")
     cuts = holders(cfg, sl, meta).cuts
     out = {"layers": [{pj: {} for pj in layer} for layer in meta["layers"]]}
     for i, layer in enumerate(meta["layers"]):

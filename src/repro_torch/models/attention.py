@@ -27,7 +27,9 @@ and cached per layer (``xk``/``xv``).
 
 :func:`gqa_forward`, :func:`cross_attn_forward` and :func:`mla_forward`
 run under tensor parallelism on the rank's whole heads, read from the
-weights' shapes, and sum their row-parallel ``wo`` partials.
+weights' shapes: the input every rank holds whole enters the
+column-parallel projections through ``sharding.copy_in`` (MLA: the
+latents), and the row-parallel ``wo`` partials are summed.
 
 :func:`mla_forward` computes MLA as the JAX package does, outside any
 kernel: in full mode it expands the latent into per-head K/V (qk head dim
@@ -259,6 +261,8 @@ def gqa_forward(
     # counts come from the weights
     h, kvh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     scale = 1.0 / math.sqrt(hd)
+    if h != cfg.num_heads:
+        x = sharding.copy_in(x)          # column-parallel wq/wk/wv
     q = (x @ params["wq"]).reshape(B, S, h, hd)
     k = (x @ params["wk"]).reshape(B, S, kvh, hd)
     v = (x @ params["wv"]).reshape(B, S, kvh, hd)
@@ -372,11 +376,16 @@ def cross_attn_forward(
     # under tensor parallelism the rank's whole heads, as in gqa_forward
     h, kvh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     scale = 1.0 / math.sqrt(hd)
+    sharded = h != cfg.num_heads
+    if sharded:
+        x = sharding.copy_in(x)
     q = (x @ params["wq"]).reshape(B, S, h, hd)
     cached = state is not None and "xk" in state
     if precompute or not cached:
         if enc_out is None:
             raise ValueError("cross attention needs enc_out or cached K/V")
+        if sharded:
+            enc_out = sharding.copy_in(enc_out)
         k = (enc_out @ params["wk"]).reshape(B, -1, kvh, hd)
         v = (enc_out @ params["wv"]).reshape(B, -1, kvh, hd)
         if cached:
@@ -432,7 +441,9 @@ def _mla_qkv_latent(cfg: ModelConfig, params, x: torch.Tensor,
     B, S, _ = x.shape
     q = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.rms_norm_eps)
     h = params["wq_b"].shape[-1] // m.qk_head_dim
-    q = (q @ params["wq_b"]).reshape(B, S, h, m.qk_head_dim)
+    # the latents are whole on every rank and enter the rank's heads
+    enter = sharding.copy_in if h != cfg.num_heads else (lambda t: t)
+    q = (enter(q) @ params["wq_b"]).reshape(B, S, h, m.qk_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv = x @ params["wkv_a"]
@@ -440,7 +451,7 @@ def _mla_qkv_latent(cfg: ModelConfig, params, x: torch.Tensor,
                     cfg.rms_norm_eps)
     k_rope = apply_rope(kv[..., m.kv_lora_rank:][:, :, None], positions,
                         cfg.rope_theta)[:, :, 0]
-    return q_nope, q_rope, c_kv, k_rope
+    return q_nope, q_rope, enter(c_kv), enter(k_rope)
 
 
 def _expand_latent(params, c_kv: torch.Tensor, k_rope: torch.Tensor, h: int,

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import opcount
 from repro_torch.models import mamba as mamba_mod
@@ -189,14 +190,27 @@ def init_segment_state(cfg: ModelConfig, seg: Segment, batch: int,
         for j, spec in enumerate(seg.specs)}
 
 
+def _per_repeat(dims):
+    """A stacked leaf's data-cut dim as a dim of one repeat's view."""
+    if isinstance(dims, dict):
+        return {k: _per_repeat(v) for k, v in dims.items()}
+    return None if dims is None else dims - 1
+
+
 def apply_segment(cfg: ModelConfig, seg: Segment, params, x: torch.Tensor,
-                  seg_state, ctx: Dict[str, Any], remat: bool = False
+                  seg_state, ctx: Dict[str, Any], remat: bool = False,
+                  dims=None
                   ) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
     """Run the periodic body over the repeat dim; ``seg_state`` (if any)
     is updated in place.  With ``remat`` each repeat's body is
-    checkpointed.  Returns (x, summed router aux loss)."""
+    checkpointed.  ``dims`` (the sharded train step's FSDP) is the tree of
+    each stacked leaf's data-cut dim: each repeat's leaves are gathered
+    over "data" inside the body, so remat gathers them again in the
+    backward.  Returns (x, summed router aux loss)."""
+    rep_dims = _per_repeat(dims) if dims is not None else None
 
     def body(x, aux, lp, ls):
+        lp = sharding.unshard(lp, rep_dims)
         for j, spec in enumerate(seg.specs):
             x, _, aux_j = apply_layer(
                 cfg, spec, lp[f"p{j}"], x,
@@ -236,13 +250,15 @@ def init_stack_state(cfg: ModelConfig, segs: List[Segment], batch: int,
 
 def apply_stack(cfg: ModelConfig, segs: List[Segment], seg_params,
                 x: torch.Tensor, states, ctx: Dict[str, Any],
-                remat: bool = False
+                remat: bool = False, dims=None
                 ) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
-    """Returns (x, router aux loss summed over the stack)."""
+    """Returns (x, router aux loss summed over the stack).  ``dims``: the
+    segments' data-cut dims (see :func:`apply_segment`)."""
     aux = 0.0
     for i, seg in enumerate(segs):
         x, aux_i = apply_segment(cfg, seg, seg_params[i], x,
                                  states[i] if states is not None else None,
-                                 ctx, remat)
+                                 ctx, remat,
+                                 dims[i] if dims is not None else None)
         aux = aux + aux_i
     return x, aux

@@ -1,8 +1,9 @@
 """Dense feed-forward layers (SwiGLU / GeLU MLP).
 
-Under tensor parallelism ``w_gate``/``w_up`` are column-parallel and
-``w_down`` row-parallel: a rank holding fewer than ``d_ff`` rows of
-``w_down`` sums its partial with the other ranks'."""
+Under tensor parallelism ``w_gate``/``w_up`` are column-parallel (their
+input enters through ``sharding.copy_in``) and ``w_down`` row-parallel:
+a rank holding fewer than ``d_ff`` rows of ``w_down`` sums its partial
+with the other ranks'."""
 from __future__ import annotations
 
 from typing import Optional
@@ -28,11 +29,14 @@ def dense_ffn(cfg: ModelConfig, params, x: torch.Tensor,
               d_ff: Optional[int] = None) -> torch.Tensor:
     """``d_ff`` is the layer's whole hidden width, which tells a rank's
     shard (fewer rows) from the whole layer."""
+    sharded = d_ff is not None and params["w_down"].shape[-2] != d_ff
+    if sharded:
+        x = sharding.copy_in(x)
     if cfg.activation == "swiglu":
         h = swiglu(x @ params["w_gate"], x @ params["w_up"])
     else:
         h = gelu(x @ params["w_up"])
     y = h @ params["w_down"]
-    if d_ff is not None and params["w_down"].shape[-2] != d_ff:
+    if sharded:
         y = sharding.reduce(y)
     return y

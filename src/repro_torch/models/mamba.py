@@ -91,9 +91,10 @@ def _ssm_inputs(cfg, params, x_c, dt_rank, sharded: bool):
     w = params["x_proj"]
     if sharded:
         # row-parallel: the ranks' partials over their channels, summed
-        # in f32, then rounded once to the weights' dtype
-        dbc = sharding.reduce(x_c.to(w.dtype).float() @ w.float()).to(
-            w.dtype)
+        # in f32, then rounded once to the weights' dtype; dt, B and C
+        # then enter the rank's channels (copy_in)
+        dbc = sharding.copy_in(sharding.reduce(
+            x_c.to(w.dtype).float() @ w.float()).to(w.dtype))
     else:
         dbc = x_c.to(w.dtype) @ w
     dt = dbc[..., :dt_rank]
@@ -125,8 +126,10 @@ def mamba_forward(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     mc, d_in, dt_rank = _dims(cfg)
     B, S, _ = x.shape
+    sharded = params["in_proj"].shape[-1] != 2 * d_in
+    if sharded:
+        x = sharding.copy_in(x)          # column-parallel in_proj
     xp, z = _split_proj(params, x)
-    sharded = xp.shape[-1] != d_in
     d_in = xp.shape[-1]
     A = -torch.exp(params["A_log"])
     D = params["D"]

@@ -155,6 +155,8 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
     if _is_vlm(cfg):
         pe = batch["patch_embeds"]
         proj = params["proj"]
+        if proj["w1"].shape[-1] != cfg.d_model:
+            pe = sharding.copy_in(pe)    # column-parallel w1
         prefix = gelu(pe.float() @ proj["w1"].float())
         prefix = prefix @ proj["w2"].float()
         if proj["w1"].shape[-1] != cfg.d_model:
@@ -172,6 +174,8 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if w.shape[-1] != cfg.vocab_size:
+        x = sharding.copy_in(x)          # the rank's vocab columns
     logits = (x @ w).float() * cfg.logit_scale
     if w.shape[-1] != cfg.vocab_size:
         # vocab-sharded head: every rank gets the whole row
@@ -185,7 +189,7 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
-            train: bool = False) -> torch.Tensor:
+            train: bool = False, dims=None) -> torch.Tensor:
     """frames: (B, F, E) precomputed front-end embeddings -> the encoder
     memory (B, F, D): bidirectional attention through the prefill kernel
     (``causal=False``), or the plain chunked attention in training; no
@@ -197,7 +201,7 @@ def _encode(cfg: ModelConfig, params, frames: torch.Tensor,
     ctx = {"mode": "full", "positions": pos, "update_cache": False,
            "causal": False, "train": train}
     x, _ = apply_stack(cfg, _enc_segs(cfg), params["encoder"]["segments"], x,
-                       None, ctx)
+                       None, ctx, dims=dims)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.rms_norm_eps)
 
 
@@ -213,11 +217,18 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     layer's cross K/V recomputed from them (training keeps no cache); a
     VLM's logits start past its patches.  ``remat`` checkpoints each
     repeat of the stack.  The JAX package's ``seq_shard`` residual
-    constraint shards the sequence over a device mesh and has no meaning
-    on one device, so there is none here."""
+    constraint shards the sequence over a device mesh; the port's TP
+    keeps the residual stream whole on every model rank, so there is none
+    here.  Under the sharded train step's FSDP (``sharding.current().fsdp``,
+    each leaf's data-cut dim) the leaves outside the stack are gathered
+    over "data" here, and the stack's per repeat."""
+    dims = sharding.current().fsdp
+    if dims is not None:
+        params = _gather_outside(params, dims)
     ctx = {"mode": "full", "update_cache": False, "train": True}
     if cfg.is_encoder_decoder:
-        enc_out = _encode(cfg, params, batch["frames"], train=True)
+        enc_out = _encode(cfg, params, batch["frames"], train=True,
+                          dims=dims and dims["encoder"]["segments"])
         tokens = batch["tokens"]
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         x = _embed_tokens(cfg, params, tokens, pos)
@@ -226,13 +237,26 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         x, pos = _embed_inputs(cfg, params, batch)
     ctx["positions"] = pos
     x, aux = apply_stack(cfg, _segs(cfg), params["segments"], x, None, ctx,
-                         remat=remat)
+                         remat=remat, dims=dims and dims["segments"])
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     logits = _head(cfg, params, x)
     if _is_vlm(cfg):
         logits = logits[:, batch["patch_embeds"].shape[1]:]
     return logits, torch.as_tensor(aux, dtype=torch.float32,
                                    device=logits.device)
+
+
+def _gather_outside(params, dims):
+    """``params`` with the leaves outside the stacks (embedding, head,
+    norms, the projector) gathered over "data"; the stacks stay cut."""
+    out = dict(params)
+    for key, value in params.items():
+        if key == "encoder":
+            out[key] = dict(value, final_norm=sharding.unshard(
+                value["final_norm"], dims[key]["final_norm"]))
+        elif key not in ("segments", "mtp"):
+            out[key] = sharding.unshard(value, dims[key])
+    return out
 
 
 def forward_mtp(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]

@@ -154,23 +154,27 @@ def _routed_local(cfg: ModelConfig, params, x2: torch.Tensor
 
 
 def _model_ctx(strategy: str) -> sharding.ShardCtx:
-    ctx = sharding.current()
-    if ctx.model_group is None:
+    try:
+        return sharding.model_sharded(f"the {strategy} expert dispatch")
+    except RuntimeError:
         raise RuntimeError(
             f"the {strategy} expert-parallel strategy needs a mesh: install "
-            f"the model axis's process group with sharding.use_mesh")
-    return ctx
+            f"the model axis's process group with sharding.use_mesh"
+        ) from None
 
 
 def _routed_psum(cfg: ModelConfig, params, x2: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each model rank runs its local experts over all its tokens; the
-    ranks' partial outputs are all-reduced."""
+    ranks' partial outputs are all-reduced.  The tokens and the gates,
+    whole on every rank, enter the rank's experts through ``copy_in``
+    (the router and the aux loss run whole on every rank)."""
     ctx = _model_ctx("psum")
     m = cfg.moe
     T = x2.shape[0]
     E_loc = params["w_gate"].shape[0]
     gates, eidx, probs = _route(x2, params["router"], m.top_k)
+    x2e, gates = sharding.copy_in(x2), sharding.copy_in(gates)
     C = _capacity(T, m.top_k, m.num_experts, m.capacity_factor)
     e_flat = eidx.reshape(-1)
     ranks = _ranks_of(e_flat, m.num_experts)
@@ -179,7 +183,7 @@ def _routed_psum(cfg: ModelConfig, params, x2: torch.Tensor
     slot = torch.where(keep, e_local * C + ranks,
                        torch.full_like(e_flat, E_loc * C))
     tok = torch.arange(T * m.top_k, device=x2.device) // m.top_k
-    xs = _fill_buffer(x2, tok, slot, E_loc * C).reshape(E_loc, C, -1)
+    xs = _fill_buffer(x2e, tok, slot, E_loc * C).reshape(E_loc, C, -1)
     ys = _expert_ffn(params, xs)
     y = _combine(ys.reshape(E_loc * C, -1), slot, gates, T, m.top_k)
     aux = _aux_loss(eidx, probs, m.num_experts, m.router_aux_loss_coef)
@@ -191,17 +195,20 @@ def _routed_a2a(cfg: ModelConfig, params, x: torch.Tensor
     """Classic expert parallelism: each model rank routes its slice of the
     sequence, two all-to-alls carry the dispatch buffers to the experts'
     ranks and back, and the slices are gathered again.  x (B, S, d), whole
-    on every model rank; returns y (B, S, d) f32."""
-    import torch.distributed as dist
+    on every model rank; returns y (B, S, d) f32.  Each rank reads its
+    slice of ``x`` and routes it with the whole router, so both enter
+    through ``copy_in``."""
     ctx = _model_ctx("a2a")
     m = cfg.moe
     B, S, d = x.shape
     E, M = m.num_experts, ctx.model_size
     E_loc, S_loc = E // M, S // M
+    x = sharding.copy_in(x)
     x2 = x[:, ctx.model_rank * S_loc:(ctx.model_rank + 1) * S_loc].reshape(
         B * S_loc, d)
     T = x2.shape[0]
-    gates, eidx, probs = _route(x2, params["router"], m.top_k)
+    gates, eidx, probs = _route(x2, sharding.copy_in(params["router"]),
+                                m.top_k)
     C = _capacity(T, m.top_k, E, m.capacity_factor)
     e_flat = eidx.reshape(-1)
     ranks = _ranks_of(e_flat, E)
@@ -209,13 +216,11 @@ def _routed_a2a(cfg: ModelConfig, params, x: torch.Tensor
                        torch.full_like(e_flat, E * C))
     tok = torch.arange(T * m.top_k, device=x.device) // m.top_k
     send = _fill_buffer(x2, tok, slot, E * C)             # (M * E_loc * C, d)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=ctx.model_group)
+    recv = sharding.all_to_all(send)
     xs = recv.reshape(M, E_loc, C, d).transpose(0, 1).reshape(E_loc, M * C, d)
     ys = _expert_ffn(params, xs)
     back = ys.reshape(E_loc, M, C, d).transpose(0, 1).reshape(E * C, d)
-    got = torch.empty_like(back)
-    dist.all_to_all_single(got, back.contiguous(), group=ctx.model_group)
+    got = sharding.all_to_all(back)
     y = _combine(got, slot, gates, T, m.top_k).reshape(B, S_loc, d)
     aux = _aux_loss(eidx, probs, E, m.router_aux_loss_coef)
     aux = sharding.batch_mean(sharding.reduce(aux) / M)

@@ -113,6 +113,8 @@ def _mlstm_qkvif(cfg: ModelConfig, params, x: torch.Tensor,
     d_in, h = params["w_up"].shape[-1], params["wq"].shape[-3]
     hd = d_in // h
     B, S, _ = x.shape
+    if d_in != xlstm_dims(cfg, "mlstm")[0]:
+        x = sharding.copy_in(x)          # the rank's heads' w_up, w_z
     x_up = x @ params["w_up"]
     z = x @ params["w_z"]
     # causal depthwise conv + silu, continued from the history in decode
@@ -320,9 +322,13 @@ def slstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
     else:
         raise ValueError(mode)
 
-    up = h_seq.to(x.dtype) @ params["w_up"]
+    sharded = params["w_down"].shape[-2] != xlstm_dims(cfg, "slstm")[0]
+    h_in = h_seq.to(x.dtype)
+    if sharded:
+        h_in = sharding.copy_in(h_in)    # the whole recurrence's output
+    up = h_in @ params["w_up"]
     gate, val = up.chunk(2, dim=-1)
     out = (gelu(gate) * val) @ params["w_down"]
-    if params["w_down"].shape[-2] != xlstm_dims(cfg, "slstm")[0]:
+    if sharded:
         out = sharding.reduce(out)       # the rank's rows of the FFN
     return out, state

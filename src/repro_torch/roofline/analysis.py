@@ -6,14 +6,17 @@ Three terms per (arch x shape x mesh), all in seconds per step:
   memory     = analytic_bytes_per_chip / HBM_BW
   collective = wire_bytes_per_chip / LINK_BW
 
-The FLOPs are the dry run's: the global operations of the step traced on
-the meta device (``launch.dryrun``: ``FlopCounterMode`` plus the kernels'
-own counts and the loops' trip counts), split evenly over the chips.  The
-bytes are modelled structurally, as in the JAX package
-(:func:`analytic_bytes`).  The port traces no per-rank program yet, so it
-has no collective bytes: ``analyze`` takes ``t_collective = 0`` and an
-empty ``collective_by_kind``, as the JAX package's ``analyze`` does when
-no HLO was saved.
+The FLOPs are the dry run's: the operations of one rank's step traced on
+the meta device (``launch.dryrun.rank_program``: ``FlopCounterMode`` plus
+the kernels' own counts and the loops' trip counts), so compute a rank
+repeats counts.  The bytes are modelled structurally, as in the JAX
+package (:func:`analytic_bytes`).  The collective term reads the record's
+``collective_by_kind``: the wire bytes a chip puts on its links for each
+kind of collective the rank's program issued (the recording mesh of
+``repro_torch.sharding``, priced by :func:`_wire_bytes`), the role the
+JAX package's ``collective_bytes`` plays on its partitioned HLO.  A
+record without it (no per-rank program) gives ``t_collective = 0``, as
+the JAX package's ``analyze`` does when no HLO was saved.
 
 Hardware constants (NVIDIA H100 SXM, ``repro_torch.sim.devices.H100``):
 989 TFLOP/s dense bf16 on the tensor cores, 3,350 GB/s HBM3, and 50 GB/s
@@ -172,18 +175,19 @@ def model_flops(cfg, shape) -> float:
 
 
 def analyze(record: dict, cfg, shape, chips: int = 256) -> Roofline:
-    """The roofline of one dry-run record: its per-chip ``flops`` (the
-    traced global FLOPs split evenly over the chips) at the peak rate,
-    the analytic bytes at the HBM rate, and no collective term (the port
-    traces no per-rank program yet)."""
+    """The roofline of one dry-run record: its per-chip ``flops`` (one
+    rank's traced FLOPs) at the peak rate, the analytic bytes at the HBM
+    rate, and its ``collective_by_kind`` wire bytes at the link rate
+    (none in a record without a per-rank program)."""
     fl = record.get("flops", 0.0)
     by = analytic_bytes(cfg, shape, chips, layout=record.get("layout", "tp"))
+    coll = dict(record.get("collective_by_kind") or {})
     return Roofline(
         arch=record["arch"], shape=record["shape"], mesh=record["mesh"],
         t_compute=fl / PEAK_FLOPS,
         t_memory=by / HBM_BW,
-        t_collective=0.0,
+        t_collective=sum(coll.values()) / LINK_BW,
         model_flops=model_flops(cfg, shape),
         hlo_flops_global=fl * chips,
-        collective_by_kind={},
+        collective_by_kind=coll,
     )

@@ -1,8 +1,8 @@
 """Roofline report: reads the dry run's records and prints the roofline
 table (the JAX package's), then each record's per-chip footprint.
 
-The collective column reads "n/a": the port traces no per-rank program
-yet, so its records carry no collective bytes.
+The collective column is the per-rank program's wire bytes at the link
+rate (``analysis.analyze``); it reads "n/a" for a record without them.
 
 Usage: PYTHONPATH=src python -m repro_torch.roofline.report
        [--results DIR] [--dryrun FILE] [--mesh 16x16|2x16x16] [--json OUT]
@@ -65,7 +65,8 @@ def main(argv=None) -> int:
         shape = INPUT_SHAPES[rec["shape"]]
         r = analyze(rec, cfg, shape, chips=chips_of(rec["mesh"]))
         rows.append((
-            r.arch, r.shape, fmt_s(r.t_compute), fmt_s(r.t_memory), "n/a",
+            r.arch, r.shape, fmt_s(r.t_compute), fmt_s(r.t_memory),
+            fmt_s(r.t_collective) if "collective_by_kind" in rec else "n/a",
             r.dominant, f"{r.model_flops:.2e}", f"{r.useful_ratio:.2f}",
             one_liner(r)))
         out_json.append({
@@ -77,6 +78,8 @@ def main(argv=None) -> int:
             "useful_ratio": r.useful_ratio,
             "collective_by_kind": r.collective_by_kind,
             "argument_gb": rec["argument_size_in_bytes"] / 1e9,
+            "peak_live_gb": rec.get("peak_live_bytes_above_arguments",
+                                    0) / 1e9,
             "fits_h100": rec["fits_h100"], "lower_s": rec["lower_s"],
         })
 

@@ -51,19 +51,48 @@ def init_opt_state(cfg: AdamWConfig, params) -> OptState:
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, cuts=None) -> torch.Tensor:
+    """The norm of the whole tree.  With ``cuts`` (the sharded step's
+    ``training.fsdp.plan``) ``tree`` is this rank's part: each leaf's sum
+    of squares is summed over the axes that cut it ("data", "model",
+    both), so every element counts once and a leaf replicated on an axis
+    is counted once there."""
     # the norm of the leaves' norms; on the card vector_norm reduces a bf16
     # leaf in f32 without an f32 copy of it
-    leaves = tree_flatten(tree)[0]
-    return torch.linalg.vector_norm(torch.stack([
-        torch.linalg.vector_norm(x, dtype=torch.float32) for x in leaves]))
+    if cuts is None:
+        leaves = tree_flatten(tree)[0]
+        return torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(x, dtype=torch.float32)
+            for x in leaves]))
+    from repro_torch import sharding
+    from repro_torch.training.fsdp import with_cuts
+    # per leaf category (cut on data, on model): its sum of squares
+    sums, dev = {}, None
+    for _, x, c in with_cuts(tree, cuts):
+        key = (c.data is not None, c.model is not None)
+        sq = torch.square(torch.linalg.vector_norm(x, dtype=torch.float32))
+        sums[key] = sums.get(key, 0.0) + sq
+        dev = x.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    part = {k: sums.get(k, zero) for k in
+            ((True, True), (True, False), (False, True), (False, False))}
+    ctx = sharding.current()
+    over_data = torch.stack([part[True, True], part[True, False]])
+    if ctx.data_size > 1:
+        over_data = sharding.all_reduce_sum(over_data, "data")
+    over_model = torch.stack([over_data[0], part[False, True]])
+    if ctx.model_size > 1:
+        over_model = sharding.all_reduce_sum(over_model, "model")
+    return torch.sqrt(over_model.sum() + over_data[1] + part[False, False])
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state: OptState,
-                 lr_scale):
-    """Returns (new_params, new_state, grad_norm)."""
-    gnorm = global_norm(grads)
+                 lr_scale, cuts=None):
+    """Returns (new_params, new_state, grad_norm).  On a rank's part of a
+    sharded tree ``cuts`` is its ``training.fsdp.plan``: only the norm
+    that clips reads across ranks; the update is elementwise."""
+    gnorm = global_norm(grads, cuts)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     b1c = 1.0 - cfg.b1 ** step.float()

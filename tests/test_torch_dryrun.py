@@ -15,6 +15,16 @@ per-chip bytes the JAX package's own specs imply for its own trees
 (``jax.eval_shape``), so ``fits_h100`` is what the specs imply.  Then the
 CLI with its trace file, and the two launchers that stand for the JAX
 package's examples.
+
+*The per-rank program.*  One rank's FLOPs times the chips are at least
+the global step's, and equal where every leaf cuts (reduced minicpm-2b
+at data 2 x model 2) and above where a rank repeats compute (the
+sLSTM recurrence); every reduced config's train step on the 16 x 16
+recording mesh issues collectives, which ``roofline.analysis.analyze``
+prices as its collective term; the recording mesh raises on a tensor
+off meta, and a collective inside a counted loop is recorded once per
+trip, replay or not.  (``tests/test_torch_train_mesh.py`` holds the
+recorded collectives against a real gloo world's.)
 """
 import json
 import math
@@ -168,7 +178,9 @@ def test_full_width_dry_run_per_family(arch, shape):
     print(f"{arch} {shape}: lower_s {rec.get('lower_s')}")
     assert rec["ok"], rec.get("traceback")
     assert rec["mesh"] == "16x16" and rec["layout"] == "tp"
-    assert rec["flops"] * 256 == rec["flops_global"] > 0
+    # one rank's program: compute a rank repeats counts
+    assert rec["flops"] * 256 >= rec["flops_global"] > 0
+    assert rec["peak_live_bytes_above_arguments"] > 0
     # the bytes the JAX package's specs imply for its own trees
     cfg = rcfg.get_config(arch)
     shp, long_ctx = rcfg.INPUT_SHAPES[shape], shape == "long_500k"
@@ -234,3 +246,95 @@ def test_serve_cluster_on_the_cpu(capsys):
                                "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "live prefix cache:" in out and "sim: same spec" in out
+
+
+# ---------------------------------------------------------------------------
+# the per-rank program
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(cfg, B, S):
+    toks = torch.zeros((B, S), dtype=torch.int32, device="meta")
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        batch["patch_embeds"] = torch.empty(
+            (B, cfg.frontend.num_prefix_tokens, cfg.frontend.embed_dim),
+            device="meta")
+    elif cfg.is_encoder_decoder:
+        batch["frames"] = torch.empty(
+            (B, cfg.encoder.max_source_positions, cfg.frontend.embed_dim),
+            device="meta")
+    return batch
+
+
+def _global_flops(cfg, batch):
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="meta")
+    opt_cfg = AdamWConfig()
+    with Counter() as c:
+        train_step(cfg, opt_cfg, params, init_opt_state(opt_cfg, params),
+                   batch, torch.ones((), device="meta"))
+    return c.total()
+
+
+@pytest.mark.parametrize("arch,equal", [("minicpm-2b", True),
+                                        ("xlstm-1.3b", False)])
+def test_rank_flops_times_chips_cover_the_global_step(arch, equal):
+    cfg = tcfg.get_config(arch).reduced()
+    batch = _train_batch(cfg, 4, 32)
+    rank = dryrun.rank_program(cfg, batch, data=2, model=2,
+                               opt_cfg=AdamWConfig())
+    flops, glob = rank["counter"].total(), _global_flops(cfg, batch)
+    assert (flops * 4 == glob) if equal else (flops * 4 > glob)
+    assert rank["peak_live_bytes"] > 0
+    assert rank["argument_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", tcfg.list_archs())
+def test_every_train_step_records_collectives(arch):
+    """Every config's train step on the 16 x 16 recording mesh (reduced
+    widths) records FSDP's and TP's collectives, and ``analyze`` prices
+    them: ``t_collective > 0`` for every train shape."""
+    from repro_torch.roofline import analysis
+    cfg = tcfg.get_config(arch).reduced()
+    rank = dryrun.rank_program(cfg, _train_batch(cfg, 16, 16), data=16,
+                               model=16, opt_cfg=AdamWConfig())
+    by_kind = dryrun.collective_by_kind(rank["collectives"])
+    assert by_kind and all(v > 0 for v in by_kind.values())
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(by_kind)
+    for name, shape in tcfg.INPUT_SHAPES.items():
+        if shape.kind != "train":
+            continue
+        rec = {"arch": arch, "shape": name, "mesh": "16x16", "layout": "tp",
+               "flops": rank["counter"].total(), "collective_by_kind": by_kind}
+        r = analysis.analyze(rec, cfg, shape)
+        assert r.t_collective == sum(by_kind.values()) / analysis.LINK_BW > 0
+        assert r.collective_by_kind == by_kind
+
+
+def test_recording_mesh_raises_off_meta():
+    from repro_torch import sharding
+    with sharding.record_mesh(model=2, data=2):
+        with pytest.raises(RuntimeError, match="meta tensors only"):
+            sharding.reduce(torch.ones(3))
+        out = sharding.gather_data(torch.empty((3, 4), device="meta"), 1)
+        assert out.shape == (3, 8) and out.is_meta
+
+
+def test_collectives_in_a_loop_count_per_trip():
+    """A reduce inside a counted loop of 9 trips, forward and backward:
+    9 forward all-reduces and 8 backward (copy_in's: the first trip's
+    input needs no gradient), none doubled by the replay thread."""
+    from repro_torch import sharding
+    from repro_torch.core import opcount
+    w = torch.empty((8, 8), device="meta", requires_grad=True)
+
+    def body(i, carry, w):
+        return sharding.reduce(sharding.copy_in(carry) @ w), None
+
+    with sharding.record_mesh(model=4, data=1) as ctx, Counter() as c:
+        x, _ = opcount.steps("mm", 9, body,
+                             torch.empty((2, 8), device="meta"), w)
+        x.sum().backward()
+    assert c.collectives == {("all-reduce", 2 * 8 * 4, 4): 17.0}
+    assert ctx.recorder == {}

@@ -8,7 +8,9 @@ term times its v5e constant (both are the same FLOPs and bytes).  Each
 kernel wrapper's meta branch: the output's shape and dtype, launch and
 plain counters untouched, and the credited FLOPs equal to the kernel's
 formula at two shapes.  ``steps`` off meta is the plain loop.  The report
-prints both tables from a records file.
+prints both tables from a records file, and the collective column from a
+record's per-rank collectives (``tests/test_torch_dryrun.py`` holds
+``analyze``'s collective term for every config's train step).
 """
 import json
 
@@ -238,3 +240,23 @@ def test_report_prints_both_tables(tmp_path, capsys):
     terms = json.loads(out_json.read_text())
     assert len(terms) == 1 and terms[0]["mesh"] == "16x16"
     assert terms[0]["hlo_flops_global"] == 8.77e9 * 256
+
+
+def test_report_prints_the_collective_column(tmp_path, capsys):
+    rec = {"arch": "minicpm-2b", "shape": "train_4k", "mesh": "16x16",
+           "ok": True, "layout": "tp", "lower_s": 1.0,
+           "argument_size_in_bytes": 2e9, "output_size_in_bytes": 2e9,
+           "alias_size_in_bytes": 2e9, "flops": 1e12, "flops_global": 1e14,
+           "fits_h100": True, "peak_live_bytes_above_arguments": 5e9,
+           "collective_by_kind": {"all-gather": 25e9, "all-reduce": 25e9}}
+    (tmp_path / "dry.json").write_text(json.dumps([rec]))
+    out_json = tmp_path / "terms.json"
+    assert report.main(["--results", str(tmp_path), "--dryrun", "dry.json",
+                        "--json", str(out_json)]) == 0
+    text = capsys.readouterr().out
+    # 50 GB on the wire at 50 GB/s: one second, the dominant term
+    assert "| minicpm-2b | train_4k |" in text and "|    1.00s  |" in text
+    assert "| collective |" in text.split("\n")[2]
+    terms = json.loads(out_json.read_text())
+    assert terms[0]["t_collective"] == 1.0
+    assert terms[0]["dominant"] == "collective"
