@@ -65,15 +65,18 @@ each of which exits non-zero on failure:
    mirror syncs and a rebalance or promotion must happen, the mirror and
    stream bytes must equal ``LineCosts`` over the lines each engine's
    ledger moved, and the prefill and paged kernels must have launched with
-   no plain version run.  Prints the report, wall ms per iteration,
+   no plain version run.  Prints the report, wall ms per iteration (the
+   run timed apart from the weights' draw: sim-calibration reads it),
    ``sched_us_per_iter`` and the card's busy share over the serve's first
    30 scheduling steps (profiled in a rerun of them);
-7. cluster-chunked — the same model and traffic shape, ~6 requests, under
-   sarathi with 128-token chunks: chunks must resume past their prompt's
-   start and the prefill kernel must launch at ``q_offset > 0``;
-8. cluster-fleet — the cluster phase's stream on its weights, first once
-   with no kill (the wall ms per iteration that sim-calibration and
-   the kill runs are set beside, all timed on weights already drawn), then
+7. cluster-chunked — the same model's first ``CHUNKED_LAYERS`` (6) of 30
+   layers and the same traffic shape, ~6 requests, under sarathi with
+   128-token chunks: chunks must resume past their prompt's start and the
+   prefill kernel must launch at ``q_offset > 0``;
+8. cluster-fleet — first the cluster phase's profiled rerun of its first
+   30 scheduling steps on the whole depth, whose tokens so far must equal
+   the serve's, and the near-tie limit on each request's first token;
+   then the cluster phase's stream
    on the weights' first ``FLEET_LAYERS`` (6) of 30 layers once with no
    kill (the kill runs' token reference) and with instance 1 killed at
    iteration 60 and rejoined at 90, under accellm and under vllm, each
@@ -83,8 +86,8 @@ each of which exits non-zero on failure:
    rehearsal's; accellm must absorb the kill by promotions (no re-queue,
    no re-prefilled token) and warm the rejoin, vllm must re-queue and
    re-prefill (the prefill kernel launching once per layer per prefill
-   plan); every request's tokens must equal the cluster serve's (no-kill)
-   or the 6-layer no-kill run's (kill runs), unless the two tokens' f32
+   plan); every request's tokens must equal the cluster serve's (the
+   rerun) or the 6-layer no-kill run's (kill runs), unless the two tokens' f32
    logits lie within the bf16 error measured on that row (printed); wall
    ms per iteration beside TTFT/TBT/JCT;
 9. cluster-prefix — the cluster phase's arrival and length processes
@@ -120,8 +123,8 @@ each of which exits non-zero on failure:
 12. sim-calibration — on the host: the port's simulator on the cluster
     phase's stream with one modeled H100 per instance, its decode
     dispatch set to the serve phase's decode ms per step at 8 active and
-    to 0; modeled TTFT/TBT/JCT beside the measured ones of each no-kill
-    run of phase 8;
+    to 0; modeled TTFT/TBT/JCT beside the measured ones of phase 6's
+    serve;
 13. scale — on the host: the port's simulator on the bursty llama2-70b
     stream (4 instances, 500 s) under accellm and ulb and their ``-vec``
     twins (the array-backed cluster state), and on phase 9's stream with
@@ -311,7 +314,19 @@ each of which exits non-zero on failure:
     every rank's part of the params after the steps within 1e-4 of the
     whole leaf's max|.|, each rank's param and moment bytes below one
     process's; no kernel runs.  Prints seconds per step, each rank's
-    peak memory and the collectives a step makes by kind and axis.
+    peak memory and the collectives a step makes by kind and axis;
+34. mesh-partial — internvl2-1b whole at published widths in bf16, one
+    engine at tp 4 on a world of four processes on card 0 over gloo: its
+    14 query heads do not divide 4, so every rank computes the whole
+    attention (the prefill and dense decode kernels at 14/2 heads, hd
+    64) and a quarter of the FFN (1,216 of d_ff 4,864), its vocab of
+    151,655 whole (odd).  Phase 31's checks (tokens against one process
+    up to near-ties on the f32 replay, f32 logits at two layers within
+    1e-3 * max|logit|, kernels launched with no plain version), the
+    kernels' heads, and each rank's weight bytes equal to the rule
+    table's parts and below one process's.  Prints decode ms per step at
+    tp 4 beside tp 1, ``sharding.reduce``/``gather`` calls per step and
+    the launch counts.
 
 Each phase group's weights are freed before the next: starcoder2's after
 phases 3-5, 6-9 and 10, minicpm-2b's after 11 and 30, the bf16 Jamba weights
@@ -321,8 +336,8 @@ internvl2-1b's after 23, the trained minicpm-2b's after 25 and each
 family's after its steps; the mesh phases' ranks hold their own.  TF32 is
 off for matmuls and cuDNN.  ``python3 chip_smoke.py --mesh-only`` runs
 phase 1, the serve phase's six requests, phases 28-29, the kernels at
-phase 31's per-rank shapes and phases 31-32 alone, and prints no result
-line.
+phase 31's per-rank shapes and phases 31-32 and 34 alone, and prints no
+result line.
 The last two lines of standard output are the kernel summary and the
 device line, each one JSON object.
 """
@@ -1304,28 +1319,38 @@ def phase_cluster(torch, np):
     moved, unrecord = _record_moves(InstanceEngine)
     torch.cuda.synchronize()
     reset_counts()
+    # api.serve's two steps, the weights' draw and the run timed apart
     t0 = time.perf_counter()
-    report = serve(spec)
+    cluster = build_cluster(spec)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    finished = cluster.run(max_steps=spec.max_steps,
+                           source=spec.resolve_traffic().source(
+                               seed=spec.seed, cfg=cluster.cfg))
+    torch.cuda.synchronize()
+    run = time.perf_counter() - t0
+    wall = draw + run
+    report = ServeReport(spec=spec, cluster=cluster, finished=finished,
+                         n_submitted=len(cluster._submitted))
     counts = {"cluster": read_counts()}
     unrecord()
     unclock()
     restore()
-    cluster = report.cluster
     params = cluster.engines[0].params
     n_it = cluster.n_iterations
     # what the later phases hold their runs against: the no-kill tokens
-    # and iterations (cluster-fleet, which adds the timed no-kill runs that
-    # sim-calibration reads)
+    # and iterations, and the wall ms per iteration of the run on drawn
+    # weights (sim-calibration reads it)
     measured = {"spec": spec, "requests": list(cluster._submitted),
-                "iterations": n_it}
+                "iterations": n_it,
+                "ms_per_iteration": [run * 1e3 / max(1, n_it)]}
     log("cluster: report:\n" + report.describe())
-    log(f"cluster: serve wall {wall:.3f} s (weights drawn inside), {n_it} "
-        f"iterations in {len(marks)} scheduling steps, "
-        f"{wall * 1e3 / max(1, n_it):.3f} ms per iteration, "
-        f"sched_us_per_iter {report.sched_us_per_iter:.1f}; launches "
-        f"{counts['cluster']}")
+    log(f"cluster: serve wall {wall:.3f} s ({draw:.3f} s drawing the "
+        f"weights, {run:.3f} s running), {n_it} iterations in {len(marks)} "
+        f"scheduling steps, {measured['ms_per_iteration'][0]:.3f} ms per "
+        f"iteration on drawn weights, sched_us_per_iter "
+        f"{report.sched_us_per_iter:.1f}; launches {counts['cluster']}")
     check(report.all_finished, f"cluster: not every request finished: "
           f"{report.describe()}")
     check(report.n_submitted == n_req, f"cluster: {report.n_submitted} of "
@@ -1378,13 +1403,20 @@ def phase_cluster(torch, np):
         f"{profiled_ms:.1f} ms profiled in a rerun of the serve's first {hi} "
         f"steps")
     _print_breakdown({f"steps {lo}-{hi - 1}": b}, "cluster")
+    # the rerun's tokens so far: cluster-fleet holds them to the serve's
+    measured["rerun"] = list(again._submitted)
     del again, cluster, report, prof
 
     # -- 7. cluster-chunked --------------------------------------------------------
+    # on the weights' first CHUNKED_LAYERS layers: the chunk schedule
+    # depends on the lengths alone, and each layer resumes as the first
     spec = _cluster_spec(policy="sarathi", policy_kwargs={"chunk_tokens": 128},
                          traffic=_light(60.0))
     n_req = len(list(spec.traffic.source(seed=spec.seed)))
-    chunked = build_cluster(spec, params=params)
+    from repro_torch.configs import get_config
+    chunked = build_cluster(
+        spec, cfg=_depth_cut(get_config(spec.arch), CHUNKED_LAYERS),
+        params=_first_layers(params, CHUNKED_LAYERS))
     chunked.planner.trace = []
     offsets, restore = _watch_offsets(attention_mod)
     torch.cuda.synchronize()
@@ -1402,8 +1434,8 @@ def phase_cluster(torch, np):
                if e[0] in ("prefill", "mixed")
                for it in e[2][0 if e[0] == "mixed" else slice(None)]
                if it[1] > 0]
-    log("cluster-chunked: sarathi, chunk_tokens 128; report:\n"
-        + report.describe())
+    log(f"cluster-chunked: sarathi, chunk_tokens 128, the first "
+        f"{CHUNKED_LAYERS} of 30 layers; report:\n" + report.describe())
     log(f"cluster-chunked: serve wall {wall:.3f} s, {chunked.n_iterations} "
         f"iterations, {wall * 1e3 / max(1, chunked.n_iterations):.3f} ms per "
         f"iteration; {len(resumed)} resumed chunks (start > 0); prefill "
@@ -1412,7 +1444,7 @@ def phase_cluster(torch, np):
     check(report.all_finished and len(finished) == n_req,
           f"cluster-chunked: not every request finished: {report.describe()}")
     check(resumed, "cluster-chunked: no chunk resumed past its start")
-    check(offsets["q_offset>0"] > 0,
+    check(offsets["q_offset>0"] >= CHUNKED_LAYERS,
           "cluster-chunked: the prefill kernel never ran at q_offset > 0")
     _check_path_counts(counts["cluster-chunked"],
                        ("flash_attention", "paged_decode_attention"),
@@ -1428,13 +1460,13 @@ def phase_cluster(torch, np):
     return counts, measured
 
 
+#: cluster-chunked: the layers of its serve (of starcoder2-3b's 30)
+CHUNKED_LAYERS = 6
 #: cluster-fleet: the kill of instance 1 and its rejoin, in iterations.  A
 #: CPU rehearsal of the stream at reduced width put the kill where
 #: instance 1 holds two mirrored primaries (instance 0 two more) and the
 #: rejoin where instance 0 still holds four requests, so it is warmed.
 FLEET_KILL, FLEET_JOIN = 60.0, 90.0
-#: cluster-fleet: timed serves of the stream with no kill
-NO_KILL_RUNS = 1
 #: cluster-fleet: the layers of the kill runs and their no-kill reference
 #: (of starcoder2-3b's 30), and of their CPU rehearsal (of the reduced 2)
 FLEET_LAYERS = 6
@@ -1590,15 +1622,17 @@ def _tie_limits(torch, cfg, params, params32, window, requests, phase):
 
 
 def phase_cluster_fleet(torch, params, measured):
-    """Phase 8: the cluster phase's stream on the same weights,
-    ``NO_KILL_RUNS`` times with no kill (their wall ms per iteration go
-    into ``measured["ms_per_iteration"]``), then on the same weights' first
+    """Phase 8: the cluster phase's stream on the same weights' first
     ``FLEET_LAYERS`` layers once with no kill (the kill runs' reference)
     and with instance 1 killed at ``FLEET_KILL`` and rejoined at
     ``FLEET_JOIN``, under accellm and under vllm, beside a CPU rehearsal
     at reduced width cut to ``REHEARSAL_LAYERS`` layer: the policy's and
     the fleet's decisions depend on neither the widths nor the depth.
-    Returns the kernel counts of the no-kill runs and of each kill run."""
+    First, on the whole depth, the cluster phase's profiled rerun of its
+    first steps (``measured["rerun"]``): each request's tokens so far equal
+    the serve's up to near-ties.  Returns the kernel counts of each kill
+    run."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import sampling as sampling_mod
@@ -1606,47 +1640,25 @@ def phase_cluster_fleet(torch, params, measured):
     reference = {r.rid: r for r in measured["requests"]}
     params32 = _tree_map(lambda t: t.float(), params)
     counts = {}
+    spec = measured["spec"]
+    cfg = get_config(spec.arch)
 
-    # the stream with no kill, timed on weights already drawn, as the kill
-    # runs below are
-    phase = "cluster-fleet no-kill"
-    spec = _fleet_spec("accellm", kill=False)
-    measured["ms_per_iteration"] = []
-    served = []
-    torch.cuda.synchronize()
-    reset_counts()
-    for i in range(NO_KILL_RUNS):
-        t0 = time.perf_counter()
-        report = _serve_traced(spec, params=params)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_it = report.cluster.n_iterations
-        ms_per_it = wall * 1e3 / max(1, n_it)
-        measured["ms_per_iteration"].append(ms_per_it)
-        log(f"{phase} run {i + 1}: serve wall {wall:.3f} s, {n_it} "
-            f"iterations, {ms_per_it:.3f} ms per iteration; "
-            + _latency_line(report, ms_per_it))
-        check(report.all_finished and n_it == measured["iterations"],
-              f"{phase} run {i + 1}: {n_it} iterations against the cluster "
-              f"serve's {measured['iterations']}: {report.describe()}")
-        cfg = report.cluster.cfg
-        served.append(report.finished)
-        del report
-    counts[phase] = read_counts()
-    _check_path_counts(counts[phase],
-                       ("flash_attention", "paged_decode_attention"), phase)
-    near = [t for finished in served
-            for t in _tokens_against(torch, cfg, params, params32,
-                                     spec.kv_capacity, reference, finished,
-                                     phase)]
-    log(f"{phase}: {NO_KILL_RUNS} runs, tokens equal the cluster serve's"
-        + (f" up to {len(near)} near-ties" if near else "")
-        + f"; launches {counts[phase]}")
+    # the whole depth: the rerun's tokens against the serve's, and the
+    # near-tie limit on each request's first token
+    phase = "cluster-fleet rerun"
+    rerun = measured.get("rerun", [])
+    check(sum(len(r.output_tokens) for r in rerun) > 0,
+          f"{phase}: the cluster phase's rerun sampled no token")
+    near = _tokens_against(torch, cfg, params, params32, spec.kv_capacity,
+                           reference, rerun, phase)
+    log(f"{phase}: {len(rerun)} requests of the cluster phase's rerun of its "
+        f"first {CLUSTER_WINDOW[1]} scheduling steps, "
+        f"{sum(len(r.output_tokens) for r in rerun)} tokens, equal the "
+        f"serve's" + (f" up to {len(near)} near-ties" if near else ""))
     _tie_limits(torch, cfg, params, params32, spec.kv_capacity,
                 measured["requests"], "cluster-fleet")
     # the kill runs on the first FLEET_LAYERS layers, beside their own
     # no-kill run, whose tokens they are held to
-    from repro_torch.configs import get_config
     cfg = _depth_cut(cfg, FLEET_LAYERS)
     params = _first_layers(params, FLEET_LAYERS)
     params32 = _first_layers(params32, FLEET_LAYERS)
@@ -2279,9 +2291,9 @@ def phase_sim_calibration(measured, decode_ms_8):
     H100 per instance, its dispatch cost set to the serve phase's decode
     ms per step at 8 active, and again at 0 (the pure roofline); the
     modeled TTFT/TBT/JCT beside the measured ones (iterations x the wall
-    ms per iteration of each no-kill run of phase 8).  The stream's arrival
-    at iteration i lands at i x that wall time, so both see the same
-    arrivals in seconds."""
+    ms per iteration of the cluster phase's serve on drawn weights).  The
+    stream's arrival at iteration i lands at i x that wall time, so both
+    see the same arrivals in seconds."""
     from repro_torch.configs import get_config
     from repro_torch.sim import (H100, AcceLLMPolicy, InstanceSpec, PerfModel,
                                  SimRequest, Simulator, summarize)
@@ -2293,8 +2305,8 @@ def phase_sim_calibration(measured, decode_ms_8):
               ("modeled, dispatch 0 (roofline)", 0.0))
     log(f"sim-calibration: starcoder2-3b, InstanceSpec(H100, n_devices=1), "
         f"{spec.n_instances} instances x {spec.num_slots} slots, the cluster "
-        f"phase's stream ({len(reqs)} requests); seconds, for each no-kill "
-        f"run of cluster-fleet:")
+        f"phase's stream ({len(reqs)} requests); seconds, against the "
+        f"cluster phase's serve:")
     ratios = {name: {f: [] for f in fields} for name, _ in models}
     for k, ms_per_it in enumerate(measured["ms_per_iteration"]):
         s_per_it = ms_per_it / 1e3
@@ -4191,6 +4203,9 @@ def main() -> int:
     _free(torch)
     # -- 33. train-mesh: the sharded train step on a (data 2, model 2) world
     paths["train-mesh"] = phase_train_mesh(torch, np, card)
+    _free(torch)
+    # -- 34. mesh-partial: tp 4 where the query heads do not divide it
+    paths.update(phase_mesh_partial(torch, np, card))
 
     for r in kernels:
         r["launches_by_path"] = {p: c[r["name"]]["launches"]
@@ -4609,10 +4624,12 @@ def _mesh_requests(np, cfg, seed):
 def _mesh_serve(torch, np, cfg, eng, seed):
     """The six requests through ``eng``: each prefilled alone, then dense
     decode steps until all finish; every sampled row's logits kept (f32,
-    on the host) by (request, token index), the kernel counts, the
-    dropped MoE assignments, the TP collectives per decode step."""
+    on the host) by (request, token index), the kernel counts and the
+    (heads, KV heads, hd[, causal]) of their calls, the dropped MoE
+    assignments, the TP collectives per decode step."""
     from repro_torch import sharding
     from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import attention as attention_mod
     from repro_torch.models import moe as moe_mod
     reqs, extras = _mesh_requests(np, cfg, seed)
     last = []
@@ -4624,6 +4641,7 @@ def _mesh_serve(torch, np, cfg, eng, seed):
 
     eng._sample = sample
     drops, undrop = _watch_drops(moe_mod)
+    heads, unwatch = _watch_heads(attention_mod, DENSE_ENTRIES)
     rows = {}
     torch.cuda.synchronize()
     reset_counts()
@@ -4648,8 +4666,10 @@ def _mesh_serve(torch, np, cfg, eng, seed):
     uncount()
     counts = read_counts()
     undrop()
+    unwatch()
     del eng._sample
     return {"tokens": [list(map(int, r.output_tokens)) for r in reqs],
+            "heads": {n: sorted(v) for n, v in heads.items()},
             "rows": rows, "prefill_s": prefill_s, "decode_s": decode_s,
             "steps": steps, "collectives": calls[0] / max(1, steps),
             "counts": counts, "dropped": int(sum(int(d) for d in drops)),
@@ -4771,9 +4791,9 @@ def _mesh_judge(torch, np, cfg, dev, seed, one, two):
 
 def _mesh_family(torch, np, rank, world, sl, arch, cfg, cfg32, dev, seed):
     """One family on this rank: in turn the ranks draw the whole tree
-    (rank 0 serves it on one device first), build their tp 2 engine,
-    which keeps only the rank's cut, and free the whole tree before the
-    next rank draws; then the tp 2 serve, rank 0's f32 replay of the
+    (rank 0 serves it on one device first), build their tp-``world``
+    engine, which keeps only the rank's cut, and free the whole tree
+    before the next rank draws; then that serve, rank 0's f32 replay of the
     one-device tokens (:func:`_mesh_judge`), and the two-layer f32 check
     drawn in turn likewise."""
     import torch.distributed as dist
@@ -4871,88 +4891,98 @@ def phase_mesh_families(torch, np, card, device="cuda"):
     for arch, cfg, cfg32, _ in plan["families"]:
         name = f"{phase} {arch}"
         outs = [r[arch] for r in ranks]
-        lead = outs[0]
-        one = lead["one"]
-        check(all(o["tokens"] == lead["tokens"] for o in outs),
-              f"{name}: the ranks' tokens differ")
-        check(all(len(t) == MESH_NEW for t in lead["tokens"] + one["tokens"]),
-              f"{name}: a request ended short")
-        # phase 8's rule on the f32 replay of the one-device tokens
-        limit = 2 * lead["reading"]
-        for rid, j, a, b, gap, _ in lead["ties"]:
-            check(gap <= limit, f"{name}: request {rid}'s token {j} is {b} "
-                  f"at tp 2 and {a} on one device, {gap:.3e} apart in the "
-                  f"f32 replay, beyond twice one device's max |bf16 - f32| "
-                  f"{lead['reading']:.3e}")
-        check(not lead["blunt"], f"{name}: on the parting rows "
-              f"{lead['blunt']} twice one device's max |bf16 - f32| spans "
-              f"the whole f32 row: the near-tie rule would pass any token")
-        check(lead["worst"] <= 2 * lead["ratio"], f"{name}: max |tp 1 - tp "
-              f"2| / max|f32| {lead['worst']:.3e} over the common prefixes, "
-              f"beyond twice one device's max |bf16 - f32| / max|f32| "
-              f"{lead['ratio']:.3e}")
-        for r, o in enumerate(outs):
-            label = f"{name} rank {r}"
-            _check_path_counts(o["counts"], MESH_PATHS[arch], label)
-            if not MESH_PATHS[arch]:
-                _check_no_kernel(o["counts"], label)
-            if cfg.moe is not None:
-                check(o["dropped"] == 0, f"{label}: {o['dropped']} MoE "
-                      f"assignments dropped at capacity factor "
-                      f"{cfg.moe.capacity_factor}")
-            for step, (err, scale) in enumerate(o["f32"]):
-                check(err <= 1e-3 * scale, f"{label}: f32 row {step} "
-                      f"differs by {err} against max logit {scale}")
-            check(o["rank_bytes"] < o["whole_bytes"], f"{label}: "
-                  f"{o['rank_bytes']} B of weights, the whole tree's "
-                  f"{o['whole_bytes']} B")
-        if cfg.moe is not None:
-            check(one["dropped"] == 0, f"{name}: one device dropped "
-                  f"{one['dropped']} MoE assignments")
-        ms1 = one["decode_s"] * 1e3 / one["steps"]
-        log(f"{name}: {cfg.num_layers} layers {cfg.block_pattern[:8]}, "
-            f"d_model {cfg.d_model}, heads {cfg.num_heads}/"
-            f"{cfg.num_kv_heads}, {cfg.dtype}; {len(MESH_PROMPTS)} requests "
-            f"(prompts {MESH_PROMPTS}) x {MESH_NEW} tokens; "
-            f"{lead['seconds']:.1f} s on rank 0")
-        log(f"{name}: weights per rank "
-            + ", ".join(f"{o['rank_bytes'] / 1e9:.3f}" for o in outs)
-            + f" GB of one device's {lead['whole_bytes'] / 1e9:.3f} GB; "
-            f"state per rank " + ", ".join(f"{o['state'] / 1e6:.1f}"
-                                           for o in outs)
-            + f" MB of one device's {one['state'] / 1e6:.1f} MB")
-        log(f"{name}: decode ms per step (6 active, dense): tp 1 {ms1:.3f}, "
-            f"tp 2 " + ", ".join(
-                f"rank {r} {o['decode_s'] * 1e3 / o['steps']:.3f}"
-                for r, o in enumerate(outs))
-            + f"; prefill of the six: tp 1 {one['prefill_s']:.3f} s, tp 2 "
-            f"{lead['prefill_s']:.3f} s; {lead['collectives']:.1f} "
-            f"sharding.reduce/gather calls per decode step; {card}")
-        log(f"{name}: launches tp 1 {one['counts']}; tp 2 "
-            + "; ".join(f"rank {r} {o['counts']}" for r, o in enumerate(outs)))
-        if cfg.moe is not None:
-            log(f"{name}: MoE capacity factor {cfg.moe.capacity_factor} "
-                f"(dropless): assignments dropped on one device "
-                f"{one['dropped']}, at tp 2 "
-                + ", ".join(f"rank {r} {o['dropped']}"
-                            for r, o in enumerate(outs)))
-        log(f"{name}: tokens equal one device's"
-            + (f" up to {len(lead['ties'])} near-ties (rid, index, one "
-               f"device's token, tp 2's, f32 gap, twice the row's own max "
-               f"|bf16 - f32|) {lead['ties']}, limit {limit:.3e}"
-               if lead["ties"] else "")
-            + f"; over the {len(MESH_PROMPTS) * MESH_NEW} rows of the f32 "
-            f"replay of one device's tokens, one device's max |bf16 - f32| "
-            f"{lead['reading']:.3e}, / max|f32| at most {lead['ratio']:.3e}; "
-            f"max |tp 1 - tp 2| / max|f32| over the rows sampled on a common "
-            f"prefix {lead['worst']:.3e} (limit {2 * lead['ratio']:.3e}); "
-            f"replay {lead['replay_s']:.1f} s")
-        log(f"{name}: f32 at 2 layers {cfg32.block_pattern}: max |tp 2 - tp "
-            f"1| / max|logit| over prefill + {MESH_F32_STEPS} decode steps: "
-            + ", ".join(f"rank {r} {max(e / s for e, s in o['f32']):.3e}"
-                        for r, o in enumerate(outs)) + " (limit 1e-3)")
+        _check_mesh_family(name, outs, cfg, cfg32, MESH_PATHS[arch], card)
         counts[name] = _sum_counts(outs)
     return counts
+
+
+def _check_mesh_family(name, outs, cfg, cfg32, path_kernels, card):
+    """Phase 31's checks and lines for one family's ranks ``outs`` (rank
+    0 first, which also served one device): tokens against one device up
+    to near-ties on the f32 replay, the kernels of ``path_kernels`` and no
+    other, no MoE drop, the f32 rows within 1e-3 of max|logit|, each
+    rank's weights below the whole tree's."""
+    tp = len(outs)
+    lead = outs[0]
+    one = lead["one"]
+    check(all(o["tokens"] == lead["tokens"] for o in outs),
+          f"{name}: the ranks' tokens differ")
+    check(all(len(t) == MESH_NEW for t in lead["tokens"] + one["tokens"]),
+          f"{name}: a request ended short")
+    # phase 8's rule on the f32 replay of the one-device tokens
+    limit = 2 * lead["reading"]
+    for rid, j, a, b, gap, _ in lead["ties"]:
+        check(gap <= limit, f"{name}: request {rid}'s token {j} is {b} "
+              f"at tp {tp} and {a} on one device, {gap:.3e} apart in the "
+              f"f32 replay, beyond twice one device's max |bf16 - f32| "
+              f"{lead['reading']:.3e}")
+    check(not lead["blunt"], f"{name}: on the parting rows "
+          f"{lead['blunt']} twice one device's max |bf16 - f32| spans "
+          f"the whole f32 row: the near-tie rule would pass any token")
+    check(lead["worst"] <= 2 * lead["ratio"], f"{name}: max |tp 1 - tp "
+          f"{tp}| / max|f32| {lead['worst']:.3e} over the common prefixes, "
+          f"beyond twice one device's max |bf16 - f32| / max|f32| "
+          f"{lead['ratio']:.3e}")
+    for r, o in enumerate(outs):
+        label = f"{name} rank {r}"
+        _check_path_counts(o["counts"], path_kernels, label)
+        if not path_kernels:
+            _check_no_kernel(o["counts"], label)
+        if cfg.moe is not None:
+            check(o["dropped"] == 0, f"{label}: {o['dropped']} MoE "
+                  f"assignments dropped at capacity factor "
+                  f"{cfg.moe.capacity_factor}")
+        for step, (err, scale) in enumerate(o["f32"]):
+            check(err <= 1e-3 * scale, f"{label}: f32 row {step} "
+                  f"differs by {err} against max logit {scale}")
+        check(o["rank_bytes"] < o["whole_bytes"], f"{label}: "
+              f"{o['rank_bytes']} B of weights, the whole tree's "
+              f"{o['whole_bytes']} B")
+    if cfg.moe is not None:
+        check(one["dropped"] == 0, f"{name}: one device dropped "
+              f"{one['dropped']} MoE assignments")
+    ms1 = one["decode_s"] * 1e3 / one["steps"]
+    log(f"{name}: {cfg.num_layers} layers {cfg.block_pattern[:8]}, "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, {cfg.dtype}; {len(MESH_PROMPTS)} requests "
+        f"(prompts {MESH_PROMPTS}) x {MESH_NEW} tokens; "
+        f"{lead['seconds']:.1f} s on rank 0")
+    log(f"{name}: weights per rank "
+        + ", ".join(f"{o['rank_bytes'] / 1e9:.3f}" for o in outs)
+        + f" GB of one device's {lead['whole_bytes'] / 1e9:.3f} GB; "
+        f"state per rank " + ", ".join(f"{o['state'] / 1e6:.1f}"
+                                       for o in outs)
+        + f" MB of one device's {one['state'] / 1e6:.1f} MB")
+    log(f"{name}: decode ms per step (6 active, dense): tp 1 {ms1:.3f}, "
+        f"tp {tp} " + ", ".join(
+            f"rank {r} {o['decode_s'] * 1e3 / o['steps']:.3f}"
+            for r, o in enumerate(outs))
+        + f"; prefill of the six: tp 1 {one['prefill_s']:.3f} s, tp {tp} "
+        f"{lead['prefill_s']:.3f} s; {lead['collectives']:.1f} "
+        f"sharding.reduce/gather calls per decode step; {card}")
+    log(f"{name}: launches tp 1 {one['counts']}; tp {tp} "
+        + "; ".join(f"rank {r} {o['counts']}" for r, o in enumerate(outs)))
+    if cfg.moe is not None:
+        log(f"{name}: MoE capacity factor {cfg.moe.capacity_factor} "
+            f"(dropless): assignments dropped on one device "
+            f"{one['dropped']}, at tp {tp} "
+            + ", ".join(f"rank {r} {o['dropped']}"
+                        for r, o in enumerate(outs)))
+    log(f"{name}: tokens equal one device's"
+        + (f" up to {len(lead['ties'])} near-ties (rid, index, one "
+           f"device's token, tp {tp}'s, f32 gap, twice the row's own max "
+           f"|bf16 - f32|) {lead['ties']}, limit {limit:.3e}"
+           if lead["ties"] else "")
+        + f"; over the {len(MESH_PROMPTS) * MESH_NEW} rows of the f32 "
+        f"replay of one device's tokens, one device's max |bf16 - f32| "
+        f"{lead['reading']:.3e}, / max|f32| at most {lead['ratio']:.3e}; "
+        f"max |tp 1 - tp {tp}| / max|f32| over the rows sampled on a common "
+        f"prefix {lead['worst']:.3e} (limit {2 * lead['ratio']:.3e}); "
+        f"replay {lead['replay_s']:.1f} s")
+    log(f"{name}: f32 at 2 layers {cfg32.block_pattern}: max |tp {tp} - "
+        f"tp 1| / max|logit| over prefill + {MESH_F32_STEPS} decode steps: "
+        + ", ".join(f"rank {r} {max(e / s for e, s in o['f32']):.3e}"
+                    for r, o in enumerate(outs)) + " (limit 1e-3)")
 
 
 def phase_mesh_cluster_hybrid(torch, np, card, device="cuda"):
@@ -5231,6 +5261,76 @@ def phase_train_mesh(torch, np, card, device="cuda"):
     return counts
 
 
+#: mesh-partial: internvl2-1b, whose 14 query heads do not divide the
+#: slice of ``PARTIAL_WORLD`` ranks on card 0, while its d_ff 4,864 does
+PARTIAL_ARCH = "internvl2-1b"
+PARTIAL_WORLD = 4
+PARTIAL_TIMEOUT = 600.0
+
+
+def phase_mesh_partial(torch, np, card, device="cuda"):
+    """Phase 34, mesh-partial: internvl2-1b whole at published widths, one
+    engine at tp ``PARTIAL_WORLD`` on that many processes on this one
+    card over gloo (phase 31's rank function and checks).  Its 14 query
+    heads do not divide 4: every rank computes the whole attention (the
+    prefill and dense decode kernels at 14/2 heads) and a quarter of the
+    FFN (1,216 of 4,864); the vocab of 151,655 does not divide 4 and
+    stays whole.  Checks tokens against one process up to near-ties on an
+    f32 replay, f32 logits at 2 layers within 1e-3 of max|logit|, the
+    kernels' heads, and each rank's weight bytes: the sum of the rule
+    table's parts (``meshserve.pool.shard_params`` on the meta device),
+    below one process's.  Returns the kernel counts summed over the
+    ranks."""
+    from repro_torch.meshserve.pool import shard_params
+    from repro_torch.meshserve.topology import MeshSlice
+    from repro_torch.meshserve.world import spawn
+    from repro_torch.models import init_params
+    phase = "mesh-partial"
+    t_phase = time.perf_counter()
+    cfg, cfg32 = mesh_family_configs(PARTIAL_ARCH)
+    tp = PARTIAL_WORLD
+    check(cfg.num_heads % tp and cfg.d_ff % tp == 0, f"{phase}: "
+          f"{PARTIAL_ARCH}'s {cfg.num_heads} heads must not divide {tp} "
+          f"while its d_ff {cfg.d_ff} does")
+    meta = init_params(cfg, torch.Generator().manual_seed(0), device="meta")
+    want = [_weight_bytes(shard_params(cfg, meta, MeshSlice(
+        index=0, ranks=tuple(range(tp)), device=torch.device("meta"),
+        rank=r))) for r in range(tp)]
+    plan = {"device": device,
+            "families": [(PARTIAL_ARCH, cfg, cfg32, 41)]}
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_families_rank", tp, device=device,
+                  share_card=device == "cuda", args=(plan,),
+                  timeout=PARTIAL_TIMEOUT, threads=2)
+    log(f"{phase}: {tp} ranks on card 0 in {time.perf_counter() - t0:.1f} "
+        f"s over gloo (every CUDA collective staged through the host)")
+    name = f"{phase} {PARTIAL_ARCH}"
+    outs = [r[PARTIAL_ARCH] for r in ranks]
+    _check_mesh_family(name, outs, cfg, cfg32, DENSE_PATH, card)
+    whole_heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    for r, o in enumerate([outs[0]["one"]] + outs):
+        label = f"{name} " + ("one process" if r == 0 else f"rank {r - 1}")
+        check(o["heads"] == {"flash_attention_cuda": [whole_heads + (True,)],
+                             "decode_attention_cuda": [whole_heads]},
+              f"{label}: kernel calls at {o['heads']}, expected the whole "
+              f"{whole_heads} heads")
+    for r, o in enumerate(outs):
+        check(o["rank_bytes"] == want[r] < o["whole_bytes"],
+              f"{name} rank {r}: {o['rank_bytes']} B of weights against the "
+              f"rule table's {want[r]} B and one process's "
+              f"{o['whole_bytes']} B")
+    vocab = "whole" if cfg.vocab_size % tp else f"a {tp}th"
+    log(f"{name}: each rank's weights equal the rule table's parts "
+        f"({want[0] / 1e9:.4f} GB: attention and norms whole, the vocab of "
+        f"{cfg.vocab_size} {vocab}, a {tp}th of d_ff {cfg.d_ff}), "
+        f"{want[0] / outs[0]['whole_bytes']:.3f} of one process's "
+        f"{outs[0]['whole_bytes'] / 1e9:.4f} GB; kernel calls at (heads, KV "
+        f"heads, hd[, causal]) {outs[0]['heads']} on every rank and on one "
+        f"process")
+    log(f"{phase}: phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return {name: _sum_counts(outs)}
+
+
 def _sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -5239,7 +5339,7 @@ def _sync(torch, dev):
 def mesh_only(torch, np, dev, card, flash_mod, decode_mod, scan_mod, flush):
     """``python3 chip_smoke.py --mesh-only``: the serve phase's six
     requests on one engine (the reference), then phases 28-29, the
-    kernels at phase 31's per-rank shapes and phases 31-32 alone; for
+    kernels at phase 31's per-rank shapes and phases 31-32 and 34 alone; for
     bringing the mesh phases up without the rest.  Prints no result
     line."""
     from repro_torch.configs import get_config
@@ -5258,8 +5358,11 @@ def mesh_only(torch, np, dev, card, flash_mod, decode_mod, scan_mod, flush):
     phase_mesh_families(torch, np, card)
     _free(torch)
     phase_mesh_cluster_hybrid(torch, np, card)
+    _free(torch)
+    phase_mesh_partial(torch, np, card)
     log("chip_smoke --mesh-only: serve, mesh-engine, mesh-cluster, the "
-        "per-rank kernels, mesh-families and mesh-cluster-hybrid passed")
+        "per-rank kernels, mesh-families, mesh-cluster-hybrid and "
+        "mesh-partial passed")
     return 0
 
 

@@ -15,7 +15,14 @@ kernel counts it returned.  The phases:
   cluster-prefix  phase 9 (``phase_cluster_prefix``) on the cluster
                   phase's weights (``build_cluster`` of its spec draws
                   them); builds the checkout's kernels first, untimed;
-  train-mesh      phase 33 (``phase_train_mesh``; no kernel).
+  train-mesh      phase 33 (``phase_train_mesh``; no kernel);
+  cluster-fleet   phase 8 (``phase_cluster_fleet``) after the cluster
+                  phase's serve and its rerun of the first 30 steps on
+                  the same weights, untimed (what phase 8 is held to);
+                  builds the checkout's kernels first, untimed;
+  mesh-partial    phase 34 (``phase_mesh_partial``: four processes on
+                  the card); builds the checkout's kernels first,
+                  untimed.
 
 A checkout whose chip_smoke.py lacks a phase prints ``"seconds": null``
 for it.  To compare a change with its parent, unpack the parent into a
@@ -30,7 +37,8 @@ import sys
 import time
 from pathlib import Path
 
-PHASES = ("serve-xlstm", "deepseek", "cluster-prefix", "train-mesh")
+PHASES = ("serve-xlstm", "deepseek", "cluster-prefix", "train-mesh",
+          "cluster-fleet", "mesh-partial")
 
 
 def _one(root: Path, phase: str) -> dict:
@@ -60,7 +68,16 @@ def _one(root: Path, phase: str) -> dict:
         params = cluster.engines[0].params
         del cluster
         run = lambda: chip_smoke.phase_cluster_prefix(torch, params, {})
-    elif hasattr(chip_smoke, "phase_train_mesh"):
+    elif phase == "cluster-fleet":
+        measured = _cluster_serve(torch, chip_smoke)
+        params = measured.pop("params")
+        run = lambda: chip_smoke.phase_cluster_fleet(torch, params, measured)
+    elif phase == "mesh-partial" and hasattr(chip_smoke,
+                                             "phase_mesh_partial"):
+        from repro_torch.kernels import build
+        build.build_all()
+        run = lambda: chip_smoke.phase_mesh_partial(torch, np, card)
+    elif phase == "train-mesh" and hasattr(chip_smoke, "phase_train_mesh"):
         run = lambda: chip_smoke.phase_train_mesh(torch, np, card)
     else:
         return out
@@ -70,6 +87,30 @@ def _one(root: Path, phase: str) -> dict:
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def _cluster_serve(torch, chip_smoke):
+    """What phase 8 of either checkout is held to, untimed: the cluster
+    phase's serve of its stream, then its rerun of the first scheduling
+    steps on the same weights (``measured["rerun"]``); the weights under
+    ``"params"``."""
+    from repro_torch.api import build_cluster
+    from repro_torch.kernels import build
+    build.build_all()
+    spec = chip_smoke._cluster_spec(traffic=chip_smoke._light(120.0))
+    cluster = build_cluster(spec)
+    cluster.run(max_steps=spec.max_steps, source=spec.traffic.source(
+        seed=spec.seed, cfg=cluster.cfg))
+    params = cluster.engines[0].params
+    measured = {"spec": spec, "requests": list(cluster._submitted),
+                "iterations": cluster.n_iterations, "params": params}
+    again = build_cluster(spec, params=params)
+    again.run(max_steps=chip_smoke.CLUSTER_WINDOW[1],
+              source=spec.traffic.source(seed=spec.seed, cfg=again.cfg))
+    measured["rerun"] = list(again._submitted)
+    del cluster, again
+    torch.cuda.synchronize()
+    return measured
 
 
 def main(argv) -> int:

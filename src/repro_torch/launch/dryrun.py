@@ -31,8 +31,9 @@ reads its partitioned HLO.  PyTorch has no GSPMD and no HLO, so here:
   and its step: ``training.ShardedStep`` on the recording mesh for train
   shapes, ``prefill``/``decode_step`` with the model axis recorded for
   the others.  Its record: ``flops``, the rank's own count, so compute a
-  rank repeats (a config whose heads do not divide 16 runs whole on every
-  model rank) counts, and ``flops * chips >= flops_global``;
+  rank repeats (where the heads do not divide 16 every model rank
+  computes every head of the attention, while its FFN, experts and vocab
+  are cut) counts, and ``flops * chips >= flops_global``;
   ``collective_by_kind``, the wire bytes a chip puts on its links per
   kind (``roofline.analysis._wire_bytes`` of each recorded collective's
   result bytes and group size) and ``collective_calls``;

@@ -19,7 +19,17 @@ layer's ``param_pspecs``, which stays the dry run's layout.  A rule is
     divide the slice that is the even cut; where they do not (reduced
     starcoder2-3b's 2 KV heads at tp 4), the ranks whose queries share a
     KV head each keep a copy of it;
+  * ``(dim, "h")``: a contiguous cut at whole heads (MLA's per-head
+    projections, every mLSTM leaf): the cut of ``(dim, 1)``, but only
+    where the query heads divide the slice; a width that divides while
+    the heads do not (xlstm-1.3b's ``w_up`` at tp 16) would split a head;
   * absent: the leaf is whole on every rank.
+
+The head-bound rules (``"q"``, ``"kv"``, ``"h"``) leave their module
+whole where the query heads do not divide the slice: a rank then
+computes every head of it and issues no collective for it.  Every other
+leaf keeps its cut wherever its own dim divides, whatever the heads, as
+the JAX package's ``param_pspecs`` cuts each dim that divides.
 
 The cuts, by block:
 
@@ -56,10 +66,6 @@ state, the MLA latent and ``enc_out`` stay whole.  :func:`local_state`
 builds a rank's scratch state at those shapes.  A rank outside the slice
 keeps no state at all (the engine there is a shadow).  Block tables stay
 host-side numpy, as on one device.
-
-Where the query heads do not divide the slice, the engine runs
-replicated: whole params and state on every rank of the slice, no
-collective (``MeshSlice.model_axis_for``).
 """
 from __future__ import annotations
 
@@ -72,8 +78,8 @@ from repro_torch.launch.specs import map_with_path
 from repro_torch.meshserve.collectives import Holders
 from repro_torch.meshserve.topology import MeshError, MeshSlice
 
-#: a rule: (dim, sections) of a contiguous cut, or (dim, "q" | "kv") of
-#: the GQA head cut
+#: a rule: (dim, sections) of a contiguous cut, (dim, "q" | "kv") of the
+#: GQA head cut, or (dim, "h") of a contiguous cut at whole heads
 Rule = Tuple[int, Union[int, str]]
 
 _GQA_PARAMS = {"wq": (-1, "q"), "wk": (-1, "kv"), "wv": (-1, "kv"),
@@ -84,14 +90,15 @@ _FFN = {"w_gate": (-1, 1), "w_up": (-1, 1), "w_down": (-2, 1)}
 #: named is whole on every rank)
 PARAM_RULES: Dict[str, Dict[str, Rule]] = {
     "gqa": _GQA_PARAMS,
-    "mla": {"wq_b": (-1, 1), "wkv_b": (-1, 1), "wo": (-2, 1)},
+    "mla": {"wq_b": (-1, "h"), "wkv_b": (-1, "h"), "wo": (-2, "h")},
     "mamba": {"in_proj": (-1, 2), "conv_w": (-1, 1), "conv_b": (-1, 1),
               "x_proj": (-2, 1), "dt_w": (-1, 1), "dt_b": (-1, 1),
               "A_log": (-2, 1), "D": (-1, 1), "out_proj": (-2, 1)},
-    "mlstm": {"w_up": (-1, 1), "w_z": (-1, 1), "conv_w": (-1, 1),
-              "conv_b": (-1, 1), "w_o": (-1, 1), "wq": (-3, 1),
-              "wk": (-3, 1), "wv": (-3, 1), "w_i": (-2, 1), "w_f": (-2, 1),
-              "b_i": (-1, 1), "b_f": (-1, 1), "w_down": (-2, 1)},
+    "mlstm": {"w_up": (-1, "h"), "w_z": (-1, "h"), "conv_w": (-1, "h"),
+              "conv_b": (-1, "h"), "w_o": (-1, "h"), "wq": (-3, "h"),
+              "wk": (-3, "h"), "wv": (-3, "h"), "w_i": (-2, "h"),
+              "w_f": (-2, "h"), "b_i": (-1, "h"), "b_f": (-1, "h"),
+              "w_down": (-2, "h")},
     "slstm": {"w_up": (-1, 2), "w_down": (-2, 1)},
     "ffn": _FFN,
     "experts": {"w_gate": (-3, 1), "w_up": (-3, 1), "w_down": (-3, 1)},
@@ -107,7 +114,8 @@ STATE_RULES: Dict[str, Dict[str, Rule]] = {
             "xv": (-2, "kv")},
     "mla": {},
     "mamba": {"conv": (-1, 1), "ssm": (-2, 1)},
-    "mlstm": {"C": (-3, 1), "n": (-2, 1), "m": (-1, 1), "conv": (-1, 1)},
+    "mlstm": {"C": (-3, "h"), "n": (-2, "h"), "m": (-1, "h"),
+              "conv": (-1, "h")},
     "slstm": {},
 }
 
@@ -116,9 +124,10 @@ def head_split(cfg, tp: int
                ) -> Optional[List[Tuple[Tuple[int, ...], Tuple[int, ...]]]]:
     """Per model rank, the query heads it computes and the KV heads it
     keeps for them (in local order); None where the query heads do not
-    divide ``tp`` (the slice runs replicated).  A rank whose queries span
-    whole KV groups keeps those groups' heads; one whose queries lie in
-    one group keeps that head; otherwise each query keeps its own copy."""
+    divide ``tp`` (every head-bound module then stays whole).  A rank
+    whose queries span whole KV groups keeps those groups' heads; one
+    whose queries lie in one group keeps that head; otherwise each query
+    keeps its own copy."""
     H, KVH = cfg.num_heads, cfg.num_kv_heads
     if H % tp:
         return None
@@ -135,10 +144,6 @@ def head_split(cfg, tp: int
         else:
             out.append((q, tuple(kv_of)))
     return out
-
-
-def _sharded(cfg, sl: MeshSlice) -> bool:
-    return sl.tp > 1 and sl.model_axis_for(cfg) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -209,16 +214,19 @@ def kept(rule: Optional[Rule], size: int, tp: int, r: int,
          ) -> Optional[List[int]]:
     """The indices along the rule's dim (of ``size``) that model rank
     ``r`` of ``tp`` keeps, in local order; None: the whole dim.  ``split``
-    is :func:`head_split`'s, ``unit`` the width of one head along the dim
-    (``head_dim`` for projections, 1 for a cache's head axis)."""
+    is :func:`head_split`'s (None: the head-bound rules keep the whole
+    dim), ``unit`` the width of one head along the dim (``head_dim`` for
+    projections, 1 for a cache's head axis)."""
     if rule is None or tp == 1:
         return None
     _, how = rule
+    if how in ("q", "kv", "h") and split is None:
+        return None
     if how in ("q", "kv"):
-        if split is None:
-            return None
         q_heads, kv_heads = split[r]
         return _columns(q_heads if how == "q" else kv_heads, unit)
+    if how == "h":
+        how = 1
     sec = size // how
     if sec % tp or sec < tp:
         return None
@@ -245,14 +253,11 @@ def _take(t: torch.Tensor, dim: int, idx: Optional[List[int]], dev
 def shard_params(cfg, params, sl: MeshSlice):
     """This rank's part of ``params`` on the slice's device, by the rule
     table.  The input tree is untouched: every engine of a pod cuts the
-    same weights.  A replicated slice (heads do not divide) gets the whole
-    tree."""
+    same weights."""
     if not sl.holds:
         raise MeshError(f"rank {sl.rank} is not on slice {sl.index} "
                         f"(ranks {sl.ranks})")
     dev = sl.device
-    if not _sharded(cfg, sl):
-        return map_with_path(lambda ps, t: t.to(dev), params)
     split = head_split(cfg, sl.tp)
 
     def cut(ps, t):
@@ -277,9 +282,9 @@ def _state_paths(cfg):
 def holders(cfg, sl: MeshSlice, state) -> Holders:
     """Where a store on ``sl`` keeps ``state`` (a whole serving state, or
     its meta twin), rank by rank: per leaf the rule table cuts, its
-    (negative) dim and the global indices each model rank keeps.  A
-    replicated slice cuts nothing: every rank holds every leaf whole."""
-    if not _sharded(cfg, sl):
+    (negative) dim and the global indices each model rank keeps; a leaf
+    not recorded is whole on every rank."""
+    if sl.tp == 1:
         return Holders(sl.ranks)
     split = head_split(cfg, sl.tp)
     cuts = {}

@@ -105,10 +105,11 @@ class MeshSlice:
         return self.ranks.index(self.rank)
 
     def model_axis_for(self, cfg) -> Optional[str]:
-        """The axis the model's TP may use for this config: ``None`` when
-        the head count does not divide the slice, and the engine then runs
-        replicated on every rank of the slice, with whole params and no
-        collective."""
+        """The JAX package's gate of this config's sharding constraints:
+        ``None`` when the head count does not divide the slice.  It
+        switches no slice off: every leaf whose own dim divides is still
+        cut (``meshserve.pool``), and only the head-bound modules stay
+        whole (``pool.head_split`` is None)."""
         return "model" if cfg.num_heads % self.tp == 0 else None
 
 

@@ -222,6 +222,7 @@ class LiveCluster:
                  mesh=None, timeline_stride: int = 1,
                  max_queue: Optional[int] = None,
                  shed_deadline: Optional[float] = None,
+                 degrade_dispatch_s: float = 0.0,
                  device: Device = "cuda"):
         if isinstance(policy, str):
             from repro_torch.scheduling.registry import get_policy
@@ -274,6 +275,11 @@ class LiveCluster:
         #: scheduling iteration for every alive instance, as in the JAX
         #: package, so hedging decisions replay identically
         self.health: List[float] = [1.0] * n_instances
+        #: optional calibrated injection: each decode dispatch on a
+        #: degraded instance sleeps (factor - 1) * this many wall seconds,
+        #: making the slowdown physically observable.  0.0 (default)
+        #: keeps the tests and the golden traces timing-free.
+        self.degrade_dispatch_s = degrade_dispatch_s
         #: admission control: reject new arrivals once the backlog holds
         #: this many requests (None = unbounded), and shed queued
         #: requests whose wait already exceeds this many iterations
@@ -679,6 +685,12 @@ class LiveCluster:
             self._relieve_pressure(dc.instance, view)
             if not eng.slot_req:
                 continue
+            if self.degrade_dispatch_s > 0.0 \
+                    and self.degrade[dc.instance] > 1.0:
+                # calibrated physical injection: a degraded instance's
+                # dispatch really takes (factor - 1) x the knob longer
+                time.sleep((self.degrade[dc.instance] - 1.0)
+                           * self.degrade_dispatch_s)
             live = {s: eng.slot_req[s] for s in eng.active_slots()}
             out = eng.decode_multi(dc)
             if out:

@@ -96,13 +96,11 @@ class InstanceEngine:
                                 block_lines=block_lines, device=self.device)
         #: whether this process computes for the engine (not a shadow)
         self._computes = mesh is None or mesh.holds
-        self._model_axis = None
         if mesh is not None:
             from repro_torch.meshserve.pool import shard_params, shard_store
             self.params = (shard_params(cfg, params, mesh)
                            if mesh.holds else None)
             shard_store(self.store, mesh)
-            self._model_axis = mesh.model_axis_for(cfg)
         self.lengths = np.zeros((num_slots,), np.int32)
         self.last_tokens = np.zeros((num_slots,), np.int32)
         self.slot_req: Dict[int, Request] = {}
@@ -165,12 +163,11 @@ class InstanceEngine:
         return local_state(self.cfg, self.mesh, batch, window)
 
     def _mesh_ctx(self):
-        """The TP context of this engine's dispatches: the slice's group,
-        where its heads divide it (else the slice runs replicated)."""
-        if self.mesh is None or self._model_axis is None:
+        """The TP context of this engine's dispatches: the slice's group
+        (each module tells its cut from whole leaves by their shapes)."""
+        if self.mesh is None:
             return contextlib.nullcontext()
-        return sharding.use_mesh(self.mesh.group, batch_axes=(),
-                                 model_axis=self._model_axis)
+        return sharding.use_mesh(self.mesh.group, batch_axes=())
 
     def _share(self, host: np.ndarray) -> np.ndarray:
         """The slice lead's host result (sampled tokens, emitted counts),

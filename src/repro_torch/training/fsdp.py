@@ -10,8 +10,9 @@ world, rank ``d * model + m``:
   (``meshserve/pool.py::PARAM_RULES``: a rank computes whole heads,
   channel blocks or experts), and the model's explicit collectives
   (``repro_torch.sharding``) differentiate through it.  Where the query
-  heads do not divide the model width the model runs whole on every
-  model rank (``MeshSlice.model_axis_for``);
+  heads do not divide the model width the head-bound modules (attention,
+  MLA, the mLSTM) run whole on every model rank, with the same gradient
+  on each, and every other leaf is still cut where its dim divides;
 * **FSDP** on the data axis then cuts each leaf of the rank's TP part,
   and its AdamW moments, in ``data`` equal slices along the dim that
   ``launch/specs.py::param_pspecs(mode="train")`` gives "data".  A leaf
@@ -130,14 +131,13 @@ def plan(cfg, params, mesh: TrainMesh):
     ``params`` (meta tensors will do)."""
     from repro_torch.meshserve.pool import head_split, kept, param_rule
     tp, dp = mesh.model, mesh.data
-    sharded = tp > 1 and cfg.num_heads % tp == 0
-    split = head_split(cfg, tp) if sharded else None
+    split = head_split(cfg, tp)
     specs = param_pspecs(cfg, params, mode="train", multi_pod=mesh.multi_pod,
                          model_n=tp) if dp > 1 else None
 
     def cut(path, leaf):
         model = None
-        rule = param_rule(cfg, path) if sharded else None
+        rule = param_rule(cfg, path)
         if rule is not None:
             dim = rule[0] % leaf.dim()
             idx = kept(rule, leaf.shape[dim], tp, mesh.model_rank, split,

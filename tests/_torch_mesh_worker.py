@@ -79,6 +79,27 @@ def logits_at(cfg, params, sl):
     return pre.numpy(), dec.numpy()
 
 
+def six_heads(cfg):
+    """A variant with 6 query and 2 KV heads: 6 heads do not divide a
+    slice of 4, while the FFN, the experts and the vocab do."""
+    return dataclasses.replace(cfg, num_heads=6, num_kv_heads=2)
+
+
+def partial_tp(cfg, params, tp=4):
+    """tp ``tp`` where the query heads do not divide it: this rank's
+    tokens, logits, param and state bytes and param shapes."""
+    (sl,) = carve_slices(tp, 1, device=CPU)
+    eng, toks = generate(cfg, params, sl)
+    out = {"tokens": toks, "holds": sl.holds,
+           "state_bytes": eng.state_bytes(),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in _leaves(eng.params)),
+           "params": _shapes(eng.params), "state": _shapes(eng.state)}
+    out["prefill"], out["decode"] = (logits_at(cfg, params, sl) if sl.holds
+                                     else (None, None))
+    return out
+
+
 def tp_engines(cfg, params):
     out = {}
     for tp in (2, 4, 3):
@@ -243,7 +264,9 @@ def world4(rank, world, payload):
             "cluster": mesh_cluster(cfg, params, payload["shapes"]),
             "serve": api_serve(),
             "join": join_past_the_pod(cfg, params),
-            "moe": moe(rank, payload)}
+            "moe": moe(rank, payload),
+            "partial": partial_tp(six_heads(cfg), params_from_numpy(
+                payload["partial_params"], device=CPU))}
 
 
 def hetero(rank, world, payload):
@@ -353,14 +376,17 @@ def family_clock(cfg, S=8):
     return S + (cfg.frontend.num_prefix_tokens if vlm else 0)
 
 
-def family_logits(cfg, params, sl, steps=2):
+def family_logits(cfg, params, sl, steps=2, cut=None):
     """Prefill logits of ``family_batch`` and ``steps`` greedy dense decode
     steps' logits, under the slice's TP context (whole params without a
-    slice)."""
+    slice).  ``cut(cfg, params, sl, batch, seq_len)`` gives the rank's
+    params and state in place of the rule table's."""
     from repro_torch.models import decode_step, prefill
     batch = {k: torch.as_tensor(v) for k, v in family_batch(cfg).items()}
     B = batch["tokens"].shape[0]
-    if sl is not None:
+    if cut is not None:
+        params, state = cut(cfg, params, sl, B, 32)
+    elif sl is not None:
         params = shard_params(cfg, params, sl)
         state = local_state(cfg, sl, B, 32)
     else:
@@ -448,6 +474,64 @@ def mutated(payload):
     return out
 
 
+def split_heads(cfg, params, sl, batch, seq_len):
+    """A deliberately wrong cut of every mLSTM leaf: the contiguous block
+    of ``d_in / tp`` channels a width-only rule gives where the heads do
+    not divide the slice, so each rank keeps part of one head (its
+    diagonal block of ``wq``/``wk``/``wv``, its channels of the gates) and
+    runs it as a head of its own; every other leaf by the rule table."""
+    from repro_torch.models.xlstm import xlstm_dims
+    local = shard_params(cfg, params, sl)
+    state = local_state(cfg, sl, batch, seq_len)
+    d_in, hd = xlstm_dims(cfg, "mlstm")
+    n = d_in // sl.tp
+    lo = sl.model_rank * n
+    head, off = divmod(lo, hd)
+    cols = slice(lo, lo + n)
+    sub = slice(off, off + n)
+    one = slice(head, head + 1)
+    for seg, (whole, mine) in enumerate(zip(params["segments"],
+                                            local["segments"])):
+        for pj, part in whole.items():
+            if "w_up" not in part["mixer"] or "w_z" not in part["mixer"]:
+                continue
+            w, m = part["mixer"], mine[pj]["mixer"]
+            for key in ("w_up", "w_z", "conv_w", "conv_b", "w_o"):
+                m[key] = w[key][..., cols].clone()
+            m["w_down"] = w["w_down"][..., cols, :].clone()
+            for key in ("wq", "wk", "wv"):
+                m[key] = w[key][..., one, sub, sub].clone()
+            for key in ("w_i", "w_f"):
+                m[key] = w[key][..., one, sub].clone()
+            for key in ("b_i", "b_f"):
+                m[key] = w[key][..., one].clone()
+            st = state["layers"][seg][pj]
+            for key, shape in (("C", (1, n, n)), ("n", (1, n)), ("m", (1,)),
+                               ("conv", (n,))):
+                lead = st[key].shape[:st[key].dim() - len(shape)]
+                st[key] = torch.zeros(tuple(lead) + shape,
+                                      dtype=st[key].dtype)
+    return local, state
+
+
+def head_cut(case):
+    """The head gate's case: one device's logits, then each rank's at
+    ``tp`` under the rule table (the mLSTM whole) and under
+    :func:`split_heads`, on weights drawn on every rank from one seed."""
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              **case["heads"])
+    params = init_params(cfg, torch.Generator().manual_seed(1), device=CPU)
+    tp = case["tp"]
+    (sl,) = carve_slices(tp, 1, device=CPU)
+    out = {"one": family_logits(cfg, params, None),
+           "one_tokens": family_generate(cfg, params, None)[1],
+           "kept": family_ranks(cfg, params, tps=(tp,))[tp]}
+    out["split"] = (family_logits(cfg, params, sl, cut=split_heads)
+                    if sl.holds else None)
+    return out
+
+
 def families(rank, world, payload):
     """Every family at tp 2 and 4 on a world of 4: tokens, logits, bytes;
     the MoE families also at the dropless capacity factor; the mutation
@@ -464,7 +548,14 @@ def families(rank, world, payload):
                                      / cfg.moe.top_k)
             got["dropless"] = family_ranks(dropless, params, tps=(2,))
         out[arch] = got
+    for name, (arch, params_np) in payload["variants"].items():
+        cfg = six_heads(get_config(arch).reduced())
+        if cfg.moe is not None:
+            cfg = with_capacity(cfg, cfg.moe.num_experts / cfg.moe.top_k)
+        params = params_from_numpy(params_np, device=CPU)
+        out[name] = {"published": family_ranks(cfg, params, tps=(4,))}
     out["mutated"] = mutated(payload["mutate"])
+    out["head_cut"] = head_cut(payload["head_cut"])
     return out
 
 

@@ -25,10 +25,13 @@ OPT = AdamWConfig(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
 LR = (0.0, 1.0, 1.0)
 
 
-def config(arch, capacity=None):
+def config(arch, capacity=None, heads=None):
     """The reduced f32 config; ``capacity`` overrides the MoE capacity
-    factor ("dropless": ``num_experts / top_k``)."""
+    factor ("dropless": ``num_experts / top_k``), ``heads`` the fields
+    it names (``num_heads``, ``num_kv_heads``)."""
     cfg = get_config(arch).reduced()
+    if heads:
+        cfg = dataclasses.replace(cfg, **heads)
     if capacity is not None and cfg.moe is not None:
         cf = (cfg.moe.num_experts / cfg.moe.top_k if capacity == "dropless"
               else capacity)
@@ -91,7 +94,8 @@ class _Calls:
 def run_family(payload, rank):
     """One config on this rank: grads of the first batch, then 3 AdamW
     steps; this rank's part of each, the step losses and norms."""
-    cfg = config(payload["arch"], payload.get("capacity"))
+    cfg = config(payload["arch"], payload.get("capacity"),
+                 payload.get("heads"))
     mesh = dataclasses.replace(train_mesh(*MESH), moe_strategy=payload.get(
         "strategy", "auto"))
     step = make_train_step(cfg, OPT, mesh)

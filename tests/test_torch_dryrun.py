@@ -24,7 +24,11 @@ recording mesh issues collectives, which ``roofline.analysis.analyze``
 prices as its collective term; the recording mesh raises on a tensor
 off meta, and a collective inside a counted loop is recorded once per
 trip, replay or not.  (``tests/test_torch_train_mesh.py`` holds the
-recorded collectives against a real gloo world's.)
+recorded collectives against a real gloo world's.)  Where the heads do
+not divide the model width (starcoder2-3b's 24 at 16) a rank keeps its
+attention whole and every other leaf cut where its dim divides: its
+argument bytes are the sum of those cuts, below the whole model's, and
+its FLOPs repeat the attention's only.
 """
 import json
 import math
@@ -338,3 +342,49 @@ def test_collectives_in_a_loop_count_per_trip():
         x.sum().backward()
     assert c.collectives == {("all-reduce", 2 * 8 * 4, 4): 17.0}
     assert ctx.recorder == {}
+
+
+#: starcoder2-3b decode_32k on the 16 x 16 mesh: rank 0's argument bytes
+#: while a config whose 24 heads do not divide 16 ran whole on every
+#: model rank (the whole params, its batch rows and state)
+WHOLE_MODEL_RANK_BYTES = 7_367_669_824
+
+
+def test_rank_past_whole_heads_cuts_all_but_the_attention():
+    from repro_torch.meshserve.pool import local_state, param_rule
+    from repro_torch.meshserve.topology import MeshSlice
+    from repro_torch.launch.specs import map_with_path
+    from repro_torch.training import fsdp
+    arch, shape_name = "starcoder2-3b", "decode_32k"
+    cfg, shape = tcfg.get_config(arch), tcfg.INPUT_SHAPES[shape_name]
+    assert cfg.num_heads % 16 and cfg.d_ff % 16 == cfg.vocab_size % 16 == 0
+    rec = dryrun.run_one(arch, shape_name, False, save_trace=False)
+    assert rec["ok"], rec.get("traceback")
+    # the sum of the new cuts: a leaf whose rule is head-bound stays
+    # whole, every other leaf with a rule is cut in 16
+    whole = init_params(cfg, torch.Generator().manual_seed(0), device="meta")
+    parts = {"whole": 0, "cut": 0}
+
+    def add(path, t):
+        rule = param_rule(cfg, path)
+        cut = (rule is not None and rule[1] not in ("q", "kv", "h")
+               and t.shape[rule[0]] % 16 == 0)
+        parts["cut" if cut else "whole"] += (
+            t.numel() * t.element_size() // (16 if cut else 1))
+
+    map_with_path(add, whole)
+    params_bytes = parts["whole"] + parts["cut"]
+    B = shape.global_batch // 16
+    batch = dryrun.build_meta(arch, shape_name, False)["batch"]
+    local = fsdp.local_batch(batch, fsdp.recording_mesh(16, 16))
+    sl = MeshSlice(index=0, ranks=tuple(range(16)), device=torch.device(
+        "meta"))
+    state = local_state(cfg, sl, B, shape.seq_len)
+    rest = fsdp.leaf_bytes(local) + fsdp.leaf_bytes(state)
+    assert rec["rank_argument_size_in_bytes"] == params_bytes + rest
+    assert fsdp.leaf_bytes(whole) + rest == WHOLE_MODEL_RANK_BYTES
+    assert rec["rank_argument_size_in_bytes"] < WHOLE_MODEL_RANK_BYTES
+    # the attention is repeated on every model rank, the rest is not
+    assert rec["flops_global"] <= rec["flops"] * 256 \
+        < 16.0 * rec["flops_global"]
+    assert {"all-reduce", "all-gather"} <= set(rec["collective_by_kind"])

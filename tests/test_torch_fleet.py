@@ -401,6 +401,36 @@ def test_golden_degrade_trace_matches_reference(setup):
         assert inst.synced_store().ledger.used_blocks() == 0
 
 
+def test_degrade_dispatch_sleeps_match_reference(setup, monkeypatch):
+    """``degrade_dispatch_s``: on the chaos script's schedule each decode
+    dispatch of the degraded instance sleeps (factor - 1) x the knob,
+    after the pressure relief, in the port as in the JAX package (the
+    sleeps recorded, not slept); the decisions and tokens stay equal
+    across the packages, and the knob is off by default."""
+    import sys
+    import time
+    sleeps = {"repro.scheduling.live": [],
+              "repro_torch.scheduling.live": []}
+
+    def fake_sleep(seconds):
+        sleeps[sys._getframe(1).f_globals["__name__"]].append(seconds)
+
+    monkeypatch.setattr(time, "sleep", fake_sleep)
+    (rc, rk, _, rreqs, _), (pc, pk, _, reqs, _) = _both_live(
+        setup, _CHAOS_SCRIPT, max_queue=_MAX_QUEUE, degrade_dispatch_s=0.25)
+    got = _live_outcome(pc, pk, reqs)
+    assert got == _live_outcome(rc, rk, rreqs)
+    ref, port = sleeps.values()
+    assert port == ref and port
+    factor = next(e[2] for e in got["fleet_trace"] if e[0] == "degrade")
+    assert set(port) == {(factor - 1.0) * 0.25}
+    # off by default in both packages
+    import inspect
+    for cls in (RLiveCluster, LiveCluster):
+        param = inspect.signature(cls).parameters["degrade_dispatch_s"]
+        assert param.default == 0.0
+
+
 # ---------------------------------------------------------------------------
 # drain, dead-instance routing, joins, ServeSpec.fleet
 # ---------------------------------------------------------------------------

@@ -15,7 +15,15 @@ package's weights bridged through numpy, numpy-seeded prompts:
 * at tp 2 and 4 the greedy tokens equal the port's one-device engine's
   and the JAX package's sharded engine's, on every rank (shadows too),
   with prefill and paged-decode logits within 1e-4 of both; tp 3 (4 heads
-  do not divide) runs replicated and matches;
+  do not divide) matches too, and cuts nothing: the attention is
+  head-bound and neither ``d_ff`` (256) nor the vocab (512) divides 3;
+* tensor parallelism past whole heads: a variant with 6 query and 2 KV
+  heads at tp 4 (6 does not divide 4) keeps its attention and K/V whole
+  on every rank and cuts its FFN and vocab in four; its tokens equal one
+  device's and the JAX package's sharded engine's on every rank, its
+  logits within 1e-4 of both, and each leaf's per-rank shape equals the
+  JAX package's ``param_pspecs`` cut but the four head-bound attention
+  leaves;
 * each rank's shard bytes at tp 4, where 2 KV heads do not divide: the
   port keeps the head each rank's queries read (half the pool a rank),
   where the JAX package's store replicates K/V (a divergence by design);
@@ -46,6 +54,7 @@ import repro.configs as rcfg
 import repro.models as rm
 from repro import sharding as rsharding
 from repro.kvstore import LineCosts as RLineCosts
+from repro.launch.specs import param_pspecs as r_param_pspecs
 from repro.meshserve import MeshPlacement as RPlacement
 from repro.meshserve import carve_slices as rcarve
 from repro.meshserve import shard_params as rshard_params
@@ -95,6 +104,17 @@ def bridge():
 
 
 @pytest.fixture(scope="module")
+def partial_bridge(bridge):
+    """The 6-head variant of ``bridge``: JAX config and params, the port's
+    config and params, and the numpy params."""
+    cfg_r = W.six_heads(bridge[0])
+    params_r = rm.init_params(jax.random.PRNGKey(0), cfg_r)
+    params_np = _np(params_r)
+    return (cfg_r, W.six_heads(bridge[1]), params_r, params_np,
+            params_from_numpy(params_np, device="cpu"))
+
+
+@pytest.fixture(scope="module")
 def moe_case():
     """``tests/test_moe_distributed.py``'s case: reduced arctic-480b with
     4 experts, top-2, capacity factor 8; x (4, 8, d)."""
@@ -113,13 +133,14 @@ def moe_case():
 
 
 @pytest.fixture(scope="module")
-def world4(bridge, moe_case):
+def world4(bridge, moe_case, partial_bridge):
     _, _, _, params_np, _ = bridge
     _, cfg, routed, x = moe_case
     return spawn("_torch_mesh_worker:world4", 4, device="cpu",
                  args=({"params": params_np, "shapes": SHAPES,
                         "moe_cfg": cfg, "moe_params": routed,
-                        "moe_x": x},), timeout=600)
+                        "moe_x": x, "partial_params": partial_bridge[3]},),
+                 timeout=600)
 
 
 @pytest.fixture(scope="module")
@@ -321,8 +342,9 @@ def test_shard_bytes_per_rank(mesh8, bridge, world4, one_device):
         got = [out["tp"][tp]["state_bytes"] for out in world4]
         assert got[:tp] == [whole // 2] * tp, (tp, got)
         assert all(b == 0 for b in got[tp:])        # shadows hold nothing
+    # tp 3: the 4 heads do not divide, so K/V stay whole on every rank
     assert [out["tp"][3]["state_bytes"] for out in world4] == \
-        [whole] * 3 + [0]                           # replicated slice
+        [whole] * 3 + [0]
     # the JAX package at tp 4: every device's K shard holds every KV head
     eng = _ref_engine(cfg_r, params_r, 4)
     k = eng.store.state["layers"][0]["p0"]["k"]
@@ -334,6 +356,91 @@ def test_shard_bytes_per_rank(mesh8, bridge, world4, one_device):
     p2 = world4[0]["tp"][2]["param_bytes"]
     norms = 4 * cfg.d_model * (2 * cfg.num_layers + 1)
     assert p2 == (p1 - norms) // 2 + norms
+    # tp 3 cuts no leaf: the attention is head-bound (4 heads do not
+    # divide 3) and neither d_ff 256 nor the vocab 512 divides 3
+    assert [out["tp"][3]["param_bytes"] for out in world4[:3]] == [p1] * 3
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism past whole heads: 6 query heads at tp 4
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def partial_one_device(partial_bridge):
+    _, cfg, _, _, params = partial_bridge
+    eng, tokens = W.generate(cfg, params, None)
+    pre, dec = W.logits_at(cfg, params, None)
+    return {"tokens": tokens, "prefill": pre, "decode": dec,
+            "state_bytes": eng.state_bytes()}
+
+
+def test_partial_tp_tokens_equal_one_device_and_reference(
+        mesh8, partial_bridge, world4, partial_one_device):
+    cfg_r, cfg, params_r, _, _ = partial_bridge
+    assert cfg.num_heads % 4 and cfg.d_ff % 4 == cfg.vocab_size % 4 == 0
+    tokens = _same_on_every_rank([o["partial"] for o in world4], "tokens")
+    assert tokens == partial_one_device["tokens"]
+    assert tokens == _ref_tokens(cfg_r, params_r, 4)
+    assert all(o["partial"]["holds"] for o in world4)
+
+
+def test_partial_tp_logits_match(mesh8, partial_bridge, world4,
+                                 partial_one_device):
+    cfg_r, _, params_r, _, _ = partial_bridge
+    ref_pre, ref_dec = _ref_logits(cfg_r, params_r, 4)
+    one = partial_one_device
+    for r, out in enumerate(world4):
+        mine = out["partial"]
+        for got, want, ref in ((mine["prefill"], one["prefill"], ref_pre),
+                               (mine["decode"], one["decode"], ref_dec)):
+            assert np.abs(got - want).max() < TOL, r
+            assert np.abs(got - ref).max() < TOL, r
+
+
+def test_partial_tp_param_shapes_follow_the_pspecs_but_the_attention(
+        partial_bridge, world4):
+    """Leaf by leaf against the JAX package's ``param_pspecs`` at
+    ``model_n=4``: equal, but for the head-bound attention leaves, which
+    the pspecs cut by width (384 and 128 divide 4) and the port keeps
+    whole (6 heads do not)."""
+    cfg_r, _, params_r, _, _ = partial_bridge
+    specs = r_param_pspecs(cfg_r, params_r, mode="serve", model_n=4)
+    want = {}
+    for (path, leaf), spec in zip(
+            jax.tree_util.tree_flatten_with_path(params_r)[0],
+            jax.tree_util.tree_leaves(specs, is_leaf=lambda x: isinstance(
+                x, jax.sharding.PartitionSpec))):
+        name = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                        for p in path)
+        want[name] = tuple(
+            n // 4 if ax == "model" else n
+            for n, ax in zip(leaf.shape, tuple(spec) + (None,) * leaf.ndim))
+    head_bound = {f"segments/0/p0/mixer/{n}" for n in ("wq", "wk", "wv",
+                                                          "wo")}
+    for r, out in enumerate(world4):
+        got = out["partial"]["params"]
+        assert set(got) == set(want)
+        assert {p for p in want if got[p] != want[p]} == head_bound, r
+
+
+def test_partial_tp_bytes_per_rank(partial_bridge, world4,
+                                   partial_one_device):
+    """Each rank holds the attention leaves whole, a quarter of the FFN
+    and of the vocab (``embed``, ``lm_head``), the norms whole; its K/V
+    pool is one device's, whole."""
+    _, cfg, _, _, params = partial_bridge
+    attn = sum(t.numel() * 4 for k, t in
+               params["segments"][0]["p0"]["mixer"].items())
+    norms = 4 * cfg.d_model * (2 * cfg.num_layers + 1)
+    rest = sum(t.numel() * 4 for t in W._leaves(params)) - attn - norms
+    for r, out in enumerate(world4):
+        mine = out["partial"]
+        assert mine["param_bytes"] == attn + norms + rest // 4, r
+        assert mine["state_bytes"] == partial_one_device["state_bytes"], r
+        shapes = mine["state"]
+        for key in ("k", "v"):
+            assert shapes[f"layers/0/p0/{key}"][-2] == cfg.num_kv_heads
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,21 @@ modality payloads (``workloads.default_extras``):
   ``param_pspecs``, and of every state leaf against its ``state_pspecs``
   model axis: equal, except for the divergences by design the rule table
   makes (``repro_torch.meshserve.pool``), one case each;
+* tensor parallelism past whole heads: reduced arctic-480b (dropless)
+  with 6 query and 2 KV heads at tp 4 keeps its attention whole and cuts
+  its experts (one a rank), its residual FFN and its vocab; tokens equal
+  one device's and the JAX package's sharded engine's, logits within
+  1e-4, and every leaf's per-rank shape equals the ``param_pspecs`` cut
+  but the head-bound leaves, logged (``tests/test_torch_meshserve.py``
+  holds the 6-head starcoder2-3b alike);
 * a mutation: Mamba's ``in_proj`` or the sLSTM FFN's ``w_up`` cut as one
   contiguous block (the pspec's cut) instead of per packed half gives
   logits off the one-device ones by far more than the tolerance, where
-  the rule table's cut stays within it;
+  the rule table's cut stays within it; and the head gate: reduced
+  xlstm-1.3b with 2 heads at tp 4, whose ``w_up`` columns divide 4 while
+  its heads do not, gives one device's logits with its mLSTM whole, and
+  logits far off them with every mLSTM leaf cut in contiguous blocks of
+  ``d_in / 4`` channels (half a head a rank);
 * without a world: each rank's part of a sharded store is the whole leaf
   at the indices its ``holders`` records (what a pull plans from), and
   the pull planner takes every index from the rank that holds it.
@@ -57,6 +68,12 @@ TOL = 1e-4
 FAMILIES = W.FAMILIES
 ARCTIC = "arctic-480b"
 MOE = ("jamba-1.5-large-398b", "deepseek-v3-671b", ARCTIC)
+#: the 6-query-head variants (``_torch_mesh_worker.six_heads``, MoE
+#: dropless), served at tp 4 only: their heads do not divide 4
+VARIANTS = {"arctic-480b/6h": ARCTIC}
+#: the head gate's case: 2 heads at tp 4
+HEAD_CUT = {"arch": "xlstm-1.3b",
+            "heads": {"num_heads": 2, "num_kv_heads": 2}, "tp": 4}
 #: a rule replaced by the contiguous cut of the pspec: (arch, xLSTM
 #: overrides giving the sLSTM FFN an even width, the mutated rules)
 MUTATE = {
@@ -93,6 +110,10 @@ PARAM_DIVERGENCES = {
     **{("internvl2-1b", f"segments/0/p0/mixer/{n}"): (
         (4,), "2 KV heads at tp 4: each rank keeps its queries' head")
        for n in ("wk", "wv")},
+    **{(v, f"segments/0/p0/mixer/{n}"): (
+        (4,), "head-bound: 6 query heads do not divide 4, the attention "
+              "stays whole (the pspec cuts the widths, which divide)")
+       for v in VARIANTS for n in ("wq", "wk", "wv", "wo")},
 }
 #: where the rule table's per-rank state cut departs from the model axis
 #: of the JAX package's ``state_pspecs``: (arch, leaf path) -> (widths,
@@ -114,23 +135,43 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def _configs(name):
+    """(JAX config, port config) of an arch or a variant's name."""
+    arch = VARIANTS.get(name, name)
+    cfgs = [rcfg.get_config(arch).reduced(), tcfg.get_config(arch).reduced()]
+    if name in VARIANTS:
+        cfgs = [W.six_heads(c) for c in cfgs]
+        if cfgs[1].moe is not None:
+            cfgs = [W.with_capacity(c, c.moe.num_experts / c.moe.top_k)
+                    for c in cfgs]
+    return tuple(cfgs)
+
+
+def _tps(name):
+    return (4,) if name in VARIANTS else (2, 4)
+
+
 @pytest.fixture(scope="module")
 def bridged():
-    """Per arch: (JAX config, port config, JAX params, numpy params)."""
+    """Per arch or variant: (JAX config, port config, JAX params, numpy
+    params)."""
     out = {}
-    for arch in FAMILIES + (ARCTIC,):
-        cfg_r = rcfg.get_config(arch).reduced()
+    for name in FAMILIES + (ARCTIC,) + tuple(VARIANTS):
+        cfg_r, cfg = _configs(name)
         params_r = rm.init_params(jax.random.PRNGKey(0), cfg_r)
-        out[arch] = (cfg_r, tcfg.get_config(arch).reduced(), params_r,
-                     _np(params_r))
+        out[name] = (cfg_r, cfg, params_r, _np(params_r))
     return out
 
 
 @pytest.fixture(scope="module")
 def world(bridged):
     return spawn("_torch_mesh_worker:families", 4, device="cpu",
-                 args=({"params": {a: v[3] for a, v in bridged.items()},
-                        "tps": {ARCTIC: (2,)}, "mutate": MUTATE},),
+                 args=({"params": {a: v[3] for a, v in bridged.items()
+                                   if a not in VARIANTS},
+                        "variants": {v: (a, bridged[v][3])
+                                     for v, a in VARIANTS.items()},
+                        "tps": {ARCTIC: (2,)}, "mutate": MUTATE,
+                        "head_cut": HEAD_CUT},),
                  timeout=600)
 
 
@@ -138,10 +179,9 @@ def world(bridged):
 def _one_device(arch, factor=None):
     """The port's one-device tokens and logits (the capacity factor
     replaced where given)."""
-    cfg = tcfg.get_config(arch).reduced()
+    cfg_r, cfg = _configs(arch)
     if factor is not None:
         cfg = W.with_capacity(cfg, factor)
-    cfg_r = rcfg.get_config(arch).reduced()
     params = params_from_numpy(
         _np(rm.init_params(jax.random.PRNGKey(0), cfg_r)), device="cpu")
     _, tokens = W.family_generate(cfg, params, None)
@@ -209,7 +249,8 @@ def _max_err(a, b):
 # against the JAX package's sharded engine
 # ---------------------------------------------------------------------------
 
-CASES = [(a, tp) for a in FAMILIES for tp in (2, 4)] + [(ARCTIC, 2)]
+CASES = ([(a, tp) for a in FAMILIES for tp in (2, 4)] + [(ARCTIC, 2)]
+         + [(v, 4) for v in VARIANTS])
 
 
 @pytest.mark.parametrize("arch,tp", CASES)
@@ -240,6 +281,28 @@ def test_tokens_equal_one_device(world, arch):
         assert _same_on_every_rank(world, arch, tp) == tokens, tp
         got = world[0][arch]["published"][tp]["logits"]
         assert _max_err(got, logits) < TOL, tp
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_partial_tp_equals_one_device(world, bridged, name):
+    """6 query heads at tp 4: the attention whole on every rank, the FFN
+    (the experts, one a rank, and the residual FFN) and the vocab cut in
+    four, and one device's tokens and logits."""
+    cfg = bridged[name][1]
+    assert cfg.num_heads % 4 and cfg.vocab_size % 4 == 0
+    tokens, logits = _one_device(name)
+    assert _same_on_every_rank(world, name, 4) == tokens
+    for r, out in enumerate(world):
+        got = out[name]["published"][4]
+        assert _max_err(got["logits"], logits) < TOL, r
+        shapes = got["params"]
+        assert shapes["segments/0/p0/mixer/wq"][-1] == \
+            cfg.num_heads * cfg.head_dim
+        assert shapes["lm_head"][-1] == cfg.vocab_size // 4
+        if cfg.moe is not None:
+            assert shapes["segments/0/p0/ffn/w_up"][-3] == 1
+        else:
+            assert shapes["segments/0/p0/ffn/w_up"][-1] == cfg.d_ff // 4
 
 
 @pytest.mark.parametrize("arch", [a for a in MOE if a != ARCTIC])
@@ -318,11 +381,11 @@ def _logged(table, arch, tp):
     return {p for (a, p), (tps, _) in table.items() if a == arch and tp in tps}
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + tuple(VARIANTS))
 def test_param_shapes_follow_the_pspecs_but_the_logged(bridged, world,
                                                       arch):
     cfg_r, _, params_r, _ = bridged[arch]
-    for tp in (2, 4):
+    for tp in _tps(arch):
         got = world[0][arch]["published"][tp]["params"]
         want = _param_shapes(cfg_r, params_r, tp)
         assert set(got) == set(want)
@@ -337,10 +400,10 @@ def test_param_divergence_by_design(bridged, world, arch, path):
         assert got != _param_shapes(cfg_r, params_r, tp)[path], tp
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", FAMILIES + tuple(VARIANTS))
 def test_state_shapes_follow_the_pspecs_but_the_logged(bridged, world, arch):
     cfg_r = bridged[arch][0]
-    for tp in (2, 4):
+    for tp in _tps(arch):
         got = world[0][arch]["published"][tp]["state"]
         want = _state_shapes(cfg_r, tp)
         assert set(got) == set(want)
@@ -370,6 +433,23 @@ def test_contiguous_cut_of_a_packed_leaf_fails(world, case):
     wrong = _max_err(out["mutated"][2]["logits"], out["one"])
     assert kept < TOL, kept
     assert wrong > 100 * TOL, wrong
+
+
+def test_contiguous_cut_of_a_head_bound_leaf_fails(world):
+    """2 heads at tp 4: the rule table keeps the mLSTM whole (its heads do
+    not divide) and gives one device's logits and tokens; cutting every
+    mLSTM leaf in contiguous blocks of ``d_in / 4`` channels, as a rule
+    that checks the width alone would (512 divides 4), splits each head
+    in two and gives logits far off one device's."""
+    for r, out in enumerate(world):
+        case = out["head_cut"]
+        kept = case["kept"]
+        assert kept["params"]["segments/0/p0/mixer/w_up"][-1] == 512
+        assert kept["params"]["embed"][0] == 512 // 4     # vocab cut
+        assert kept["tokens"] == case["one_tokens"], r
+        assert _max_err(kept["logits"], case["one"]) < TOL, r
+        wrong = _max_err(case["split"], case["one"])
+        assert wrong > 100 * TOL, (r, wrong)
 
 
 # ---------------------------------------------------------------------------

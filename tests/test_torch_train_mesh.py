@@ -23,6 +23,11 @@ pipeline (B = 2, S = 16) and each family's numpy-seeded payload:
   the forced CPU devices, for starcoder2-3b and for jamba at its
   published capacity factor 1.25 through the auto (``a2a``) dispatch,
   which drops per shard as the JAX package's does;
+* tensor parallelism past whole heads: reduced minicpm-2b with 3 query
+  heads and 1 KV head, which do not divide the model width 2, keeps its
+  attention whole on both model ranks and cuts its FFN and vocab on
+  "model"; against one device and against the JAX package's sharded
+  ``train_step`` as above;
 * ``global_norm`` on the parts equal to one device's;
 * the collectives the dry run's recording mesh writes for jamba's step
   equal, kind by kind, in bytes and in group size, those the world
@@ -65,11 +70,17 @@ ONE_DEVICE = {
     "xlstm": ("xlstm-1.3b", None, None),
     "seamless": ("seamless-m4t-large-v2", None, None),
     "internvl": ("internvl2-1b", None, None),
+    "minicpm-3h": ("minicpm-2b", None, None),
 }
 #: name -> arch, against the JAX package's sharded step (published
 #: capacity, auto dispatch)
-REFERENCE = {"gqa-ref": "starcoder2-3b", "moe-ref": "jamba-1.5-large-398b"}
+REFERENCE = {"gqa-ref": "starcoder2-3b", "moe-ref": "jamba-1.5-large-398b",
+             "minicpm-3h-ref": "minicpm-2b"}
 COUNTED = "moe-ref"
+#: name -> head counts replacing the reduced config's: 3 query heads and
+#: 1 KV head do not divide the model width 2
+HEADS = {"minicpm-3h": {"num_heads": 3, "num_kv_heads": 1},
+         "minicpm-3h-ref": {"num_heads": 3, "num_kv_heads": 1}}
 
 
 def _np(tree):
@@ -100,21 +111,31 @@ def _batches(cfg, n=3):
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _weights(arch):
+def _ref_config(arch, name=None):
+    """The JAX package's reduced config, with ``name``'s head counts."""
     cfg_r = rcfg.get_config(arch).reduced()
-    return _np(rm.init_params(jax.random.PRNGKey(0), cfg_r))
+    return dataclasses.replace(cfg_r, **HEADS.get(name, {}))
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(arch, name=None):
+    return _np(rm.init_params(jax.random.PRNGKey(0),
+                              _ref_config(arch, name)))
 
 
 def _payloads():
     out = {}
     for name, (arch, cap, strategy) in ONE_DEVICE.items():
         out[name] = {"arch": arch, "capacity": cap, "strategy": strategy,
-                     "params": _weights(arch),
-                     "batches": _batches(W.config(arch))}
+                     "heads": HEADS.get(name),
+                     "params": _weights(arch, name),
+                     "batches": _batches(W.config(arch, None,
+                                                  HEADS.get(name)))}
     for name, arch in REFERENCE.items():
-        out[name] = {"arch": arch, "params": _weights(arch),
-                     "batches": _batches(W.config(arch)),
+        out[name] = {"arch": arch, "params": _weights(arch, name),
+                     "heads": HEADS.get(name),
+                     "batches": _batches(W.config(arch, None,
+                                                  HEADS.get(name))),
                      "count": name == COUNTED}
     return out
 
@@ -155,8 +176,8 @@ def _one_device(name):
     (grads accumulated over the data ranks' halves for the MoE psum
     configs)."""
     arch, cap, strategy = ONE_DEVICE[name]
-    cfg = W.config(arch, cap)
-    params = params_from_numpy(_weights(arch), device="cpu")
+    cfg = W.config(arch, cap, HEADS.get(name))
+    params = params_from_numpy(_weights(arch, name), device="cpu")
     batches = [_th(b) for b in _batches(cfg)]
     acc = strategy == "psum"
     _, _, grads = _one_grads(cfg, params, batches[0], acc)
@@ -182,14 +203,14 @@ def _reference(name):
     """The JAX package's sharded run on a (data 2, model 2) mesh of the
     forced CPU devices: the first batch's grads, then 3 steps."""
     arch = REFERENCE[name]
-    cfg_r = rcfg.get_config(arch).reduced()
-    params = jax.tree_util.tree_map(jnp.asarray, _weights(arch))
+    cfg_r = _ref_config(arch, name)
+    params = jax.tree_util.tree_map(jnp.asarray, _weights(arch, name))
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
     p_specs = r_param_pspecs(cfg_r, params, mode="train", model_n=2)
     opt_cfg = rtr.AdamWConfig(lr=W.OPT.lr, weight_decay=W.OPT.weight_decay,
                               grad_clip=W.OPT.grad_clip)
     batches = [{k: jnp.asarray(v) for k, v in b.items()}
-               for b in _batches(W.config(arch))]
+               for b in _batches(W.config(arch, None, HEADS.get(name)))]
     b_specs = {k: P("data", *([None] * (v.ndim - 1)))
                for k, v in batches[0].items()}
     with rsharding.use_mesh(mesh):
@@ -301,7 +322,7 @@ def test_three_steps_match_one_device(world, name):
 
 @pytest.mark.parametrize("name", list(REFERENCE))
 def test_matches_reference_sharded_step(world, name):
-    cfg = W.config(REFERENCE[name])
+    cfg = W.config(REFERENCE[name], None, HEADS.get(name))
     ref = _reference(name)
     ranks = [w[name] for w in world]
     _parts_close(cfg, ranks, "grads", ref["grads"])
@@ -322,6 +343,31 @@ def test_ranks_hold_their_cut_only(world):
                       _leaves(w["starcoder2-3b"]["moments"]))
         assert part < 0.3 * whole
         assert moments == 2 * part
+
+
+def test_partial_tp_cuts_ffn_and_vocab_only(world):
+    """3 query heads on a model width of 2: each rank keeps the attention
+    whole on "model" (its "data" cut aside) and a half of the FFN and of
+    the vocab."""
+    cfg, _ = _one_device("minicpm-3h")
+    assert cfg.num_heads % 2 and cfg.tie_embeddings
+    cuts = plan(cfg, _meta(cfg), TrainMesh(2, 2, 0, 1))
+    layer = cuts["segments"][0]["p0"]
+    for key in ("wq", "wk", "wv", "wo"):
+        assert layer["mixer"][key].model is None, key
+    for key in ("w_gate", "w_up", "w_down"):
+        assert layer["ffn"][key].model is not None, key
+    assert cuts["embed"].model == (0, tuple(range(cfg.vocab_size // 2,
+                                                  cfg.vocab_size)))
+    for w in world:
+        got = dict(_leaves(w["minicpm-3h"]["params"]))
+        data = 2 if cuts["embed"].data is not None else 1
+        assert got["/embed"].shape == (cfg.vocab_size // 2,
+                                       cfg.d_model // data)
+        assert got["/segments/0/p0/ffn/w_up"].shape[-1] in (
+            cfg.d_ff // 2, cfg.d_ff // 4)
+        wq = got["/segments/0/p0/mixer/wq"].shape
+        assert wq[-1] == cfg.num_heads * cfg.head_dim
 
 
 # ---------------------------------------------------------------------------
