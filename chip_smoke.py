@@ -240,7 +240,18 @@ each of which exits non-zero on failure:
     the tokens equal the serve phase's up to near-ties measured and
     printed by phase 8's rule; in f32 at 2 layers, the sharded prefill and
     8 paged decode steps within 1e-3 * max|logit| of the whole model's;
-    decode ms per step at 8 active beside the serve phase's tp 1;
+    decode ms per step at 8 active beside the serve phase's tp 1.  Then
+    with ``REPRO_SEQ_PARALLEL=1`` set in each rank (sequence parallelism:
+    the residual cut over the two ranks, a reduce-scatter and an
+    all-gather at each module boundary): the same six requests, whose
+    tokens must equal the flag-off ones up to near-ties judged on the
+    same f32 replay, through the prefill and paged kernels with no plain
+    version (the flash launches printed); the f32 prefill of the
+    200-token prompt within 1e-6 * max|logit| of the flag-off one and,
+    against the whole model's, within the flag-off prefill's own
+    distance from it plus 1e-6 * max|logit|; its collectives by kind:
+    reduce-scatters and all-gathers over "model" where the flag-off
+    prefill has all-reduces;
 29. mesh-cluster — the cluster phase's spec on a 6-request Table 2
     "light" stream (lengths x 0.2) with ``mesh_tp=1`` over the same
     two-process world (two instances, one rank each), beside the same
@@ -313,8 +324,12 @@ each of which exits non-zero on failure:
     weights and batches: every step's loss within 1e-4, each leaf of
     every rank's part of the params after the steps within 1e-4 of the
     whole leaf's max|.|, each rank's param and moment bytes below one
-    process's; no kernel runs.  Prints seconds per step, each rank's
-    peak memory and the collectives a step makes by kind and axis;
+    process's; no kernel runs.  Then the same three steps from the same
+    weights in the same world with ``REPRO_SEQ_PARALLEL=1``: losses
+    within 1e-5 of the flag-off ones, every leaf as above.  Prints
+    seconds per step, each rank's peak memory
+    (``torch.cuda.max_memory_allocated``) with and without the flag and
+    the collectives a step makes by kind and axis;
 34. mesh-partial — internvl2-1b whole at published widths in bf16, one
     engine at tp 4 on a world of four processes on card 0 over gloo: its
     14 query heads do not divide 4, so every rank computes the whole
@@ -343,8 +358,10 @@ device line, each one JSON object.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4236,6 +4253,40 @@ def _mesh_light():
                         name="light-mesh")
 
 
+@contextlib.contextmanager
+def _seq_parallel():
+    """``REPRO_SEQ_PARALLEL=1`` (sequence parallelism) while active."""
+    os.environ["REPRO_SEQ_PARALLEL"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_SEQ_PARALLEL", None)
+
+
+@contextlib.contextmanager
+def _collectives(calls):
+    """Count the collectives of the port's ``sharding`` by (kind, axis)
+    into ``calls`` while active: the kind each stands for, which on gloo
+    with CUDA tensors runs as an all-reduce."""
+    from repro_torch import sharding
+    plain = sharding._issue
+
+    def counted(kind, axis, *args, **kw):
+        calls[kind, axis] = calls.get((kind, axis), 0) + 1
+        return plain(kind, axis, *args, **kw)
+
+    sharding._issue = counted
+    try:
+        yield calls
+    finally:
+        sharding._issue = plain
+
+
+def _by_kind(calls, per=1):
+    return ", ".join(f"{k} over {a} {n / per:g}"
+                     for (k, a), n in sorted(calls.items()))
+
+
 def _rank_setup(device="cuda"):
     """A rank of a mesh phase: TF32 off, as in the parent."""
     import torch
@@ -4249,7 +4300,10 @@ def mesh_engine_rank(rank, world, window):
     serve phase's seed, one engine on a slice of every rank; the serve
     phase's six requests (the same prompts), this rank's kernel counts and
     pool bytes, decode ms per step at 8 active, and an f32 check at 2
-    layers of the sharded logits against the whole model's."""
+    layers of the sharded logits against the whole model's.  Then the
+    same with ``REPRO_SEQ_PARALLEL=1`` (sequence parallelism): the six
+    requests again, with their kernel counts and collectives, and the f32
+    prefill against the flag-off and whole ones."""
     import numpy as np
     from repro_torch import sharding
     from repro_torch.configs import get_config
@@ -4259,6 +4313,7 @@ def mesh_engine_rank(rank, world, window):
     from repro_torch.models import (decode_step_paged, init_params,
                                     init_state, prefill)
     from repro_torch.models.state import state_bytes
+    from repro_torch.serving import Request
     torch, dev = _rank_setup()
     cfg = get_config("starcoder2-3b")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -4286,7 +4341,27 @@ def mesh_engine_rank(rank, world, window):
     e.decode_multi(steps=8)
     torch.cuda.synchronize()
     out["ms_8"] = (time.perf_counter() - t0) / 16 * 1e3
-    del e, engine, admit, request, params
+    del e
+
+    # the same six prompts under sequence parallelism
+    again = iter(reqs)
+
+    def same(plen, new):
+        r = next(again)
+        return Request(prompt_len=r.prompt_len, max_new_tokens=new,
+                       prompt_tokens=r.prompt_tokens, extra=r.extra)
+
+    calls = {}
+    with _seq_parallel(), _collectives(calls):
+        torch.cuda.synchronize()
+        reset_counts()
+        sp, eng, prefill_s, decode_s, steps = _run_six(
+            torch, same, engine, admit, "mesh-engine sequence-parallel")
+        out["sp"] = {"tokens": [list(r.output_tokens) for r in sp],
+                     "counts": read_counts(), "calls": dict(calls),
+                     "prefill_s": prefill_s, "decode_s": decode_s,
+                     "steps": steps}
+    del eng, engine, admit, request, params
     _free(torch)
 
     # f32 at 2 layers: the sharded prefill and paged decode against the
@@ -4300,8 +4375,17 @@ def mesh_engine_rank(rank, world, window):
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 200),
                                           dtype=np.int32), device=dev)
     l1, st1 = prefill(cfg2, p32, {"tokens": prompt}, st1)
-    with sharding.use_mesh(sl.group):
+    calls = {}
+    with sharding.use_mesh(sl.group), _collectives(calls):
         l2, st2 = prefill(cfg2, mine, {"tokens": prompt}, st2)
+    sp_calls = {}
+    with _seq_parallel(), sharding.use_mesh(sl.group), \
+            _collectives(sp_calls):
+        l3, _ = prefill(cfg2, mine, {"tokens": prompt},
+                        local_state(cfg2, sl, 1, 256))
+    out["sp_f32"] = (float((l3 - l2).abs().max()),
+                     float((l3 - l1).abs().max()), float(l1.abs().max()))
+    out["prefill_calls"] = (calls, sp_calls)
     rows = [(l1, l2)]
     tables = torch.arange(16, dtype=torch.int32, device=dev)[None]
     slots = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -4401,15 +4485,53 @@ def phase_mesh(torch, np, six, ms_tp1, card):
             f"layers max |tp {MESH_WORLD} - tp 1| / max|logit| "
             f"{max(e / s for e, s in out['f32']):.3e} (limit 1e-3) over "
             f"prefill + 8 decode steps; launches {out['counts']}")
+    sp_phase = f"{phase} sequence-parallel"
+    for r, out in enumerate(ranks):
+        sp = out["sp"]
+        _check_path_counts(sp["counts"], PAGED_PATH, f"{sp_phase} rank {r}")
+        # the flag-off tp 2 prefill is itself ~1.4e-6 of max|logit| from
+        # the whole model's (its sums run in another order): the flag may
+        # add at most 1e-6 to that
+        to_off, to_whole, scale = out["sp_f32"]
+        off_whole = out["f32"][0][0]
+        for what, err, limit in (("flag-off", to_off, 1e-6 * scale),
+                                 ("whole", to_whole,
+                                  off_whole + 1e-6 * scale)):
+            check(err <= limit, f"{sp_phase} rank {r}: f32 prefill {err} "
+                  f"from the {what} logits, limit {limit} (max logit "
+                  f"{scale})")
+        off, on = out["prefill_calls"]
+        check(("all-reduce", "model") in off
+              and ("all-reduce", "model") not in on
+              and {("reduce-scatter", "model"), ("all-gather", "model")}
+              <= set(on), f"{sp_phase} rank {r}: prefill collectives "
+              f"{on} against the flag-off {off}")
+        log(f"{sp_phase} rank {r}: prefill {sp['prefill_s'] * 1e3:.1f} ms, "
+            f"{sp['steps']} decode steps in {sp['decode_s'] * 1e3:.1f} ms; "
+            f"flash launches {sp['counts']['flash_attention']['launches']}, "
+            f"launches {sp['counts']}; the serve's collectives "
+            f"{_by_kind(sp['calls'])}; f32 prefill at 2 layers (200 tokens) "
+            f"max |sp - flag-off| / max|logit| {to_off / scale:.3e} (limit "
+            f"1e-6), |sp - tp 1| {to_whole / scale:.3e} against the "
+            f"flag-off |tp 2 - tp 1| {off_whole / scale:.3e} (limit: that "
+            f"+ 1e-6); its collectives {_by_kind(on)}, flag off "
+            f"{_by_kind(off)}")
     check(all([t for _, t in o["requests"]]
-              == [t for _, t in ranks[0]["requests"]] for o in ranks),
-          f"{phase}: the ranks' tokens differ")
+              == [t for _, t in ranks[0]["requests"]]
+              and o["sp"]["tokens"] == ranks[0]["sp"]["tokens"]
+              for o in ranks), f"{phase}: the ranks' tokens differ")
     got = [SimpleNamespace(rid=ref.rid, prompt_tokens=p, output_tokens=t)
            for ref, (p, t) in zip(six, ranks[0]["requests"])]
+    sp_got = [SimpleNamespace(rid=g.rid, prompt_tokens=g.prompt_tokens,
+                              output_tokens=t)
+              for g, t in zip(got, ranks[0]["sp"]["tokens"])]
     check(all(len(t) == 32 for _, t in ranks[0]["requests"]),
           f"{phase}: a request ended short")
     reference = {r.rid: r for r in six}
-    if _first_differences(got, reference, phase):
+    flag_off = {g.rid: g for g in got}
+    near = sp_near = []
+    if (_first_differences(got, reference, phase)
+            or _first_differences(sp_got, flag_off, sp_phase)):
         from repro_torch.configs import get_config
         from repro_torch.models import init_params
         dev = torch.device("cuda")
@@ -4419,18 +4541,22 @@ def phase_mesh(torch, np, six, ms_tp1, card):
         params32 = _tree_map(lambda t: t.float(), params)
         near = _tokens_against(torch, cfg, params, params32, window,
                                reference, got, phase)
+        sp_near = _tokens_against(torch, cfg, params, params32, window,
+                                  flag_off, sp_got, sp_phase)
         del params, params32
         _free(torch)
-    else:
-        near = []
     log(f"{phase}: tokens equal the serve phase's one-device tokens"
         + (f" up to {len(near)} near-ties" if near else ""))
+    log(f"{sp_phase}: tokens equal the flag-off tokens"
+        + (f" up to {len(sp_near)} near-ties" if sp_near else "")
+        + f"; {card}")
     log(f"{phase}: decode ms per step at 8 active (256-token prompts, "
         f"steps=8): tp 1 {ms_tp1:.3f} (serve phase, one process), tp "
         f"{MESH_WORLD} " + ", ".join(f"rank {r} {o['ms_8']:.3f}"
                                      for r, o in enumerate(ranks))
         + f"; {card}; {staging}")
     counts[phase] = _sum_counts(ranks)
+    counts[sp_phase] = _sum_counts([o["sp"] for o in ranks])
     del ranks
 
     # -- 29. mesh-cluster --------------------------------------------------------------
@@ -5104,8 +5230,8 @@ def train_mesh_rank(rank, world, payload):
     the global batches, the collectives of this module's ``sharding``
     counted by kind and axis, and this rank's part of the params after
     the steps against the one-process run's (``payload["reference"]``,
-    cut the same way)."""
-    from repro_torch import sharding
+    cut the same way).  Then the same steps from the same weights with
+    ``REPRO_SEQ_PARALLEL=1`` (sequence parallelism), under ``"sp"``."""
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.models import init_params
     from repro_torch.training import init_opt_state
@@ -5115,47 +5241,41 @@ def train_mesh_rank(rank, world, payload):
     cfg, opt_cfg, lrs, data = _train_mesh_setup(torch, dev)
     mesh = train_mesh(*TRAIN_MESH)
     step = make_train_step(cfg, opt_cfg, mesh)
-    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
-        TRAIN_MESH_SEED), device=dev)
-    params = step.shard(whole)
-    del whole
-    opt = init_opt_state(opt_cfg, params)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    calls = {}
-    plain = sharding._issue
 
-    def counted(kind, axis, *args, **kw):
-        calls[kind, axis] = calls.get((kind, axis), 0) + 1
-        return plain(kind, axis, *args, **kw)
+    def run():
+        whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            TRAIN_MESH_SEED), device=dev)
+        params = step.shard(whole)
+        del whole
+        opt = init_opt_state(opt_cfg, params)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        calls, losses, seconds = {}, [], []
+        reset_counts()
+        with _collectives(calls):
+            for i, batch in enumerate(data):
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch, lrs[i])
+                losses.append(float(metrics["loss"]))
+                seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        want = step.shard(torch.load(payload["reference"], mmap=True,
+                                     weights_only=True), device=dev)
+        errs = {path: max_err(x, _at_path(want, path))
+                for path, x in _named_leaves(params)}
+        return {"losses": losses, "seconds": seconds, "errs": errs,
+                "calls": _by_kind(calls, len(data)),
+                "param_bytes": leaf_bytes(params),
+                "moment_bytes": leaf_bytes(opt.m) + leaf_bytes(opt.v),
+                "peak": peak, "counts": counts}
 
-    sharding._issue = counted
-    losses, seconds = [], []
-    reset_counts()
-    try:
-        for i, batch in enumerate(data):
-            _sync(torch, dev)
-            t0 = time.perf_counter()
-            params, opt, metrics = step(params, opt, batch, lrs[i])
-            losses.append(float(metrics["loss"]))
-            seconds.append(time.perf_counter() - t0)
-    finally:
-        sharding._issue = plain
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-    ref = torch.load(payload["reference"], mmap=True, weights_only=True)
-    errs = {}
-    want = step.shard(ref, device=dev)
-    for path, x in _named_leaves(params):
-        errs[path] = max_err(x, _at_path(want, path))
-    return {"rank": rank, "cut": (mesh.data_rank, mesh.model_rank),
-            "losses": losses, "seconds": seconds, "errs": errs,
-            "calls": {f"{k} over {a}": n / len(data)
-                      for (k, a), n in sorted(calls.items())},
-            "param_bytes": leaf_bytes(params),
-            "moment_bytes": leaf_bytes(opt.m) + leaf_bytes(opt.v),
-            "peak": peak, "counts": counts}
+    out = run()
+    with _seq_parallel():
+        out["sp"] = run()
+    return dict(out, rank=rank, cut=(mesh.data_rank, mesh.model_rank))
 
 
 def _at_path(tree, path):
@@ -5243,11 +5363,6 @@ def phase_train_mesh(torch, np, card, device="cuda"):
               f"{label}: {out['param_bytes']} B of params and "
               f"{out['moment_bytes']} B of moments against one process's "
               f"{whole_bytes} and {moment_bytes}")
-        _check_no_kernel(out["counts"], label)
-        for name, c in out["counts"].items():
-            acc = counts.setdefault(name, {"launches": 0, "plain_calls": 0})
-            for key in acc:
-                acc[key] += c[key]
         log(f"{label}: losses {[round(x, 6) for x in out['losses']]}; "
             f"params within 1e-4 of one process's (worst {worst[0]:.3e}, "
             f"{worst[1]}); s per step "
@@ -5255,8 +5370,31 @@ def phase_train_mesh(torch, np, card, device="cuda"):
             f"{out['param_bytes'] / 1e9:.3f} GB ({out['param_bytes'] / whole_bytes:.3f} "
             f"of one process's), moments {out['moment_bytes'] / 1e9:.3f} GB; "
             f"peak {out['peak'] / 1e9:.3f} GB; {card}")
-    log(f"{phase}: collectives a step on each rank: " + ", ".join(
-        f"{k} {n:g}" for k, n in ranks[0]["calls"].items()))
+        # the same steps from the same weights with REPRO_SEQ_PARALLEL=1
+        sp = out["sp"]
+        for i, (a, b) in enumerate(zip(sp["losses"], out["losses"])):
+            check(abs(a - b) <= 1e-5 * abs(b), f"{label} sequence-parallel: "
+                  f"step {i} loss {a} against the flag-off {b}")
+        sp_worst = max((err / max(scale[path], 1e-30), path)
+                       for path, err in sp["errs"].items())
+        check(sp_worst[0] <= 1e-4, f"{label} sequence-parallel: "
+              f"{sp_worst[1]} after {TRAIN_MESH_STEPS} steps off by "
+              f"{sp_worst[0]:.3e} of the whole leaf's max")
+        for run in (out, sp):
+            _check_no_kernel(run["counts"], label)
+            for name, c in run["counts"].items():
+                acc = counts.setdefault(name, {"launches": 0,
+                                               "plain_calls": 0})
+                for key in acc:
+                    acc[key] += c[key]
+        log(f"{label} sequence-parallel: losses "
+            f"{[round(x, 6) for x in sp['losses']]}; params within 1e-4 of "
+            f"one process's (worst {sp_worst[0]:.3e}, {sp_worst[1]}); s per "
+            f"step {[round(x, 3) for x in sp['seconds']]}; peak "
+            f"{sp['peak'] / 1e9:.3f} GB against {out['peak'] / 1e9:.3f} GB "
+            f"with the flag off (torch.cuda.max_memory_allocated); {card}")
+    for tag, run in (("", ranks[0]), (" sequence-parallel", ranks[0]["sp"])):
+        log(f"{phase}{tag}: collectives a step on each rank: {run['calls']}")
     log(f"{phase}: phase {time.perf_counter() - t_phase:.1f} s; {card}")
     return counts
 

@@ -22,7 +22,12 @@ kernel counts it returned.  The phases:
                   builds the checkout's kernels first, untimed;
   mesh-partial    phase 34 (``phase_mesh_partial``: four processes on
                   the card); builds the checkout's kernels first,
-                  untimed.
+                  untimed;
+  mesh-engine     phases 28-29 (``phase_mesh``: mesh-engine with its
+                  sequence-parallel serve where the checkout has one,
+                  then mesh-cluster) after the serve phase's six requests
+                  on one engine (what phase 28 is held to); builds the
+                  checkout's kernels first, untimed.
 
 A checkout whose chip_smoke.py lacks a phase prints ``"seconds": null``
 for it.  To compare a change with its parent, unpack the parent into a
@@ -38,7 +43,7 @@ import time
 from pathlib import Path
 
 PHASES = ("serve-xlstm", "deepseek", "cluster-prefix", "train-mesh",
-          "cluster-fleet", "mesh-partial")
+          "cluster-fleet", "mesh-partial", "mesh-engine")
 
 
 def _one(root: Path, phase: str) -> dict:
@@ -79,6 +84,21 @@ def _one(root: Path, phase: str) -> dict:
         run = lambda: chip_smoke.phase_mesh_partial(torch, np, card)
     elif phase == "train-mesh" and hasattr(chip_smoke, "phase_train_mesh"):
         run = lambda: chip_smoke.phase_train_mesh(torch, np, card)
+    elif phase == "mesh-engine":
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import build
+        from repro_torch.models import init_params
+        build.build_all()
+        cfg = get_config("starcoder2-3b")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        six = []
+        _, per_step, _ = chip_smoke._serve_six(torch, np, cfg, params, dev,
+                                               "serve", keep=six)
+        del params
+        chip_smoke._free(torch)
+        run = lambda: chip_smoke.phase_mesh(torch, np, six, per_step[8],
+                                            card)
     else:
         return out
     torch.cuda.synchronize()

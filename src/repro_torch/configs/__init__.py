@@ -1,4 +1,5 @@
-"""Architecture registry of the port: ``get_config(arch_id)``.
+"""Architecture registry of the port: ``get_config(arch_id)``,
+``list_archs()`` and ``get_shape(name)``.
 
 It holds every architecture of the JAX package's registry: the
 attention-only GQA decoders (with arctic's MoE beside a dense residual
@@ -6,7 +7,11 @@ MLP), llama2-70b (the paper's evaluation model, which the simulator
 prices), deepseek-v3-671b (latent attention, MLA), the hybrid Mamba+MoE
 stack, the xLSTM stack, the vision-language internvl2-1b (a patch prefix
 through a projector) and the speech encoder-decoder
-seamless-m4t-large-v2.
+seamless-m4t-large-v2.  As in the JAX package, ``list_archs()`` gives
+the ten assigned architectures (``ASSIGNED_ARCHS``), which the dry run
+sweeps and the launchers' ``--arch`` accept, and
+``list_archs(include_extra=True)`` adds llama2-70b; ``get_config`` takes
+any of the eleven.
 """
 from __future__ import annotations
 
@@ -38,5 +43,12 @@ def get_config(arch: str) -> ModelConfig:
     return _CONFIGS[arch]
 
 
-def list_archs() -> List[str]:
-    return list(_CONFIGS)
+ASSIGNED_ARCHS = tuple(k for k in _CONFIGS if k != "llama2-70b")
+
+
+def list_archs(include_extra: bool = False) -> List[str]:
+    return list(_CONFIGS) if include_extra else list(ASSIGNED_ARCHS)
+
+
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]

@@ -164,6 +164,18 @@ class PagedStore:
         lo = slot * self.blocks_per_slot
         return list(range(lo, lo + self.blocks_per_slot))
 
+    def line_block_table(self, rid: int) -> List[int]:
+        """Physical *line-block* ids of ``rid`` in pool numbering (the
+        dense caches viewed as ``(num_slots * kv_capacity / block_lines,
+        block_lines, ...)``): the table the paged decode kernel gathers
+        through."""
+        off = 1 if self._has_fixed else 0
+        out = []
+        for b in self.ledger.tables[rid]:
+            slot, k = divmod(b, self.blocks_per_slot)
+            out.append(slot * self.line_blocks_per_slot + (k - off))
+        return out
+
     def decode_block_tables(self, rids: List[int], blocks: int) -> np.ndarray:
         """Padded ``(len(rids), blocks)`` int32 block tables for the paged
         decode kernel.  Slot-affine placement makes each row the identity
@@ -257,11 +269,19 @@ class PagedStore:
     def shared_head_lines(self, rid: int) -> int:
         return self.ledger.shared_head_lines(rid)
 
+    def shared_saved_bytes(self) -> float:
+        """Memory the refcounted prefix sharing avoids allocating:
+        sum of (refs - 1) blocks, at block granularity."""
+        return self.ledger.shared_saved_blocks() * self.ledger.block_bytes
+
     def lines(self, rid: int) -> int:
         return self.ledger.lines(rid)
 
     def synced_line(self, rid: int) -> int:
         return self.ledger.synced_line(rid)
+
+    def delta_since(self, rid: int, line: int) -> Tuple[int, int]:
+        return self.ledger.delta_since(rid, line)
 
     def mark_synced(self, rid: int, line: Optional[int] = None):
         self.ledger.mark_synced(rid, line)

@@ -29,7 +29,12 @@ and cached per layer (``xk``/``xv``).
 run under tensor parallelism on the rank's whole heads, read from the
 weights' shapes: the input every rank holds whole enters the
 column-parallel projections through ``sharding.copy_in`` (MLA: the
-latents), and the row-parallel ``wo`` partials are summed.
+latents), and the row-parallel ``wo`` partials are summed.  Under
+sequence parallelism (``seq``: ``x`` is the rank's rows of the residual)
+the entry gathers the rows and the exit reduce-scatters the sum
+(``sharding.module_in``/``module_out``); attention runs on the gathered
+rows at the rank's heads, with the shapes it has with the sequence whole.
+MLA computes its latents on the rank's rows and gathers them.
 
 :func:`mla_forward` computes MLA as the JAX package does, outside any
 kernel: in full mode it expands the latent into per-head K/V (qk head dim
@@ -253,16 +258,16 @@ def gqa_forward(
     history: int = 0,
     paged: Optional[PagedDecode] = None,
     train: bool = False,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    B, S, _ = x.shape
     hd = cfg.head_dim
     # under tensor parallelism the projections hold this rank's whole
     # heads (column-parallel wq/wk/wv, row-parallel wo): the local head
     # counts come from the weights
     h, kvh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     scale = 1.0 / math.sqrt(hd)
-    if h != cfg.num_heads:
-        x = sharding.copy_in(x)          # column-parallel wq/wk/wv
+    x = sharding.module_in(x, h != cfg.num_heads, seq)
+    B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, h, hd)
     k = (x @ params["wk"]).reshape(B, S, kvh, hd)
     v = (x @ params["wv"]).reshape(B, S, kvh, hd)
@@ -340,9 +345,8 @@ def gqa_forward(
         raise ValueError(mode)
 
     out = out.reshape(B, S, h * hd) @ params["wo"]
-    if h != cfg.num_heads:
-        out = sharding.reduce(out)       # sum the ranks' head partials
-    return out, state
+    # sum the ranks' head partials
+    return sharding.module_out(out, h != cfg.num_heads, seq), state
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +367,7 @@ def cross_attn_forward(
     enc_out: Optional[torch.Tensor],       # (B, S_src, D) or None when cached
     state=None,                            # {"xk", "xv"}: (B, S_src, KVH, hd)
     precompute: bool = False,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Decoder queries against the encoder memory, not causal.  With
     ``precompute`` (prefill), or with no cached K/V, K and V are projected
@@ -370,15 +375,15 @@ def cross_attn_forward(
     added to a state that has none, as the JAX package adds them.
     Otherwise (decode) the cached ones are read.  As in the JAX package, it
     attends through the plain chunked :func:`flash_attention` on every
-    device, so it reaches no kernel."""
-    B, S, _ = x.shape
+    device, so it reaches no kernel.  Under ``seq`` the decoder rows are
+    gathered and the encoder memory stays whole."""
     hd = cfg.head_dim
     # under tensor parallelism the rank's whole heads, as in gqa_forward
     h, kvh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     scale = 1.0 / math.sqrt(hd)
     sharded = h != cfg.num_heads
-    if sharded:
-        x = sharding.copy_in(x)
+    x = sharding.module_in(x, sharded, seq)
+    B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, h, hd)
     cached = state is not None and "xk" in state
     if precompute or not cached:
@@ -401,9 +406,7 @@ def cross_attn_forward(
         k, v = state["xk"], state["xv"]
     out = flash_attention(q, k, v, causal=False, scale=scale)
     out = out.reshape(B, S, h * hd) @ params["wo"]
-    if h != cfg.num_heads:
-        out = sharding.reduce(out)
-    return out, state
+    return sharding.module_out(out, sharded, seq), state
 
 
 # ---------------------------------------------------------------------------
@@ -432,25 +435,37 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, repeats: int, dtype,
 
 
 def _mla_qkv_latent(cfg: ModelConfig, params, x: torch.Tensor,
-                    positions: torch.Tensor):
+                    positions: torch.Tensor, seq: bool = False):
     """The shared projections: roped q split into (nope, rope), the normed
     latent and the roped shared key-rope.  Under tensor parallelism q
     holds the rank's whole heads (the head count comes from ``wq_b``);
-    the latent and the key-rope are whole on every rank."""
+    the latent and the key-rope are whole on every rank.  Under ``seq``
+    the latents of the rank's rows are gathered in one all-gather, and
+    the whole leaves that ran on those rows sum their gradients over the
+    model ranks (``copy_in``)."""
     m = cfg.mla
-    B, S, _ = x.shape
-    q = rms_norm(x @ params["wq_a"], params["q_norm"], cfg.rms_norm_eps)
     h = params["wq_b"].shape[-1] // m.qk_head_dim
-    # the latents are whole on every rank and enter the rank's heads
-    enter = sharding.copy_in if h != cfg.num_heads else (lambda t: t)
+    sharded = h != cfg.num_heads
+    w = {k: sharding.copy_in(params[k]) if seq else params[k]
+         for k in ("wq_a", "q_norm", "wkv_a", "kv_norm")}
+    q = rms_norm(x @ w["wq_a"], w["q_norm"], cfg.rms_norm_eps)
+    kv = x @ w["wkv_a"]
+    c_kv = rms_norm(kv[..., :m.kv_lora_rank], w["kv_norm"],
+                    cfg.rms_norm_eps)
+    k_pe = kv[..., m.kv_lora_rank:]
+    if seq:
+        lat = sharding.seq_gather(torch.cat([q, c_kv, k_pe], -1),
+                                  whole=not sharded)
+        q, c_kv, k_pe = lat.split([m.q_lora_rank, m.kv_lora_rank,
+                                   m.qk_rope_head_dim], -1)
+    # the latents are whole on every rank and enter the rank's heads (the
+    # gather's backward already sums the ranks' gradients)
+    enter = sharding.copy_in if sharded and not seq else (lambda t: t)
+    B, S = q.shape[:2]
     q = (enter(q) @ params["wq_b"]).reshape(B, S, h, m.qk_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    kv = x @ params["wkv_a"]
-    c_kv = rms_norm(kv[..., :m.kv_lora_rank], params["kv_norm"],
-                    cfg.rms_norm_eps)
-    k_rope = apply_rope(kv[..., m.kv_lora_rank:][:, :, None], positions,
-                        cfg.rope_theta)[:, :, 0]
+    k_rope = apply_rope(k_pe[:, :, None], positions, cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, enter(c_kv), enter(k_rope)
 
 
@@ -479,17 +494,19 @@ def mla_forward(
     causal: bool = True,
     history: int = 0,
     paged: Optional[PagedDecode] = None,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     if paged is not None:
         raise ValueError("paged decode gathers per-head K/V blocks; the MLA "
                          "latent cache decodes through the absorbed dense "
                          "path")
     m = cfg.mla
-    B, S, _ = x.shape
     h = params["wq_b"].shape[-1] // m.qk_head_dim     # this rank's heads
     nope, vd = m.qk_nope_head_dim, m.v_head_dim
     scale = 1.0 / math.sqrt(m.qk_head_dim)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(cfg, params, x, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(cfg, params, x, positions,
+                                                   seq)
+    B, S = q_nope.shape[:2]
 
     if mode == "full":
         # materialized path: expand the latent into per-head K/V
@@ -540,9 +557,8 @@ def mla_forward(
         raise ValueError(mode)
 
     out = out.reshape(B, S, h * vd) @ params["wo"]
-    if h != cfg.num_heads:
-        out = sharding.reduce(out)       # sum the ranks' head partials
-    return out, state
+    # sum the ranks' head partials
+    return sharding.module_out(out, h != cfg.num_heads, seq), state
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,15 @@ The port runs attention (GQA or MLA), Mamba, mLSTM and sLSTM mixers with
 dense or MoE FFNs, and the encoder stack of enc-dec models
 (``layer_specs(cfg, decoder=False)``: no cross attention, and the caller
 sets ``ctx["causal"] = False``).
+
+With ``ctx["seq_shard"]`` (sequence parallelism, set by
+``repro_torch.models.model``) the residual ``x`` is this model rank's
+S / tp rows through the whole layer: the norms and the residual adds run
+on them, and each module gathers its input rows at its entry and hands
+back the rank's rows of its output (``sharding.module_in``/
+``module_out``).  The norms' weights, whole on every rank and applied to
+the rank's rows only, sum their gradients over the model ranks
+(``copy_in``).
 """
 from __future__ import annotations
 
@@ -118,8 +127,15 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x: torch.Tensor,
     without MoE launch nothing for it."""
     rs = cfg.residual_scale
     aux = 0.0
-    h_in = rms_norm(x, params["norm1"], cfg.rms_norm_eps)
-    kw = dict(mode=ctx["mode"], state=state, update_cache=ctx["update_cache"])
+    seq = ctx.get("seq_shard", False)
+
+    def norm(x, key):
+        w = sharding.copy_in(params[key]) if seq else params[key]
+        return rms_norm(x, w, cfg.rms_norm_eps)
+
+    h_in = norm(x, "norm1")
+    kw = dict(mode=ctx["mode"], state=state, update_cache=ctx["update_cache"],
+              seq=seq)
     # ctx["train"] (set by forward_train only) sends full-mode attention and
     # the Mamba scan to the differentiable model-level paths
     train = ctx.get("train", False)
@@ -138,17 +154,18 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params, x: torch.Tensor,
         h, state = forward(cfg, params["mixer"], h_in, **kw)
     x = x + rs * h
     if spec.cross:
-        cx = rms_norm(x, params["cross_norm"], cfg.rms_norm_eps)
+        cx = norm(x, "cross_norm")
         h, _ = cross_attn_forward(
             cfg, params["cross"], cx, enc_out=ctx.get("enc_out"),
-            state=state, precompute=ctx.get("precompute_cross", False))
+            state=state, precompute=ctx.get("precompute_cross", False),
+            seq=seq)
         x = x + rs * h
     if spec.d_ff or spec.is_moe:
-        f_in = rms_norm(x, params["norm2"], cfg.rms_norm_eps)
+        f_in = norm(x, "norm2")
         if spec.is_moe:
-            h, aux = moe_forward(cfg, params["ffn"], f_in)
+            h, aux = moe_forward(cfg, params["ffn"], f_in, seq)
         else:
-            h = dense_ffn(cfg, params["ffn"], f_in, spec.d_ff)
+            h = dense_ffn(cfg, params["ffn"], f_in, spec.d_ff, seq)
         x = x + rs * h
     return x, state, aux
 

@@ -3,7 +3,9 @@
 Under tensor parallelism ``w_gate``/``w_up`` are column-parallel (their
 input enters through ``sharding.copy_in``) and ``w_down`` row-parallel:
 a rank holding fewer than ``d_ff`` rows of ``w_down`` sums its partial
-with the other ranks'."""
+with the other ranks'.  Under sequence parallelism (``seq``) the input is
+the rank's rows of the residual: they are gathered at the entry and the
+sum reduce-scattered at the exit (``sharding.module_in``/``module_out``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,17 +28,13 @@ def init_dense_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: int,
 
 
 def dense_ffn(cfg: ModelConfig, params, x: torch.Tensor,
-              d_ff: Optional[int] = None) -> torch.Tensor:
+              d_ff: Optional[int] = None, seq: bool = False) -> torch.Tensor:
     """``d_ff`` is the layer's whole hidden width, which tells a rank's
     shard (fewer rows) from the whole layer."""
     sharded = d_ff is not None and params["w_down"].shape[-2] != d_ff
-    if sharded:
-        x = sharding.copy_in(x)
+    x = sharding.module_in(x, sharded, seq)
     if cfg.activation == "swiglu":
         h = swiglu(x @ params["w_gate"], x @ params["w_up"])
     else:
         h = gelu(x @ params["w_up"])
-    y = h @ params["w_down"]
-    if sharded:
-        y = sharding.reduce(y)
-    return y
+    return sharding.module_out(h @ params["w_down"], sharded, seq)

@@ -123,12 +123,13 @@ def mamba_forward(
     state=None,
     update_cache: bool = False,
     train: bool = False,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     mc, d_in, dt_rank = _dims(cfg)
-    B, S, _ = x.shape
     sharded = params["in_proj"].shape[-1] != 2 * d_in
-    if sharded:
-        x = sharding.copy_in(x)          # column-parallel in_proj
+    # column-parallel in_proj (under ``seq`` the rank's rows, gathered)
+    x = sharding.module_in(x, sharded, seq)
+    B, S, _ = x.shape
     xp, z = _split_proj(params, x)
     d_in = xp.shape[-1]
     A = -torch.exp(params["A_log"])
@@ -177,7 +178,5 @@ def mamba_forward(
         raise ValueError(mode)
 
     y = (y.to(x.dtype) * F.silu(z)).to(x.dtype)
-    out = y @ params["out_proj"]
-    if sharded:
-        out = sharding.reduce(out)       # sum the ranks' channel partials
-    return out, state
+    # sum the ranks' channel partials
+    return sharding.module_out(y @ params["out_proj"], sharded, seq), state

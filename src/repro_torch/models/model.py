@@ -35,9 +35,17 @@ The training forwards set ``ctx["train"]``: full-mode GQA attention and
 the Mamba scan then take the differentiable model-level paths (the plain
 chunked attention, the loop over ``_ssm_step``) and reach no kernel.
 Serving never sets it, so it keeps the kernels.
+
+Sequence parallelism (the JAX package's ``REPRO_SEQ_PARALLEL=1``): where
+:func:`_seq_shard_ok` allows it, ``forward_train``, ``prefill`` and
+``prefill_batched`` set ``ctx["seq_shard"]``, and the decoder's residual
+stream holds each model rank's S / tp rows from the embedding to the
+final norm (``repro_torch.models.blocks``).  The encoder, a chunk resume
+and every decode step keep it whole.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -64,6 +72,23 @@ def _enc_segs(cfg: ModelConfig):
 
 def _is_vlm(cfg: ModelConfig) -> bool:
     return cfg.frontend is not None and cfg.frontend.kind == "vision"
+
+
+def _seq_shard_ok(seq_len: int) -> bool:
+    """The JAX package's sequence-parallelism gate: ``REPRO_SEQ_PARALLEL``
+    is "1" (read at each call), a model axis of more than one rank is
+    installed (a process group, or the dry run's recording mesh), and
+    the ``seq_len`` rows divide it."""
+    if os.environ.get("REPRO_SEQ_PARALLEL", "0") != "1":
+        return False
+    n = sharding.current().model_size
+    return n > 1 and seq_len % n == 0 and seq_len >= n
+
+
+def _seq_len(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> int:
+    """The decoder's rows: a VLM's patches lead its tokens."""
+    S = batch["tokens"].shape[1]
+    return S + batch["patch_embeds"].shape[1] if _is_vlm(cfg) else S
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +150,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    """The tokens' embedding (plus sinusoidal positions); under ``seq``
+    this model rank's rows of it."""
     emb = params["embed"]
     if emb.shape[0] != cfg.vocab_size:
         # vocab-sharded (tensor parallelism): each rank looks up the ids
@@ -134,21 +161,26 @@ def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
         ids = tokens.long() - sharding.current().model_rank * n
         hit = (ids >= 0) & (ids < n)
         x = emb[ids.clamp(0, n - 1)] * hit[..., None].to(emb.dtype)
-        x = sharding.reduce(x)
+        x = sharding.seq_scatter(x) if seq else sharding.reduce(x)
     else:
         x = emb[tokens.long()]
+        if seq:
+            x = sharding.seq_split(x)
     if cfg.abs_pos == "sinusoidal":
+        if seq:
+            positions = sharding.seq_split(positions, -1)
         x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
 
 
-def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                  seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token (+ visual prefix) embedding for decoder-only models, and the
     positions of the whole sequence.  The projector runs in f32 and its
     output is cast to the embedding's dtype; under tensor parallelism a
     rank holds ``w1``'s columns and ``w2``'s rows of its block of the
-    hidden width."""
+    hidden width.  Under ``seq`` the embedding is this model rank's rows
+    (a VLM's P + S rows are cut after the concatenation)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     dev = tokens.device
@@ -167,15 +199,19 @@ def _embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
         P = pe.shape[1]
         positions = torch.arange(P + S, device=dev)
         tok_x = _embed_tokens(cfg, params, tokens, positions[P:])
-        return torch.cat([prefix, tok_x], dim=1), positions
+        x = torch.cat([prefix, tok_x], dim=1)
+        return (sharding.seq_split(x) if seq else x), positions
     positions = torch.arange(S, device=dev)
-    return _embed_tokens(cfg, params, tokens, positions), positions
+    return _embed_tokens(cfg, params, tokens, positions, seq), positions
 
 
-def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: ModelConfig, params, x: torch.Tensor,
+          seq: bool = False) -> torch.Tensor:
+    """Logits of ``x``; under ``seq`` x is the rank's rows, gathered
+    here."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if w.shape[-1] != cfg.vocab_size:
-        x = sharding.copy_in(x)          # the rank's vocab columns
+    # the rank's vocab columns
+    x = sharding.module_in(x, w.shape[-1] != cfg.vocab_size, seq)
     logits = (x @ w).float() * cfg.logit_scale
     if w.shape[-1] != cfg.vocab_size:
         # vocab-sharded head: every rank gets the whole row
@@ -216,30 +252,35 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     (0-dim f32)).  An enc-dec batch's frames are encoded and each decoder
     layer's cross K/V recomputed from them (training keeps no cache); a
     VLM's logits start past its patches.  ``remat`` checkpoints each
-    repeat of the stack.  The JAX package's ``seq_shard`` residual
-    constraint shards the sequence over a device mesh; the port's TP
-    keeps the residual stream whole on every model rank, so there is none
-    here.  Under the sharded train step's FSDP (``sharding.current().fsdp``,
-    each leaf's data-cut dim) the leaves outside the stack are gathered
-    over "data" here, and the stack's per repeat."""
+    repeat of the stack.  Under sequence parallelism (``seq_shard``, the
+    JAX package's residual constraint) the decoder's residual is the
+    model rank's rows; the final norm runs on them and they are gathered
+    into the head.  Under the sharded train step's FSDP
+    (``sharding.current().fsdp``, each leaf's data-cut dim) the leaves
+    outside the stack are gathered over "data" here, and the stack's per
+    repeat."""
     dims = sharding.current().fsdp
     if dims is not None:
         params = _gather_outside(params, dims)
-    ctx = {"mode": "full", "update_cache": False, "train": True}
+    seq = _seq_shard_ok(_seq_len(cfg, batch))
+    ctx = {"mode": "full", "update_cache": False, "train": True,
+           "seq_shard": seq}
     if cfg.is_encoder_decoder:
         enc_out = _encode(cfg, params, batch["frames"], train=True,
                           dims=dims and dims["encoder"]["segments"])
         tokens = batch["tokens"]
         pos = torch.arange(tokens.shape[1], device=tokens.device)
-        x = _embed_tokens(cfg, params, tokens, pos)
+        x = _embed_tokens(cfg, params, tokens, pos, seq)
         ctx.update(enc_out=enc_out, precompute_cross=True)
     else:
-        x, pos = _embed_inputs(cfg, params, batch)
+        x, pos = _embed_inputs(cfg, params, batch, seq)
     ctx["positions"] = pos
     x, aux = apply_stack(cfg, _segs(cfg), params["segments"], x, None, ctx,
                          remat=remat, dims=dims and dims["segments"])
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = _head(cfg, params, x)
+    final = params["final_norm"]
+    x = rms_norm(x, sharding.copy_in(final) if seq else final,
+                 cfg.rms_norm_eps)
+    logits = _head(cfg, params, x, seq)
     if _is_vlm(cfg):
         logits = logits[:, batch["patch_embeds"].shape[1]:]
     return logits, torch.as_tensor(aux, dtype=torch.float32,
@@ -315,9 +356,11 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], state,
     enc-dec batch's ``frames`` are encoded first, into the state's
     ``enc_out``, and every decoder layer projects its cross K/V from them;
     a VLM batch's ``patch_embeds`` lead the sequence, so P + S rows of each
-    cache are written."""
+    cache are written.  Under sequence parallelism the residual is
+    gathered before its last row is read."""
+    seq = _seq_shard_ok(_seq_len(cfg, batch))
     ctx = {"mode": "full", "update_cache": True, "t": 0,
-           "window": _window(cfg, long_context)}
+           "window": _window(cfg, long_context), "seq_shard": seq}
     if cfg.is_encoder_decoder:
         enc_out = _encode(cfg, params, batch["frames"])
         if enc_out.shape != state["enc_out"].shape:
@@ -326,13 +369,15 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], state,
         state["enc_out"].copy_(enc_out)
         tokens = batch["tokens"]
         pos = torch.arange(tokens.shape[1], device=tokens.device)
-        x = _embed_tokens(cfg, params, tokens, pos)
+        x = _embed_tokens(cfg, params, tokens, pos, seq)
         ctx.update(enc_out=enc_out, precompute_cross=True)
     else:
-        x, pos = _embed_inputs(cfg, params, batch)
+        x, pos = _embed_inputs(cfg, params, batch, seq)
     ctx["positions"] = pos
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
                        state["layers"], ctx)
+    if seq:
+        x = sharding.seq_gather(x, whole=True)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.rms_norm_eps)
     return _head(cfg, params, x)[:, 0], state
 
@@ -344,14 +389,18 @@ def prefill_batched(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     true length in ``lengths`` (B,); returns per-row logits at the last
     *real* token and the filled caches.  Padded positions write garbage
     K/V rows beyond each row's length, which the per-request decode clocks
-    mask (attention-only stacks only)."""
+    mask (attention-only stacks only).  Under sequence parallelism the
+    residual is gathered before the last rows are read."""
     B, S = tokens.shape
+    seq = _seq_shard_ok(S)
     positions = torch.arange(S, device=tokens.device)
-    x = _embed_tokens(cfg, params, tokens, positions)
+    x = _embed_tokens(cfg, params, tokens, positions, seq)
     ctx = {"mode": "full", "positions": positions, "update_cache": True,
-           "t": 0, "window": _window(cfg, long_context)}
+           "t": 0, "window": _window(cfg, long_context), "seq_shard": seq}
     x, _ = apply_stack(cfg, _segs(cfg), params["segments"], x,
                        state["layers"], ctx)
+    if seq:
+        x = sharding.seq_gather(x, whole=True)
     last = x[torch.arange(B, device=x.device), lengths.long() - 1]
     last = rms_norm(last, params["final_norm"], cfg.rms_norm_eps)
     return _head(cfg, params, last), state

@@ -14,6 +14,14 @@ outputs) and ``a2a`` (two all-to-alls over the model group).  ``a2a``
 drops assignments against each shard's capacity, as the JAX package's
 does, so at a capacity factor that binds a mesh's tokens can differ from
 one device's.
+
+Under sequence parallelism (``seq``: the input is the rank's S / tp rows
+of the residual) ``a2a`` routes those rows, which are the block of the
+sequence it routes anyway, and hands back its rows of the output with no
+gather; ``psum`` and experts held whole run on the gathered rows (a
+computation every rank runs whole), and ``psum`` reduce-scatters its
+partials.  The shared and dense-residual FFNs gather and scatter their
+own rows (``repro_torch.models.ffn``).
 """
 from __future__ import annotations
 
@@ -163,12 +171,14 @@ def _model_ctx(strategy: str) -> sharding.ShardCtx:
         ) from None
 
 
-def _routed_psum(cfg: ModelConfig, params, x2: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _routed_psum(cfg: ModelConfig, params, x2: torch.Tensor,
+                 leave=sharding.reduce) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each model rank runs its local experts over all its tokens; the
-    ranks' partial outputs are all-reduced.  The tokens and the gates,
-    whole on every rank, enter the rank's experts through ``copy_in``
-    (the router and the aux loss run whole on every rank)."""
+    ranks' partial outputs are summed by ``leave`` (the all-reduce; under
+    sequence parallelism the reduce-scatter to the rank's rows).  The
+    tokens and the gates, whole on every rank, enter the rank's experts
+    through ``copy_in`` (the router and the aux loss run whole on every
+    rank)."""
     ctx = _model_ctx("psum")
     m = cfg.moe
     T = x2.shape[0]
@@ -187,25 +197,27 @@ def _routed_psum(cfg: ModelConfig, params, x2: torch.Tensor
     ys = _expert_ffn(params, xs)
     y = _combine(ys.reshape(E_loc * C, -1), slot, gates, T, m.top_k)
     aux = _aux_loss(eidx, probs, m.num_experts, m.router_aux_loss_coef)
-    return sharding.reduce(y), sharding.batch_mean(aux)
+    return leave(y), sharding.batch_mean(aux)
 
 
-def _routed_a2a(cfg: ModelConfig, params, x: torch.Tensor
+def _routed_a2a(cfg: ModelConfig, params, x: torch.Tensor, seq: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Classic expert parallelism: each model rank routes its slice of the
     sequence, two all-to-alls carry the dispatch buffers to the experts'
     ranks and back, and the slices are gathered again.  x (B, S, d), whole
     on every model rank; returns y (B, S, d) f32.  Each rank reads its
     slice of ``x`` and routes it with the whole router, so both enter
-    through ``copy_in``."""
+    through ``copy_in``.  Under ``seq`` x is that slice, (B, S / tp, d),
+    and so is y."""
     ctx = _model_ctx("a2a")
     m = cfg.moe
     B, S, d = x.shape
     E, M = m.num_experts, ctx.model_size
-    E_loc, S_loc = E // M, S // M
-    x = sharding.copy_in(x)
-    x2 = x[:, ctx.model_rank * S_loc:(ctx.model_rank + 1) * S_loc].reshape(
-        B * S_loc, d)
+    E_loc, S_loc = E // M, (S if seq else S // M)
+    if not seq:
+        x = sharding.copy_in(x)
+        x = x[:, ctx.model_rank * S_loc:(ctx.model_rank + 1) * S_loc]
+    x2 = x.reshape(B * S_loc, d)
     T = x2.shape[0]
     gates, eidx, probs = _route(x2, sharding.copy_in(params["router"]),
                                 m.top_k)
@@ -224,7 +236,7 @@ def _routed_a2a(cfg: ModelConfig, params, x: torch.Tensor
     y = _combine(got, slot, gates, T, m.top_k).reshape(B, S_loc, d)
     aux = _aux_loss(eidx, probs, E, m.router_aux_loss_coef)
     aux = sharding.batch_mean(sharding.reduce(aux) / M)
-    return sharding.gather(y, 1, S), aux
+    return (y if seq else sharding.gather(y, 1, S)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -232,31 +244,43 @@ def _routed_a2a(cfg: ModelConfig, params, x: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def moe_forward(cfg: ModelConfig, params, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(cfg: ModelConfig, params, x: torch.Tensor,
+                seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d), router aux loss scalar).  Experts held
     whole run locally; experts split over the model ranks run ``a2a``
     where the sequence divides the ranks, else ``psum`` (the JAX
-    package's rule; the context's ``moe_strategy`` may force either)."""
+    package's rule; the context's ``moe_strategy`` may force either).
+    Under ``seq`` x and y are the rank's rows (B, S / tp, d) of the
+    sequence."""
     m = cfg.moe
-    B, S, d = x.shape
+    B, S_loc, d = x.shape
     if params["w_gate"].shape[0] == m.num_experts:
-        y, aux = _routed_local(cfg, params, x.reshape(B * S, d))
+        xw = sharding.seq_gather(x, whole=True) if seq else x
+        y, aux = _routed_local(cfg, params, xw.reshape(-1, d))
+        y = y.reshape(xw.shape)
+        if seq:
+            y = sharding.seq_split(y)
     else:
         ctx = _model_ctx("expert-parallel")
+        M = ctx.model_size
+        S = S_loc * M if seq else S_loc
         strategy = ctx.moe_strategy
         if strategy == "auto":
-            M = ctx.model_size
             strategy = "a2a" if S % M == 0 and S >= M else "psum"
         if strategy == "a2a":
-            y, aux = _routed_a2a(cfg, params, x)
+            y, aux = _routed_a2a(cfg, params, x, seq)
+        elif seq:
+            y, aux = _routed_psum(
+                cfg, params,
+                sharding.seq_gather(x, whole=True).reshape(B * S, d),
+                lambda y: sharding.seq_scatter(y.reshape(B, S, d)))
         else:
             y, aux = _routed_psum(cfg, params, x.reshape(B * S, d))
-    y = y.reshape(B, S, d).to(x.dtype)
+    y = y.reshape(B, S_loc, d).to(x.dtype)
     if "shared" in params:
         sf = (m.shared_d_ff or m.expert_d_ff) * m.num_shared_experts
-        y = y + dense_ffn(cfg, params["shared"], x, sf)
+        y = y + dense_ffn(cfg, params["shared"], x, sf, seq)
     if "dense_residual" in params:
         y = y + dense_ffn(cfg, params["dense_residual"], x,
-                          m.dense_residual_d_ff)
+                          m.dense_residual_d_ff, seq)
     return y, aux

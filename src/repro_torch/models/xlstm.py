@@ -27,6 +27,11 @@ and its heads' state, so the whole recurrence runs locally and only
 every rank (its headwise recurrent product feeds every unit's gates);
 its gated FFN is cut, each half of ``w_up`` and ``w_down``'s rows, and
 its partials summed.  The weights' shapes tell a shard from the whole.
+Under sequence parallelism (``seq``) the input is the rank's rows of the
+residual: each block gathers them at its entry (the sLSTM's whole
+recurrence and an mLSTM whose heads do not divide the slice as a
+computation every rank runs whole) and hands back the rank's rows
+(``sharding.module_in``/``module_out``).
 """
 from __future__ import annotations
 
@@ -109,12 +114,11 @@ def _mlstm_step(q_t, k_t, v_t, i_t, f_t, carry):
 def _mlstm_qkvif(cfg: ModelConfig, params, x: torch.Tensor,
                  conv_hist: Optional[torch.Tensor] = None):
     """conv_hist: (B, ksize - 1, d_in) previous inputs (decode continuity).
-    ``d_in`` and the heads are this rank's under TP (from the weights)."""
+    ``d_in`` and the heads are this rank's under TP (from the weights);
+    ``x`` has entered the rank's heads (:func:`mlstm_forward`)."""
     d_in, h = params["w_up"].shape[-1], params["wq"].shape[-3]
     hd = d_in // h
     B, S, _ = x.shape
-    if d_in != xlstm_dims(cfg, "mlstm")[0]:
-        x = sharding.copy_in(x)          # the rank's heads' w_up, w_z
     x_up = x @ params["w_up"]
     z = x @ params["w_z"]
     # causal depthwise conv + silu, continued from the history in decode
@@ -190,11 +194,13 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, carry0, chunk: int):
 
 
 def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
-                  state=None, update_cache: bool = False
+                  state=None, update_cache: bool = False, seq: bool = False
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     d_whole, _ = xlstm_dims(cfg, "mlstm")
     d_in, h = params["w_up"].shape[-1], params["wq"].shape[-3]
     hd = d_in // h
+    # the rank's heads' w_up, w_z
+    x = sharding.module_in(x, d_in != d_whole, seq)
     B, S, _ = x.shape
     conv_hist = (state["conv"][:, 1:] if mode == "decode"
                  and state is not None else None)
@@ -240,9 +246,8 @@ def mlstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
 
     out = (h_seq.reshape(B, S, d_in) * o).to(x.dtype)
     out = (out * F.silu(z)) @ params["w_down"]
-    if d_in != d_whole:
-        out = sharding.reduce(out)       # sum the ranks' head partials
-    return out, state
+    # sum the ranks' head partials
+    return sharding.module_out(out, d_in != d_whole, seq), state
 
 
 def _write_state(state, keys, values):
@@ -291,9 +296,11 @@ def _slstm_step(cfg: ModelConfig, rec_w: torch.Tensor, bias: torch.Tensor,
 
 
 def slstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
-                  state=None, update_cache: bool = False
+                  state=None, update_cache: bool = False, seq: bool = False
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     d = cfg.d_model
+    if seq:
+        x = sharding.seq_gather(x, whole=True)   # the whole recurrence
     B, S, _ = x.shape
     x_pre = (x @ params["w_in"]).float()                   # (B, S, 4d)
     rec_w = params["r"].float()
@@ -329,6 +336,5 @@ def slstm_forward(cfg: ModelConfig, params, x: torch.Tensor, *, mode: str,
     up = h_in @ params["w_up"]
     gate, val = up.chunk(2, dim=-1)
     out = (gelu(gate) * val) @ params["w_down"]
-    if sharded:
-        out = sharding.reduce(out)       # the rank's rows of the FFN
-    return out, state
+    # the rank's rows of the FFN
+    return sharding.module_out(out, sharded, seq), state

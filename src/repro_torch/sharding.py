@@ -34,6 +34,29 @@ tree (``repro_torch.training.fsdp``):
               reduce-scatter of its gradient over the data width backward
               (the loss is the mean of the data ranks' local means).
 
+Under sequence parallelism (``REPRO_SEQ_PARALLEL=1``: the residual
+stream between modules holds this model rank's S / tp rows, see
+``repro_torch.models.model``) three more ops run over "model" on the
+sequence dim (dim 1), each built on the all-gather and f32
+reduce-scatter FSDP uses:
+
+  seq_gather  all-gather forward, reduce-scatter of the gradient
+              backward: it replaces a module's entry ``copy_in`` (each
+              rank's gradient of the gathered rows is a partial); with
+              ``whole`` (a module every rank runs whole, the same
+              gradient on each) the backward takes the rank's rows;
+  seq_scatter f32 reduce-scatter of the ranks' partials forward (then
+              the cast), all-gather backward: it replaces a module's
+              closing ``reduce``;
+  seq_split   the rank's rows of a tensor every rank holds whole
+              forward, all-gather backward: the exit of a module every
+              rank runs whole, and the whole embedding's.
+
+A reduce-scatter and an all-gather put on a ring the wire bytes of the
+all-reduce they replace (in f32; the gather moves the model's dtype).
+:func:`module_in` and :func:`module_out` pick a module boundary's op
+from whether the module's weights are cut and whether the sequence is.
+
 Under ``torch.no_grad`` (serving) each is its forward alone, the calls of
 the serving path.
 
@@ -45,7 +68,8 @@ tree of each leaf's data-cut dim (:func:`use_mesh`'s ``fsdp``).
 
   batch  — data-parallel batch dim        -> the batch axes, or None
   model  — tensor/expert parallel dim     -> the model axis
-  seq    — sequence dim between TP blocks -> the model axis
+  seq    — sequence dim between TP blocks -> the model axis (the
+           residual's rows under ``REPRO_SEQ_PARALLEL=1``)
 
 :func:`record_mesh` installs a recording mesh instead, for the dry run's
 per-rank program: the axis sizes of the production mesh, rank 0 on each,
@@ -372,6 +396,40 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None
 
 
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _all_gather(x, 1, "model", "the sequence gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_f32(g, 1, "model",
+                                   "the sequence gather's backward")
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _reduce_scatter_f32(x, 1, "model", "the sequence scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, 1, "model", "the sequence scatter's backward")
+
+
+class _SeqSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        n = x.shape[dim] // _CTX.model_size
+        return x.narrow(dim, _CTX.model_rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, "model",
+                           "the sequence split's backward"), None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
@@ -426,6 +484,59 @@ def gather(x: torch.Tensor, dim: int, full: int) -> torch.Tensor:
         raise ValueError(f"{ctx.model_size} slices of {x.shape[dim]} are "
                          f"not {full}")
     return _Gather.apply(x, dim % x.dim())
+
+
+def seq_gather(x: torch.Tensor, whole: bool = False) -> torch.Tensor:
+    """The whole sequence (dim 1) of which each model rank holds its
+    equal block of rows, in rank order.  The backward reduce-scatters the
+    ranks' partial gradients; with ``whole`` (the rows enter a
+    computation every rank runs whole, so each holds the whole gradient)
+    it takes the rank's rows of it instead."""
+    model_sharded("the sequence gather")
+    if whole:
+        return _Gather.apply(x, 1)
+    return _SeqGather.apply(x)
+
+
+def seq_scatter(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model ranks' partials ``x`` (B, S, ...), f32, and
+    this rank's block of S / tp rows of it, in ``x``'s dtype."""
+    ctx = model_sharded("the sequence scatter")
+    if x.shape[1] % ctx.model_size:
+        raise ValueError(f"{x.shape[1]} rows do not divide "
+                         f"{ctx.model_size} model ranks")
+    return _SeqScatter.apply(x)
+
+
+def seq_split(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This model rank's block of dim ``dim`` of ``x``, which every rank
+    holds whole (no communication forward; the gradient's blocks are
+    gathered backward)."""
+    ctx = model_sharded("the sequence split")
+    if x.shape[dim] % ctx.model_size:
+        raise ValueError(f"{x.shape[dim]} rows do not divide "
+                         f"{ctx.model_size} model ranks")
+    return _SeqSplit.apply(x, dim % x.dim())
+
+
+def module_in(x: torch.Tensor, sharded: bool, seq: bool) -> torch.Tensor:
+    """A module's input ``x`` at its entry: where the sequence is cut
+    (``seq``) the gathered rows (a module whose weights are not cut runs
+    whole, see :func:`seq_gather`), else ``copy_in`` where the weights
+    are cut, else ``x``."""
+    if seq:
+        return seq_gather(x, whole=not sharded)
+    return copy_in(x) if sharded else x
+
+
+def module_out(y: torch.Tensor, sharded: bool, seq: bool) -> torch.Tensor:
+    """A module's output ``y`` at its exit: where the sequence is cut the
+    rank's rows of the ranks' sum (:func:`seq_scatter`), or of the whole
+    output every rank computed (:func:`seq_split`); else the
+    ``reduce`` of a cut module's partials, or ``y``."""
+    if seq:
+        return seq_scatter(y) if sharded else seq_split(y)
+    return reduce(y) if sharded else y
 
 
 def all_to_all(x: torch.Tensor) -> torch.Tensor:

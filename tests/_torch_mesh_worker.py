@@ -16,7 +16,7 @@ from repro_torch.configs import get_config
 from repro_torch.meshserve import STATS, MeshPlacement, carve_slices
 from repro_torch.meshserve.pool import local_state, shard_params
 from repro_torch.meshserve.topology import group_of
-from repro_torch.models import (decode_step_paged, init_state,
+from repro_torch.models import (decode_step_paged, init_state, prefill,
                                 prefill_batched)
 from repro_torch.models.moe import moe_forward
 from repro_torch.scheduling.accellm import AcceLLMScheduler
@@ -255,11 +255,25 @@ def moe(rank, payload):
     return out
 
 
+def seq_parallel_engine(cfg, params):
+    """tp 2 with ``REPRO_SEQ_PARALLEL=1`` set in every rank: the tokens
+    of ``generate``, the logits of ``logits_at`` and the collectives
+    both issued."""
+    from _torch_train_worker import _Calls, seq_parallel
+    (sl,) = carve_slices(2, 1, device=CPU)
+    with seq_parallel(True), _Calls() as calls:
+        _, toks = generate(cfg, params, sl)
+        pre, dec = logits_at(cfg, params, sl) if sl.holds else (None, None)
+    return {"tokens": toks, "prefill": pre, "decode": dec,
+            "calls": dict(calls.log)}
+
+
 def world4(rank, world, payload):
     torch.manual_seed(0)
     cfg = get_config("starcoder2-3b").reduced()
     params = params_from_numpy(payload["params"], device=CPU)
     return {"tp": tp_engines(cfg, params),
+            "sp": seq_parallel_engine(cfg, params),
             "stream": stream_and_mirror(cfg, params),
             "cluster": mesh_cluster(cfg, params, payload["shapes"]),
             "serve": api_serve(),
@@ -532,10 +546,58 @@ def head_cut(case):
     return out
 
 
+def seq_parallel_prefill(cases):
+    """Each case's ``prefill`` of ``family_batch``, and its
+    ``prefill_batched`` of the same tokens where the stack has no
+    encoder, at tp 2 with ``REPRO_SEQ_PARALLEL`` unset and then set, on
+    weights drawn on every rank from one seed: this rank's logits of
+    both, whether every cache leaf came out equal, and the collectives
+    each run issued (None on a shadow)."""
+    from repro_torch.models import init_params
+    from _torch_train_worker import _Calls, seq_parallel
+    (sl,) = carve_slices(2, 1, device=CPU)
+    out = {}
+    for name, (arch, heads) in cases.items():
+        cfg = get_config(arch).reduced()
+        if heads:
+            cfg = dataclasses.replace(cfg, **heads)
+        params = init_params(cfg, torch.Generator().manual_seed(1),
+                             device=CPU)
+        if not sl.holds:
+            out[name] = None
+            continue
+        local = shard_params(cfg, params, sl)
+        batch = {k: torch.as_tensor(v) for k, v in family_batch(cfg).items()}
+        B, S = batch["tokens"].shape
+        res = {}
+        for path in ("prefill", "prefill_batched"):
+            if path == "prefill_batched" and cfg.is_encoder_decoder:
+                continue
+            runs = []
+            for on in (False, True):
+                state = local_state(cfg, sl, B, 32)
+                with seq_parallel(on), _Calls() as calls, \
+                        sharding.use_mesh(sl.group):
+                    if path == "prefill":
+                        logits, state = prefill(cfg, local, batch, state)
+                    else:
+                        logits, state = prefill_batched(
+                            cfg, local, batch["tokens"], state,
+                            torch.full((B,), S))
+                runs.append((logits.numpy(), _leaves(state),
+                             dict(calls.log)))
+            (off, c_off, k_off), (on, c_on, k_on) = runs
+            res[path] = {"off": off, "on": on, "calls": (k_off, k_on),
+                         "caches_equal": len(c_off) == len(c_on) and all(
+                             torch.equal(a, b) for a, b in zip(c_off, c_on))}
+        out[name] = res
+    return out
+
+
 def families(rank, world, payload):
     """Every family at tp 2 and 4 on a world of 4: tokens, logits, bytes;
     the MoE families also at the dropless capacity factor; the mutation
-    cases at tp 2."""
+    cases at tp 2; the sequence-parallel prefills at tp 2."""
     out = {}
     for arch, params_np in payload["params"].items():
         cfg = get_config(arch).reduced()
@@ -556,6 +618,7 @@ def families(rank, world, payload):
         out[name] = {"published": family_ranks(cfg, params, tps=(4,))}
     out["mutated"] = mutated(payload["mutate"])
     out["head_cut"] = head_cut(payload["head_cut"])
+    out["seq_parallel"] = seq_parallel_prefill(payload["seq_parallel"])
     return out
 
 

@@ -5,9 +5,13 @@ gloo world of 4 CPU processes: a (data 2, model 2) mesh, rank
 ``tests/test_torch_train_mesh.py`` starts :func:`families` on the world
 (``repro_torch.meshserve.world.spawn``).  This module imports torch,
 numpy and the port only, never JAX nor the JAX package, and hands
-everything back as numpy.
+everything back as numpy.  A payload with ``seq`` runs with
+``REPRO_SEQ_PARALLEL=1`` set in the rank (sequence parallelism), and
+unset after.
 """
+import contextlib
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -91,9 +95,28 @@ class _Calls:
             setattr(dist, name, plain)
 
 
+@contextlib.contextmanager
+def seq_parallel(on: bool):
+    """``REPRO_SEQ_PARALLEL`` set to "1" while active where ``on``."""
+    saved = os.environ.pop("REPRO_SEQ_PARALLEL", None)
+    if on:
+        os.environ["REPRO_SEQ_PARALLEL"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_SEQ_PARALLEL", None)
+        if saved is not None:
+            os.environ["REPRO_SEQ_PARALLEL"] = saved
+
+
 def run_family(payload, rank):
     """One config on this rank: grads of the first batch, then 3 AdamW
     steps; this rank's part of each, the step losses and norms."""
+    with seq_parallel(payload.get("seq", False)):
+        return _run_family(payload, rank)
+
+
+def _run_family(payload, rank):
     cfg = config(payload["arch"], payload.get("capacity"),
                  payload.get("heads"))
     mesh = dataclasses.replace(train_mesh(*MESH), moe_strategy=payload.get(

@@ -35,9 +35,12 @@ ARCHS = ["starcoder2-7b", "phi3-medium-14b", "minicpm-2b", "llama2-70b",
 
 
 def test_registry_lists_every_ported_config():
-    archs = tcfg.list_archs()
+    archs = tcfg.list_archs(include_extra=True)
     assert set(ARCHS) <= set(archs)
-    assert set(archs) == set(rcfg.list_archs(include_extra=True))
+    assert archs == rcfg.list_archs(include_extra=True)
+    assert tcfg.list_archs() == rcfg.list_archs()
+    assert tcfg.ASSIGNED_ARCHS == rcfg.ASSIGNED_ARCHS
+    assert "llama2-70b" not in tcfg.list_archs()
     for arch in archs:
         assert tcfg.get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown arch"):

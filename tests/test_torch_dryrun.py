@@ -294,7 +294,7 @@ def test_rank_flops_times_chips_cover_the_global_step(arch, equal):
     assert rank["argument_bytes"] > 0
 
 
-@pytest.mark.parametrize("arch", tcfg.list_archs())
+@pytest.mark.parametrize("arch", tcfg.list_archs(include_extra=True))
 def test_every_train_step_records_collectives(arch):
     """Every config's train step on the 16 x 16 recording mesh (reduced
     widths) records FSDP's and TP's collectives, and ``analyze`` prices

@@ -33,12 +33,22 @@ from repro_torch.models import init_params, init_state
 
 #: the JAX package's ``list_archs()`` (its ten assigned architectures)
 #: and the paper's evaluation model, which both registries also hold
-ARCHS = tcfg.list_archs()
+ARCHS = tcfg.list_archs(include_extra=True)
 
 
 def test_registries_agree():
     assert rcfg.list_archs() + ["llama2-70b"] == ARCHS
+    assert tcfg.list_archs() == rcfg.list_archs()
+    assert tcfg.ASSIGNED_ARCHS == rcfg.ASSIGNED_ARCHS
+    assert rcfg.list_archs(include_extra=True) == ARCHS
     assert rcfg.get_config("llama2-70b").name == "llama2-70b"
+
+
+@pytest.mark.parametrize("name", list(rcfg.INPUT_SHAPES))
+def test_get_shape_equals_reference(name):
+    r, t = rcfg.get_shape(name), tcfg.get_shape(name)
+    assert t is tcfg.INPUT_SHAPES[name]
+    assert dataclasses.asdict(t) == dataclasses.asdict(r)
 
 
 @pytest.fixture(scope="module")

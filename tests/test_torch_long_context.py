@@ -38,7 +38,7 @@ PROMPT, STEPS, BATCH = 80, 40, 2
 
 @pytest.mark.parametrize("long_context", [False, True])
 @pytest.mark.parametrize("seq_len", [1_024, 32_768, 524_288])
-@pytest.mark.parametrize("arch", tcfg.list_archs())
+@pytest.mark.parametrize("arch", tcfg.list_archs(include_extra=True))
 def test_cache_capacity_matches_reference(arch, seq_len, long_context):
     assert t_capacity(tcfg.get_config(arch), seq_len, long_context) == \
         r_capacity(rcfg.get_config(arch), seq_len, long_context)

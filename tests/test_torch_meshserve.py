@@ -38,7 +38,11 @@ package's weights bridged through numpy, numpy-seeded prompts:
   ``tests/test_moe_distributed.py`` against the local path and the JAX
   package's strategies (y within 1e-4, aux within 5e-4, its bounds);
 * ``ServeSpec(mesh_tp=2, device="cpu")`` through ``api.serve`` and
-  ``launch.serve --mesh-tp 2 --device cpu`` against the host serve.
+  ``launch.serve --mesh-tp 2 --device cpu`` against the host serve;
+* sequence parallelism (``REPRO_SEQ_PARALLEL=1`` in the ranks) at tp 2:
+  the greedy tokens equal the flag-off ones and the JAX package's
+  sharded engine's under the flag, on every rank, and the prefill and
+  paged-decode logits the flag-off ones within 1e-5 of max|logit|.
 """
 import dataclasses
 import functools
@@ -683,3 +687,24 @@ def test_moe_strategies_match_local_and_reference(mesh8, world4, moe_case):
             ry, raux = ref[strategy]
             assert np.abs(y - ry[rows]).max() < 1e-4, (rank, strategy)
             assert abs(aux - raux) < 1e-6, (rank, strategy)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (REPRO_SEQ_PARALLEL=1)
+# ---------------------------------------------------------------------------
+
+
+def test_seq_parallel_engine_matches_flag_off_and_reference(
+        mesh8, bridge, world4, monkeypatch):
+    cfg_r, _, params_r, _, _ = bridge
+    for out in world4:
+        assert out["sp"]["tokens"] == out["tp"][2]["tokens"]
+    monkeypatch.setenv("REPRO_SEQ_PARALLEL", "1")
+    assert world4[0]["sp"]["tokens"] == _ref_tokens(cfg_r, params_r, 2)
+    for out in world4[:2]:
+        for key in ("prefill", "decode"):
+            want = out["tp"][2][key]
+            err = float(np.abs(out["sp"][key] - want).max())
+            assert err <= 1e-5 * float(np.abs(want).max()), (key, err)
+        kinds = {k for k, _, _ in out["sp"]["calls"]}
+        assert {"reduce-scatter", "all-gather"} <= kinds

@@ -40,7 +40,14 @@ modality payloads (``workloads.default_extras``):
   ``d_in / 4`` channels (half a head a rank);
 * without a world: each rank's part of a sharded store is the whole leaf
   at the indices its ``holders`` records (what a pull plans from), and
-  the pull planner takes every index from the rank that holds it.
+  the pull planner takes every index from the rank that holds it;
+* sequence parallelism (``REPRO_SEQ_PARALLEL=1`` set in the ranks): at
+  tp 2 ``prefill`` and ``prefill_batched`` of GQA, jamba (Mamba, MoE
+  ``a2a``), deepseek-v3 (MLA), xLSTM, seamless-m4t (cross attention;
+  ``prefill`` only: ``prefill_batched`` takes no frames), internvl2
+  (the prefix) and minicpm-2b with 3 query heads (attention whole) give
+  the flag-off logits within 1e-5 of max|logit| and equal caches, through
+  reduce-scatters and all-gathers on the sequence.
 """
 import functools
 
@@ -71,6 +78,11 @@ MOE = ("jamba-1.5-large-398b", "deepseek-v3-671b", ARCTIC)
 #: the 6-query-head variants (``_torch_mesh_worker.six_heads``, MoE
 #: dropless), served at tp 4 only: their heads do not divide 4
 VARIANTS = {"arctic-480b/6h": ARCTIC}
+#: the sequence-parallel prefill cases: name -> (arch, head overrides)
+SEQ_PARALLEL = {"starcoder2-3b": ("starcoder2-3b", None),
+                **{a: (a, None) for a in W.FAMILIES},
+                "minicpm-3h": ("minicpm-2b",
+                               {"num_heads": 3, "num_kv_heads": 1})}
 #: the head gate's case: 2 heads at tp 4
 HEAD_CUT = {"arch": "xlstm-1.3b",
             "heads": {"num_heads": 2, "num_kv_heads": 2}, "tp": 4}
@@ -171,7 +183,8 @@ def world(bridged):
                         "variants": {v: (a, bridged[v][3])
                                      for v, a in VARIANTS.items()},
                         "tps": {ARCTIC: (2,)}, "mutate": MUTATE,
-                        "head_cut": HEAD_CUT},),
+                        "head_cut": HEAD_CUT,
+                        "seq_parallel": SEQ_PARALLEL},),
                  timeout=600)
 
 
@@ -520,3 +533,31 @@ def test_pull_plan_fills_every_index_from_its_holder():
                             scatter: (first, [4, 5, 6, 7])}, True)
     assert moves[1, 3] == ({same: (first, first),
                             gather: ([4, 5, 6, 7], first)}, False)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (REPRO_SEQ_PARALLEL=1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(SEQ_PARALLEL))
+def test_seq_parallel_prefill_matches_flag_off(world, name):
+    """Each holding rank's logits under the flag within 1e-5 of the
+    flag-off max|logit|, its caches equal, and the residual's sequence
+    cut on the wire: reduce-scatters and all-gathers where the flag-off
+    run had none (shadows run nothing)."""
+    cfg = _configs(SEQ_PARALLEL[name][0])[1]
+    paths = ({"prefill"} if cfg.is_encoder_decoder
+             else {"prefill", "prefill_batched"})
+    for out in world[:2]:
+        runs = out["seq_parallel"][name]
+        assert set(runs) == paths
+        for path, run in runs.items():
+            scale = float(np.abs(run["off"]).max())
+            err = float(np.abs(run["on"] - run["off"]).max())
+            assert err <= 1e-5 * scale, (path, err, scale)
+            assert run["caches_equal"], path
+            off, on = ({k for k, _, _ in calls} for calls in run["calls"])
+            assert "reduce-scatter" in on and "all-gather" in on, path
+            assert "reduce-scatter" not in off, path
+    assert all(out["seq_parallel"][name] is None for out in world[2:])

@@ -711,3 +711,48 @@ def test_prefix_cache_entry_points_run_on_the_cpu(setup, capsys):
     eng = InstanceEngine(cfg, params, num_slots=2, kv_capacity=64,
                          prefix_cache=True, device="cpu")
     assert eng.prefix_cache.capacity_blocks == 2 * 64 // 16 // 2
+
+
+# ---------------------------------------------------------------------------
+# PagedStore's block-table and sharing accessors
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "jamba-1.5-large-398b"])
+def test_paged_store_accessors_match_reference(arch):
+    """``line_block_table``, ``delta_since`` and ``shared_saved_bytes`` on
+    the same admissions as the JAX package's store: its own slot-affinity
+    case (``tests/test_kvstore.py``), a synced mirror's delta, and a
+    second request adopting a resident prefix's blocks."""
+    cfg_r = rcfg.get_config(arch).reduced()
+    cfg = tcfg.get_config(arch).reduced()
+    r = rkv.PagedStore(cfg_r, num_slots=4, kv_capacity=64, block_lines=16)
+    t = tkv.PagedStore(cfg, num_slots=4, kv_capacity=64, block_lines=16,
+                       device="meta")
+
+    def both(op, *args):
+        got, want = getattr(t, op)(*args), getattr(r, op)(*args)
+        assert got == want, (op, args, got, want)
+        return got
+
+    both("alloc", 42, 2, 20)
+    table = both("line_block_table", 42)
+    assert table == [8, 9]                  # slot 2 owns pool blocks 8..11
+    both("mark_synced", 42, 20)
+    both("append_line", 42, 45)             # 65 lines: capped at the window
+    assert both("line_block_table", 42) == [8, 9, 10, 11]
+    for line in (0, 5, 20, 64):
+        both("delta_since", 42, line)
+    assert both("shared_saved_bytes") == 0
+    off = 1 if t._has_fixed else 0
+    both("alloc", 7, 0, 40)
+    head = t.ledger.tables[7][off:off + 2]
+    assert head == r.ledger.tables[7][off:off + 2]
+    both("alloc", 8, 1, 40, None, head)
+    assert both("shared_saved_bytes") == 2 * t.ledger.block_bytes > 0
+    for rid in (7, 8, 42):
+        both("line_block_table", rid)
+        both("delta_since", rid, 3)
+    both("free_slot", 0)
+    assert both("shared_saved_bytes") == 0
+    both("line_block_table", 8)

@@ -30,7 +30,7 @@ from repro_torch.core import opcount as count
 from repro_torch.roofline import report
 from repro_torch.sim.devices import H100, TPU_V5E
 
-ARCHS = tcfg.list_archs()
+ARCHS = tcfg.list_archs(include_extra=True)
 SHAPES = list(rcfg.INPUT_SHAPES)
 
 

@@ -34,10 +34,17 @@ pipeline (B = 2, S = 16) and each family's numpy-seeded payload:
   issued (``tests/test_torch_dryrun.py`` holds the recorder's side);
 * the no-mesh step bitwise equal to the whole-tree step it was (a copy
   kept here), and a rank's part of a sharded tree refused by the
-  one-device step.
+  one-device step;
+* sequence parallelism (``REPRO_SEQ_PARALLEL=1`` set in the ranks, in
+  the same world): starcoder2-3b, jamba (``psum``) and minicpm-3h give
+  each rank the flag-off grads, params and moments within 1e-4 of each
+  leaf's max|·| and the losses within 1e-5; gqa-ref and moe-ref (``a2a``)
+  match the JAX package's ``train_step`` jitted anew under the flag; and
+  the recording mesh's collectives under the flag equal the world's.
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -77,6 +84,12 @@ ONE_DEVICE = {
 REFERENCE = {"gqa-ref": "starcoder2-3b", "moe-ref": "jamba-1.5-large-398b",
              "minicpm-3h-ref": "minicpm-2b"}
 COUNTED = "moe-ref"
+#: the runs repeated with ``REPRO_SEQ_PARALLEL=1`` (as ``name + SP``):
+#: against their flag-off runs, and against the JAX package's sharded
+#: step under the flag
+SP = "/sp"
+SEQ = ("starcoder2-3b", "jamba", "minicpm-3h")
+SEQ_REFERENCE = ("gqa-ref", "moe-ref")
 #: name -> head counts replacing the reduced config's: 3 query heads and
 #: 1 KV head do not divide the model width 2
 HEADS = {"minicpm-3h": {"num_heads": 3, "num_kv_heads": 1},
@@ -137,6 +150,8 @@ def _payloads():
                      "batches": _batches(W.config(arch, None,
                                                   HEADS.get(name))),
                      "count": name == COUNTED}
+    for name in SEQ + SEQ_REFERENCE:
+        out[name + SP] = dict(out[name], seq=True)
     return out
 
 
@@ -199,9 +214,15 @@ def _named(mesh, specs):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(name):
+def _reference(name, seq=False):
     """The JAX package's sharded run on a (data 2, model 2) mesh of the
-    forced CPU devices: the first batch's grads, then 3 steps."""
+    forced CPU devices: the first batch's grads, then 3 steps; with
+    ``seq`` jitted under ``REPRO_SEQ_PARALLEL=1``."""
+    with W.seq_parallel(seq):
+        return _reference_run(name)
+
+
+def _reference_run(name):
     arch = REFERENCE[name]
     cfg_r = _ref_config(arch, name)
     params = jax.tree_util.tree_map(jnp.asarray, _weights(arch, name))
@@ -468,3 +489,64 @@ def test_recorded_collectives_equal_the_worlds(world):
     assert any(k[0] == "reduce-scatter" for k in want)
     for rank, got in calls.items():
         assert got == want, rank
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (REPRO_SEQ_PARALLEL=1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", SEQ)
+def test_seq_parallel_matches_flag_off(world, name):
+    """Each rank's grads, params after 3 steps and moments under the flag
+    within 1e-4 of the same rank's flag-off parts (of each leaf's
+    max|·|), its losses within 1e-5 and its clipping norms within 1e-4."""
+    for w in world:
+        off, on = w[name], w[name + SP]
+        for key in ("grads", "params", "moments"):
+            got, want = dict(_leaves(on[key])), dict(_leaves(off[key]))
+            assert got.keys() == want.keys()
+            for p in want:
+                scale = max(float(np.abs(want[p]).max(initial=0.0)), 1e-30)
+                err = float(np.abs(got[p] - want[p]).max(initial=0.0))
+                assert err <= TOL * scale, (key, w[name]["rank"], p, err)
+        np.testing.assert_allclose(on["losses"], off["losses"], rtol=1e-5)
+        np.testing.assert_allclose(on["norms"], off["norms"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", SEQ_REFERENCE)
+def test_seq_parallel_matches_reference_sharded_step(world, name):
+    """The flag-on step against the JAX package's ``train_step`` jitted
+    under ``REPRO_SEQ_PARALLEL=1`` on the forced 2 x 2 mesh."""
+    cfg = W.config(REFERENCE[name], None, HEADS.get(name))
+    ref = _reference(name, seq=True)
+    ranks = [w[name + SP] for w in world]
+    _parts_close(cfg, ranks, "grads", ref["grads"])
+    _parts_close(cfg, ranks, "params", ref["params"])
+    _parts_close(cfg, ranks, "moments", ref["moments"])
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], ref["losses"], rtol=1e-5)
+
+
+def test_seq_parallel_recorded_collectives_equal_the_worlds(world,
+                                                            monkeypatch):
+    """Under the flag the recording mesh's collectives for jamba's step
+    equal the world's, kind by kind, in bytes and in group size; and the
+    world's boundary all-reduces became reduce-scatters and all-gathers."""
+    from repro_torch.launch.dryrun import rank_program
+    cfg = W.config(REFERENCE[COUNTED])
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in
+             _batches(cfg, 1)[0].items()}
+    monkeypatch.setenv("REPRO_SEQ_PARALLEL", "1")
+    recorded = rank_program(cfg, batch, data=2, model=2, opt_cfg=W.OPT)
+    want = {k: int(v) for k, v in recorded["collectives"].items()}
+
+    def calls(tag, kind):
+        return sum(n for (k, _, _), n in tag.items() if k == kind)
+
+    for w in world:
+        got, off = w[COUNTED + SP]["calls"], w[COUNTED]["calls"]
+        assert got == want, w[COUNTED]["rank"]
+        assert calls(got, "all-reduce") < calls(off, "all-reduce")
+        assert calls(got, "reduce-scatter") > calls(off, "reduce-scatter")
+        assert calls(got, "all-gather") > calls(off, "all-gather")
