@@ -1,0 +1,3 @@
+"""Host time of each decode plan of the window (it ends in the engine's
+own host sync), averaged, in cells judged on tokens per second (saturated)."""
+from bench.readers import decode_step_ms as read  # noqa: F401

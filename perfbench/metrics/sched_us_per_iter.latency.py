@@ -1,0 +1,3 @@
+"""Change of LiveCluster's scheduling time (policy and planner) over
+the window, per scheduling iteration, in cells judged on a latency (open loop below the knee)."""
+from bench.readers import sched_us_per_iter as read  # noqa: F401
