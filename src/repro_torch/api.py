@@ -241,10 +241,13 @@ class ServeReport:
         return "\n".join(lines)
 
 
-def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
+def build_cluster(spec: ServeSpec, cfg=None, params=None,
+                  tracer=None) -> LiveCluster:
     """Resolve config, params and policy, and return a ready cluster.
     Without ``params`` the weights are drawn by ``init_params`` from a
-    ``torch.Generator`` seeded by ``spec.seed`` on ``spec.device``."""
+    ``torch.Generator`` seeded by ``spec.seed`` on ``spec.device``.  A
+    ``tracer`` (``repro_torch.core.tracing.Tracer``) records the serving
+    step's spans, counters and request stamps."""
     device = resolve_device(spec.device)
     mesh = None
     if spec.mesh_specs is not None:
@@ -281,7 +284,7 @@ def build_cluster(spec: ServeSpec, cfg=None, params=None) -> LiveCluster:
                        timeline_stride=spec.timeline_stride,
                        max_queue=spec.max_queue,
                        shed_deadline=spec.shed_deadline,
-                       device=device)
+                       device=device, tracer=tracer)
 
 
 def serve(spec: ServeSpec,

@@ -53,6 +53,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device
+from repro_torch.core.tracing import Tracer, traced
 from repro_torch.kvstore.base import BlockLedger, KVStoreError, LineCosts
 from repro_torch.models import init_state
 from repro_torch.models.blocks import layer_specs, plan_segments
@@ -74,8 +75,11 @@ def pick_block_lines(kv_capacity: int, requested: int = 16) -> int:
 
 class PagedStore:
     def __init__(self, cfg: ModelConfig, num_slots: int, kv_capacity: int,
-                 block_lines: Optional[int] = None, device: Device = "cuda"):
+                 block_lines: Optional[int] = None, device: Device = "cuda",
+                 tracer: Optional[Tracer] = None):
         self.cfg = cfg
+        #: the cluster's tracer (``repro_torch.core.tracing``), or None
+        self.tracer = tracer
         self.num_slots = num_slots
         self.kv_capacity = kv_capacity
         if block_lines is not None and kv_capacity % block_lines:
@@ -197,6 +201,7 @@ class PagedStore:
                         + tuple(arr.shape[2:]))
 
     # -- ledger ops (slot-affine) ----------------------------------------------
+    @traced("kv.alloc")
     def alloc(self, rid: int, slot: int, lines: int,
               synced: Optional[int] = None,
               shared: Optional[List[int]] = None) -> None:
@@ -311,6 +316,7 @@ class PagedStore:
         self.merge_slot_rows(slot, sub_state, 0, self.kv_capacity,
                              src_slot=src_slot)
 
+    @traced("kv.merge")
     def merge_slot_rows(self, slot: int, sub_state, lo: int, hi: int,
                         src_slot: int = 0):
         """Copy ``sub_state``'s batch row ``src_slot`` into ``slot``, KV rows

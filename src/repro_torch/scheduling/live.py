@@ -35,6 +35,7 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Union
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device
+from repro_torch.core.tracing import Tracer, span, traced
 from repro_torch.scheduling.actions import (AbortRequest, Action, Decode,
                                             EvictReplica, MirrorSync, Prefill,
                                             PromoteReplica, StreamState)
@@ -223,7 +224,8 @@ class LiveCluster:
                  max_queue: Optional[int] = None,
                  shed_deadline: Optional[float] = None,
                  degrade_dispatch_s: float = 0.0,
-                 device: Device = "cuda"):
+                 device: Device = "cuda",
+                 tracer: Optional[Tracer] = None):
         if isinstance(policy, str):
             from repro_torch.scheduling.registry import get_policy
             policy = get_policy(policy)
@@ -234,6 +236,10 @@ class LiveCluster:
         self.cfg = cfg
         self.policy = policy
         self._params = params
+        #: spans, counters and request stamps of the serving step
+        #: (``repro_torch.core.tracing``), shared with every engine and
+        #: store; None records nothing
+        self.tracer = tracer
         #: pod layout (repro_torch.meshserve.MeshPlacement): one slice of
         #: the world's ranks per instance, and the (possibly
         #: heterogeneous) InstanceSpecs the views expose.  ``None`` runs
@@ -254,7 +260,8 @@ class LiveCluster:
             num_slots=num_slots, kv_capacity=kv_capacity,
             temperature=temperature, eos_token=eos_token,
             block_lines=block_lines, prefix_cache=prefix_cache,
-            prefix_cache_blocks=prefix_cache_blocks, device=device)
+            prefix_cache_blocks=prefix_cache_blocks, device=device,
+            tracer=tracer)
         self.engines = [
             InstanceEngine(cfg, params, instance_id=i,
                            mesh=mesh.slice_for(i) if mesh is not None
@@ -358,12 +365,16 @@ class LiveCluster:
         return self.sched_time_s * 1e6 / max(1, self.n_iterations)
 
     def _sched_begin(self):
+        if self.tracer is not None:
+            self.tracer.begin("cluster.schedule")
         self._sched_t0 = time.perf_counter()
 
     def _sched_end(self):
         if self._sched_t0 is not None:
             self.sched_time_s += time.perf_counter() - self._sched_t0
             self._sched_t0 = None
+            if self.tracer is not None:
+                self.tracer.end("cluster.schedule")
 
     # -- submission -----------------------------------------------------------
     def submit(self, req: Request, extra: Optional[dict] = None, *,
@@ -373,6 +384,8 @@ class LiveCluster:
         time (which may fall between scheduling iterations)."""
         if stamp_arrival:
             req.arrival = self.now
+        if self.tracer is not None:
+            self.tracer.stamp(req.rid, "submit")
         if extra is None:
             extra = req.extra
         if any(r.rid == req.rid for r in self._submitted
@@ -537,6 +550,7 @@ class LiveCluster:
         return max(1, n)
 
     # -- one scheduling iteration ---------------------------------------------
+    @traced("cluster.step")
     def step(self):
         self.clock.tick()
         # fleet events apply between scheduler iterations: the view the
@@ -662,7 +676,8 @@ class LiveCluster:
         for plan in plans:
             pf = prefill_part(plan)
             if pf is not None:
-                self._execute_prefill(pf, newly, prefilled)
+                with span(self.tracer, "cluster.prefill"):
+                    self._execute_prefill(pf, newly, prefilled)
 
         # 4. post-prefill placement (§4.1.2 streaming / Splitwise
         # transfer), wrapped into transfer plans
@@ -682,7 +697,8 @@ class LiveCluster:
             eng = self.engines[dc.instance]
             # graceful-degradation ladder (§4.2.5) before the step can
             # allocate: evict replicas, then abort least-progress work
-            self._relieve_pressure(dc.instance, view)
+            with span(self.tracer, "cluster.relieve"):
+                self._relieve_pressure(dc.instance, view)
             if not eng.slot_req:
                 continue
             if self.degrade_dispatch_s > 0.0 \
@@ -705,6 +721,8 @@ class LiveCluster:
                 req = live[slot]
                 for j in range(len(toks)):
                     req.token_times.append(self.now + j)
+                if req.phase is Phase.DONE and self.tracer is not None:
+                    self.tracer.stamp(req.rid, "done")
                 if (dc.steps > 1 and req.phase is Phase.DONE
                         and req.finish_time is None):
                     # died mid-span (EOS): stamp the iteration it really
@@ -717,7 +735,8 @@ class LiveCluster:
             self.clock.tick(ran_steps - 1)
 
         # 5. release placements of finished requests
-        self._release_finished()
+        with span(self.tracer, "cluster.release"):
+            self._release_finished()
 
         # 6. mirror newly generated lines into replicas (§4.1.2)
         self._sched_begin()
@@ -1009,6 +1028,8 @@ class LiveCluster:
             if req.done:          # degenerate max_new_tokens == 1
                 req.phase = Phase.DONE
                 eng.release(slot)
+                if self.tracer is not None:
+                    self.tracer.stamp(req.rid, "done")
                 continue
             newly.append((pf.instance, req))
 
@@ -1037,6 +1058,7 @@ class LiveCluster:
         else:
             raise ValueError(f"live executor cannot apply {act!r}")
 
+    @traced("kv.stream")
     def _apply_stream(self, act: StreamState):
         pl = self.placements.get(act.rid)
         if pl is None or pl.primary[0] != act.src:
@@ -1046,7 +1068,8 @@ class LiveCluster:
         src_idx, src_slot = pl.primary
         src = self.engines[src_idx]
         dst = self.engines[act.dst]
-        free = dst.free_slots()
+        with span(self.tracer, "kv.stream.slot"):
+            free = dst.free_slots()
         if not free:
             return                       # capacity raced away; stay put
         dst_slot = free[0]
@@ -1076,6 +1099,7 @@ class LiveCluster:
         self.stats["stream_bytes"] += (src.store.costs.bytes_at(lines)
                                        - skip * src.store.costs.line_bytes)
 
+    @traced("kv.mirror")
     def _apply_mirror(self, act: MirrorSync):
         pl = self.placements.get(act.rid)
         if pl is None or pl.replica is None:
@@ -1091,6 +1115,7 @@ class LiveCluster:
         self.stats["mirror_syncs"] += 1
         self.stats["mirror_bytes"] += moved
 
+    @traced("kv.promote")
     def _apply_promote(self, act: PromoteReplica):
         pl = self.placements.get(act.rid)
         if pl is None or pl.replica is None or pl.primary[0] != act.src:

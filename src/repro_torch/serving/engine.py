@@ -57,6 +57,7 @@ from repro_torch import sharding
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.core.tracing import Tracer, span, traced
 from repro_torch.kvstore import KVStoreError, PagedStore
 from repro_torch.models import (decode_multi, decode_step, init_state, prefill,
                                 prefill_batched, prefill_chunk)
@@ -76,8 +77,10 @@ class InstanceEngine:
                  paged_decode: Optional[bool] = None,
                  prefix_cache: bool = False,
                  prefix_cache_blocks: Optional[int] = None, mesh=None,
-                 device: Device = "cuda"):
+                 device: Device = "cuda", tracer: Optional[Tracer] = None):
         self.device = resolve_device(device)
+        #: the cluster's tracer (``repro_torch.core.tracing``), or None
+        self.tracer = tracer
         #: the mesh slice backing this instance (None: whole, in this
         #: process); see the module docstring
         self.mesh = mesh
@@ -93,7 +96,8 @@ class InstanceEngine:
         self.eos_token = eos_token
         self.seed = seed
         self.store = PagedStore(cfg, num_slots, kv_capacity,
-                                block_lines=block_lines, device=self.device)
+                                block_lines=block_lines, device=self.device,
+                                tracer=tracer)
         #: whether this process computes for the engine (not a shadow)
         self._computes = mesh is None or mesh.holds
         if mesh is not None:
@@ -316,6 +320,13 @@ class InstanceEngine:
                                                     device=self.device),
                             self.temperature, noise)
 
+    def _to_host(self, t: torch.Tensor, site: str) -> np.ndarray:
+        """``t`` on the host: a blocking device-to-host read, counted
+        as ``d2h.<site>``."""
+        if self.tracer is not None:
+            self.tracer.count("d2h." + site)
+        return t.cpu().numpy()
+
     def _tokens(self, req: Request) -> torch.Tensor:
         return torch.as_tensor(np.asarray(req.prompt_tokens),
                                dtype=torch.int32).reshape(1, -1)
@@ -331,6 +342,7 @@ class InstanceEngine:
                            bucket_len(req.prompt_len, cap=self.kv_capacity))
         return self.prefill_batch(plan, extras={req.rid: extra})[req.rid]
 
+    @traced("engine.prefill")
     def prefill_batch(self, plan: PrefillPlan,
                       extras: Optional[Mapping[int, Optional[dict]]] = None
                       ) -> Dict[int, int]:
@@ -349,6 +361,9 @@ class InstanceEngine:
         completed ahead of its cursor).  ``extras`` maps a request id to
         its modality payload (numpy or tensors); a request's own
         ``extra`` stands in where the map has none."""
+        if self.tracer is not None:
+            for it in plan.items:
+                self.tracer.stamp(it.rid, "prefill")
         extras = extras or {}
         completed: Dict[int, int] = {}
         padded: List[PrefillItem] = []
@@ -405,58 +420,76 @@ class InstanceEngine:
         attention-only batch is token-only, else the full window (prefix
         tokens and the encoder memory need the room), as the JAX package
         sizes it."""
-        slot = self._take_slot()
-        window = (bucket_len(req.prompt_len, cap=self.kv_capacity)
-                  if self._attn_only and not extra else self.kv_capacity)
-        tok = np.zeros((1,), np.int32)
+        tr = self.tracer
+        with span(tr, "engine.prefill.launch"):
+            slot = self._take_slot()
+            window = (bucket_len(req.prompt_len, cap=self.kv_capacity)
+                      if self._attn_only and not extra else self.kv_capacity)
+            if self._computes:
+                fresh = self._fresh_state(1, window)
+                batch = {"tokens": self._tokens(req).to(self.device)}
+                for key, value in (extra or {}).items():
+                    batch[key] = torch.as_tensor(value, device=self.device)
+                with self._mesh_ctx():
+                    logits, fresh = prefill(self.cfg, self.params, batch,
+                                            fresh)
+        with span(tr, "engine.prefill.sync"):
+            tok = np.zeros((1,), np.int32)
+            if self._computes:
+                tok = self._to_host(self._sample(
+                    logits, np.asarray([slot], np.int32)), "prefill.sample")
+            else:
+                self.draws += 1
+            tok = self._share(tok)
+        if tr is not None:
+            tr.stamp(req.rid, "first")
         if self._computes:
-            fresh = self._fresh_state(1, window)
-            batch = {"tokens": self._tokens(req).to(self.device)}
-            for key, value in (extra or {}).items():
-                batch[key] = torch.as_tensor(value, device=self.device)
-            with self._mesh_ctx():
-                logits, fresh = prefill(self.cfg, self.params, batch, fresh)
-            tok = self._sample(logits, np.asarray([slot], np.int32)
-                               ).cpu().numpy()
             self.store.merge_slot_rows(slot, fresh, 0, window)
-        else:
-            self.draws += 1
-        self._finish_prefill(req, slot, int(self._share(tok)[0]))
+        self._finish_prefill(req, slot, int(tok[0]))
         return slot
 
     def _prefill_padded(self, items: List[PrefillItem], bucket: int
                         ) -> Dict[int, int]:
         """Batched bucketed prefill: all items in one call."""
-        slots = self.free_slots()
-        if len(slots) < len(items):
-            raise KVStoreError(f"instance {self.instance_id}: {len(items)} "
-                               f"prefills, {len(slots)} free slots")
-        for s in slots[:len(items)]:
-            self._clean_slot(s)
-        B = len(items)
-        Bp = bucket_len(B, floor=1)
-        toks = np.zeros((Bp, bucket), np.int32)
-        lens = np.ones((Bp,), np.int32)
-        for i, it in enumerate(items):
-            toks[i, :it.prompt_len] = np.asarray(it.req.prompt_tokens)[0]
-            lens[i] = it.prompt_len
-        # pad rows fold in an unused sentinel slot; their draws are
-        # discarded and never perturb a real slot's stream
-        row_slots = np.full((Bp,), self.num_slots, np.int32)
-        row_slots[:B] = slots[:B]
-        next_toks = np.zeros((Bp,), np.int32)
-        fresh = None
-        if self._computes:
-            fresh = self._fresh_state(Bp, bucket)
-            with self._mesh_ctx():
-                logits, fresh = prefill_batched(
-                    self.cfg, self.params,
-                    torch.as_tensor(toks, device=self.device), fresh,
-                    torch.as_tensor(lens, device=self.device))
-            next_toks = self._sample(logits, row_slots).cpu().numpy()
-        else:
-            self.draws += 1
-        next_toks = self._share(next_toks)
+        tr = self.tracer
+        with span(tr, "engine.prefill.launch"):
+            slots = self.free_slots()
+            if len(slots) < len(items):
+                raise KVStoreError(f"instance {self.instance_id}: "
+                                   f"{len(items)} prefills, {len(slots)} "
+                                   f"free slots")
+            for s in slots[:len(items)]:
+                self._clean_slot(s)
+            B = len(items)
+            Bp = bucket_len(B, floor=1)
+            toks = np.zeros((Bp, bucket), np.int32)
+            lens = np.ones((Bp,), np.int32)
+            for i, it in enumerate(items):
+                toks[i, :it.prompt_len] = np.asarray(it.req.prompt_tokens)[0]
+                lens[i] = it.prompt_len
+            # pad rows fold in an unused sentinel slot; their draws are
+            # discarded and never perturb a real slot's stream
+            row_slots = np.full((Bp,), self.num_slots, np.int32)
+            row_slots[:B] = slots[:B]
+            fresh = None
+            if self._computes:
+                fresh = self._fresh_state(Bp, bucket)
+                with self._mesh_ctx():
+                    logits, fresh = prefill_batched(
+                        self.cfg, self.params,
+                        torch.as_tensor(toks, device=self.device), fresh,
+                        torch.as_tensor(lens, device=self.device))
+        with span(tr, "engine.prefill.sync"):
+            next_toks = np.zeros((Bp,), np.int32)
+            if self._computes:
+                next_toks = self._to_host(self._sample(logits, row_slots),
+                                          "prefill.sample")
+            else:
+                self.draws += 1
+            next_toks = self._share(next_toks)
+        if tr is not None:
+            for it in items:
+                tr.stamp(it.rid, "first")
         out: Dict[int, int] = {}
         for i, it in enumerate(items):
             slot = slots[i]
@@ -481,6 +514,35 @@ class InstanceEngine:
             raise NotImplementedError(
                 f"chunked prefill of a {req.prompt_len}-token prompt "
                 f"would wrap the {self.kv_capacity}-line cache window")
+        with span(self.tracer, "engine.prefill.launch"):
+            slot, logits, sub = self._chunk_launch(it, req)
+        if sub is not None:
+            self.store.merge_slot_rows(slot, sub, it.start, it.end)
+        if not it.completes:
+            # cursor over the KV ledger: lines materialized so far.  A
+            # dense decode step this iteration writes a garbage row at the
+            # cursor for this slot; the next chunk overwrites it.
+            self.store.set_lines(req.rid, it.end)
+            self.lengths[slot] = it.end
+            return None
+        del self.prefilling[slot]
+        with span(self.tracer, "engine.prefill.sync"):
+            tok = np.zeros((1,), np.int32)
+            if logits is not None:
+                tok = self._to_host(self._sample(
+                    logits, np.asarray([slot], np.int32)), "prefill.sample")
+            else:
+                self.draws += 1
+            tok = self._share(tok)
+        if self.tracer is not None:
+            self.tracer.stamp(req.rid, "first")
+        self._finish_prefill(req, slot, int(tok[0]), ledgered=True)
+        return slot
+
+    def _chunk_launch(self, it: PrefillItem, req: Request):
+        """Admit ``req`` on its first chunk, and enqueue the chunk's
+        model call; returns the slot, the logits and the chunk's state
+        (None, None on a rank that does not compute)."""
         if req.rid not in self.store.rid_slot:
             # first chunk: admit the request.  A prefix-cache hit adopts
             # the cached run as the table head (ledger: suffix blocks
@@ -509,31 +571,14 @@ class InstanceEngine:
             if self.prefilling.get(slot) is not req:
                 raise KVStoreError(f"rid {req.rid} holds slot {slot} but is "
                                    f"not mid-chunk there")
-        logits = None
-        if self._computes:
-            toks = self._tokens(req)[:, it.start:it.end].to(self.device)
-            sub = self.store.extract_slot(slot)
-            with self._mesh_ctx():
-                logits, sub = prefill_chunk(self.cfg, self.params, toks, sub,
-                                            history=it.start)
-            self.store.merge_slot_rows(slot, sub, it.start, it.end)
-        if not it.completes:
-            # cursor over the KV ledger: lines materialized so far.  A
-            # dense decode step this iteration writes a garbage row at the
-            # cursor for this slot; the next chunk overwrites it.
-            self.store.set_lines(req.rid, it.end)
-            self.lengths[slot] = it.end
-            return None
-        del self.prefilling[slot]
-        tok = np.zeros((1,), np.int32)
-        if logits is not None:
-            tok = self._sample(logits, np.asarray([slot], np.int32)
-                               ).cpu().numpy()
-        else:
-            self.draws += 1
-        self._finish_prefill(req, slot, int(self._share(tok)[0]),
-                             ledgered=True)
-        return slot
+        if not self._computes:
+            return slot, None, None
+        toks = self._tokens(req)[:, it.start:it.end].to(self.device)
+        sub = self.store.extract_slot(slot)
+        with self._mesh_ctx():
+            logits, sub = prefill_chunk(self.cfg, self.params, toks, sub,
+                                        history=it.start)
+        return slot, logits, sub
 
     # -- decode ----------------------------------------------------------------
     def decode(self) -> Dict[int, int]:
@@ -545,37 +590,42 @@ class InstanceEngine:
         if self.use_paged_decode:
             return {slot: toks[0]
                     for slot, toks in self.decode_multi(steps=1).items()}
-        next_tokens = np.zeros((self.num_slots,), np.int32)
+        tr = self.tracer
         if self._computes:
-            tokens = torch.as_tensor(self.last_tokens,
-                                     device=self.device)[:, None]
-            t = torch.as_tensor(self.lengths, device=self.device)
-            with self._mesh_ctx():
-                logits, _ = decode_step(self.cfg, self.params, tokens,
-                                        self.store.state, t)
-            # per-slot noise rows (slot == row here) keep sampled tokens
-            # invariant to batch compaction on the paged path
-            next_tokens = self._sample(
-                logits, np.arange(self.num_slots, dtype=np.int32)
-            ).cpu().numpy()
-        else:
-            self.draws += 1
-        next_tokens = self._share(next_tokens)
+            with span(tr, "engine.decode.launch"):
+                tokens = torch.as_tensor(self.last_tokens,
+                                         device=self.device)[:, None]
+                t = torch.as_tensor(self.lengths, device=self.device)
+                with self._mesh_ctx():
+                    logits, _ = decode_step(self.cfg, self.params, tokens,
+                                            self.store.state, t)
+        with span(tr, "engine.decode.sync"):
+            next_tokens = np.zeros((self.num_slots,), np.int32)
+            if self._computes:
+                # per-slot noise rows (slot == row here) keep sampled
+                # tokens invariant to batch compaction on the paged path
+                next_tokens = self._to_host(self._sample(
+                    logits, np.arange(self.num_slots, dtype=np.int32)),
+                    "decode")
+            else:
+                self.draws += 1
+            next_tokens = self._share(next_tokens)
         self.host_syncs += 1
-        out = {}
-        for slot, req in list(self.slot_req.items()):
-            tok = int(next_tokens[slot])
-            self.lengths[slot] += 1
-            self.last_tokens[slot] = tok
-            req.generated += 1
-            req.output_tokens.append(tok)
-            self.store.append_line(req.rid)
-            out[slot] = tok
-            if req.done or (self.eos_token is not None
-                            and tok == self.eos_token):
-                req.phase = Phase.DONE
-                self.release(slot)
-        return out
+        with span(tr, "engine.decode.book"):
+            out = {}
+            for slot, req in list(self.slot_req.items()):
+                tok = int(next_tokens[slot])
+                self.lengths[slot] += 1
+                self.last_tokens[slot] = tok
+                req.generated += 1
+                req.output_tokens.append(tok)
+                self.store.append_line(req.rid)
+                out[slot] = tok
+                if req.done or (self.eos_token is not None
+                                and tok == self.eos_token):
+                    req.phase = Phase.DONE
+                    self.release(slot)
+            return out
 
     def decode_multi(self, plan: Optional[DecodePlan] = None,
                      steps: Optional[int] = None) -> Dict[int, List[int]]:
@@ -590,7 +640,9 @@ class InstanceEngine:
             steps = max(1, plan.steps) if plan is not None else 1
         if not self.slot_req:
             return {}
-        if not self.use_paged_decode:
+        with span(self.tracer, "engine.decode"):
+            if self.use_paged_decode:
+                return self._decode_paged(steps)
             out: Dict[int, List[int]] = {}
             for _ in range(steps):
                 if not self.slot_req:
@@ -598,56 +650,67 @@ class InstanceEngine:
                 for slot, tok in self.decode().items():
                     out.setdefault(slot, []).append(tok)
             return out
-        slots = self.active_slots()
-        reqs = [self.slot_req[s] for s in slots]
-        budget = np.asarray([r.max_new_tokens - r.generated for r in reqs],
-                            np.int32)
-        # never loop past the last live row's budget
-        steps = max(1, min(steps, int(budget.max())))
-        t0 = self.lengths[slots].astype(np.int32)
-        # tables cover the lines the loop can reach, padded to a
-        # power-of-two block count
-        need = -(-min(int(t0.max()) + steps, self.kv_capacity)
-                 // self.store.block_lines)
-        blocks = bucket_len(need, floor=1,
-                            cap=self.store.line_blocks_per_slot)
-        host = np.zeros((steps + 1, len(slots)), np.int32)
-        if self._computes:
-            host = self._decode_multi_host(slots, reqs, budget, steps, t0,
-                                           blocks)
-        host = self._share(host)
-        toks_np, emitted = host[:-1], host[-1]
-        self.host_syncs += 1
-        # consume draws only for iterations that actually ran (EOS can
-        # empty the batch early; sequential decode would have stopped
-        # there), so the NEXT request samples under the same noise
-        self.draws += int(emitted.max())
-        out = {}
-        for i, slot in enumerate(slots):
-            req = reqs[i]
-            n = int(emitted[i])
-            if n == 0:
-                continue
-            toks = [int(x) for x in toks_np[:n, i]]
-            out[slot] = toks
-            req.generated += n
-            req.output_tokens.extend(toks)
-            self.store.append_line(req.rid, n)
-            self.lengths[slot] += n
-            self.last_tokens[slot] = toks[-1]
-            if req.done or (self.eos_token is not None
-                            and toks[-1] == self.eos_token):
-                req.phase = Phase.DONE
-                self.release(slot)
-        return out
 
-    def _decode_multi_host(self, slots: List[int], reqs: List[Request],
-                           budget: np.ndarray, steps: int, t0: np.ndarray,
-                           blocks: int) -> np.ndarray:
-        """The fused decode loop on the device; returns its tokens with
-        the emitted counts as the last row, in one host transfer."""
+    def _decode_paged(self, steps: int) -> Dict[int, List[int]]:
+        tr = self.tracer
+        with span(tr, "engine.decode.launch"):
+            slots = self.active_slots()
+            reqs = [self.slot_req[s] for s in slots]
+            budget = np.asarray([r.max_new_tokens - r.generated
+                                 for r in reqs], np.int32)
+            # never loop past the last live row's budget
+            steps = max(1, min(steps, int(budget.max())))
+            t0 = self.lengths[slots].astype(np.int32)
+            # tables cover the lines the loop can reach, padded to a
+            # power-of-two block count
+            need = -(-min(int(t0.max()) + steps, self.kv_capacity)
+                     // self.store.block_lines)
+            blocks = bucket_len(need, floor=1,
+                                cap=self.store.line_blocks_per_slot)
+            if self._computes:
+                dev_out = self._decode_multi_launch(slots, reqs, budget,
+                                                    steps, t0, blocks)
+        with span(tr, "engine.decode.sync"):
+            host = np.zeros((steps + 1, len(slots)), np.int32)
+            if self._computes:
+                # one device->host transfer for the whole span
+                host = self._to_host(dev_out, "decode")
+            host = self._share(host)
+        with span(tr, "engine.decode.book"):
+            toks_np, emitted = host[:-1], host[-1]
+            self.host_syncs += 1
+            # consume draws only for iterations that actually ran (EOS can
+            # empty the batch early; sequential decode would have stopped
+            # there), so the NEXT request samples under the same noise
+            self.draws += int(emitted.max())
+            out = {}
+            for i, slot in enumerate(slots):
+                req = reqs[i]
+                n = int(emitted[i])
+                if n == 0:
+                    continue
+                toks = [int(x) for x in toks_np[:n, i]]
+                out[slot] = toks
+                req.generated += n
+                req.output_tokens.extend(toks)
+                self.store.append_line(req.rid, n)
+                self.lengths[slot] += n
+                self.last_tokens[slot] = toks[-1]
+                if req.done or (self.eos_token is not None
+                                and toks[-1] == self.eos_token):
+                    req.phase = Phase.DONE
+                    self.release(slot)
+            return out
+
+    def _decode_multi_launch(self, slots: List[int], reqs: List[Request],
+                             budget: np.ndarray, steps: int, t0: np.ndarray,
+                             blocks: int) -> torch.Tensor:
+        """Enqueue the fused decode loop on the device; returns its
+        tokens with the emitted counts as the last row, on the device."""
         cache_key = (tuple(slots), tuple(r.rid for r in reqs), blocks)
         if self._tables_cache is None or self._tables_cache[0] != cache_key:
+            if self.tracer is not None:
+                self.tracer.count("tables.rebuild")
             self._tables_cache = (cache_key, torch.as_tensor(
                 self.store.decode_block_tables([r.rid for r in reqs], blocks),
                 device=self.device))
@@ -667,8 +730,7 @@ class InstanceEngine:
                 block_lines=self.store.block_lines,
                 temperature=self.temperature, noise=noise,
                 eos_token=-1 if self.eos_token is None else self.eos_token)
-        # one device->host transfer for the whole span
-        return torch.cat([toks_all, emitted[None]]).cpu().numpy()
+        return torch.cat([toks_all, emitted[None]])
 
     # -- slot management --------------------------------------------------------
     def release(self, slot: int) -> int:
@@ -715,14 +777,16 @@ class InstanceEngine:
         instance's prefix cache already holds the request's prompt head,
         the new table adopts those blocks: a shared-prefix replica costs
         only its unique suffix in pool blocks."""
-        self._clean_slot(slot)
-        run = None
-        if self.prefix_cache is not None:
-            key = self._prefix_key(req)
-            run = self.prefix_cache.peek_blocks(key) if key else None
-        self.store.alloc(req.rid, slot, lines=lines, shared=run or None)
-        for path, chunk in chunks:
-            self.store.import_chunk(slot, path, chunk)
+        with span(self.tracer, "kv.stream.alloc"):
+            self._clean_slot(slot)
+            run = None
+            if self.prefix_cache is not None:
+                key = self._prefix_key(req)
+                run = self.prefix_cache.peek_blocks(key) if key else None
+            self.store.alloc(req.rid, slot, lines=lines, shared=run or None)
+        with span(self.tracer, "kv.stream.copy"):
+            for path, chunk in chunks:
+                self.store.import_chunk(slot, path, chunk)
         self._install(slot, length, last_tok, req, as_replica_of)
 
     def _install(self, slot: int, length: int, last_tok: int, req: Request,
