@@ -869,12 +869,20 @@ def _log_records(records, lib_name):
 
 def _watch_logits(torch, sampling_mod, engine_mod):
     """Patch the engine's sampler to record whether every logit it sees is
-    finite; returns (flags, restore)."""
+    finite; returns (flags, restore).  A decode graph captures the sampler
+    and replays it without calling Python, so the flag of a device is one
+    tensor that every call, captured ones included, ands in place; the
+    first call is eager (a key's first iteration runs before its
+    capture)."""
     finite = []
     plain_sample = sampling_mod.sample_slots
 
     def watched_sample(logits, *a, **kw):
-        finite.append(torch.isfinite(logits).all())
+        flag = next((f for f in finite if f.device == logits.device), None)
+        if flag is None:
+            flag = torch.ones((), dtype=torch.bool, device=logits.device)
+            finite.append(flag)
+        flag.logical_and_(torch.isfinite(logits).all())
         return plain_sample(logits, *a, **kw)
 
     def restore():
@@ -1063,6 +1071,7 @@ def phase_dense(torch, dev, np):
     kernel counts, its decode ms per step by active slots and its six
     requests (the mesh-engine phase's reference)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import counts_since, read_counts
     from repro_torch.models import init_params
 
     # -- 3. serve ----------------------------------------------------------------
@@ -1094,8 +1103,18 @@ def phase_dense(torch, dev, np):
                                                                    run))}
     e.decode_multi(steps=8)
     wall = _wall_ms(torch, lambda: e.decode_multi(steps=8))
-    breakdown["decode 8 active x 8 steps"] = _breakdown(
-        wall, _device_profile(torch, lambda: e.decode_multi(steps=8)))
+    before = read_counts()
+    profiled = _device_profile(torch, lambda: e.decode_multi(steps=8))
+    # a graph replay calls no wrapper: its launches are credited, so hold
+    # the credit to the paged kernel's activities in the trace
+    credited = counts_since(before)["paged_decode_attention"]["launches"]
+    ran = sum(n for name, (_, n) in profiled.items() if "paged_kernel" in name)
+    log(f"serve: a replayed decode plan's paged kernel launches: credited "
+        f"{credited}, in the trace {ran}")
+    check(credited == ran == 8 * cfg.num_layers,
+          f"serve: paged launches credited {credited}, traced {ran}, want "
+          f"{8 * cfg.num_layers}")
+    breakdown["decode 8 active x 8 steps"] = _breakdown(wall, profiled)
     del e, run
     _print_breakdown(breakdown, "serve")
 
@@ -2086,12 +2105,11 @@ def phase_cluster_prefix(torch, params, measured):
     return counts
 
 
-def _watch_heads(attention_mod, names=("flash_attention_cuda",
-                                       "paged_decode_attention_cuda")):
-    """Patch the model's kernel entries ``names`` to record each call's
+def _watch_heads(mod, names):
+    """Patch the kernel entries ``names`` of ``mod`` to record each call's
     (heads, KV heads, head dim), and for the prefill kernel whether it was
     causal; returns (seen, restore)."""
-    plain = {n: getattr(attention_mod, n) for n in names}
+    plain = {n: getattr(mod, n) for n in names}
     seen = {n: set() for n in plain}
 
     def watch(name):
@@ -2105,10 +2123,10 @@ def _watch_heads(attention_mod, names=("flash_attention_cuda",
 
     def restore():
         for n, fn in plain.items():
-            setattr(attention_mod, n, fn)
+            setattr(mod, n, fn)
 
     for n in plain:
-        setattr(attention_mod, n, watch(n))
+        setattr(mod, n, watch(n))
     return seen, restore
 
 
@@ -2134,12 +2152,18 @@ def phase_minicpm(torch, dev, np):
         f"{cfg.dtype}; param_count {cfg.param_count()} x 2 bytes = "
         f"{reckoned / 1e9:.3f} GB reckoned, {_weight_bytes(params) / 1e9:.3f}"
         f" GB drawn in {time.perf_counter() - t0:.1f} s")
-    heads, restore = _watch_heads(attention_mod)
+    from repro_torch.kernels import decode_attention as decode_mod
+    heads, restore = _watch_heads(attention_mod, ("flash_attention_cuda",))
+    # the model calls the paged kernel through its module
+    paged, restore_paged = _watch_heads(decode_mod,
+                                        ("paged_decode_attention_cuda",))
     try:
         counts, per_step, (rng, _, _, _) = _serve_six(
             torch, np, cfg, params, dev, "serve-minicpm")
     finally:
         restore()
+        restore_paged()
+    heads.update(paged)
     want = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     log(f"serve-minicpm: kernel calls at (heads, KV heads, hd[, causal]): "
         f"{ {n: sorted(v) for n, v in heads.items()} }")

@@ -8,7 +8,9 @@ their plain PyTorch versions.
   blocks to fill the card, each block gathers its lines through the
   table, and the last block of each row merges the row's partials.  The
   partials and the rows' ticket counters live in a scratch this module
-  keeps per device and stream, so a call allocates nothing but its output.
+  keeps per device and stream, so a call allocates nothing but its output;
+  on a stream where CUDA graphs are captured it is never freed
+  (:func:`hold_paged_scratch`).
 * Dense (``csrc/decode_attention.cu``) replaces
   ``src/repro/kernels/decode_attention.py::decode_attention_pallas``: K/V
   are each request's rows of a dense ``(B, W, KVH, hd)`` cache.  Stacks
@@ -38,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -272,18 +274,34 @@ def _kernel():
 #: (device, stream) -> (part_ml, part_acc, counters) of the paged kernel;
 #: launches on one stream run in order, so they can share one scratch
 _paged_scratch_bufs: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+#: (device, stream) -> the scratches it outgrew, for the streams of
+#: :func:`hold_paged_scratch`
+_paged_scratch_held: Dict[tuple, List[Tuple[torch.Tensor, ...]]] = {}
+
+
+def hold_paged_scratch(stream: torch.cuda.Stream) -> None:
+    """Never free a paged-kernel scratch of ``stream``, nor one it
+    outgrows: a CUDA graph captured on it holds the addresses of the
+    scratch its calls found there."""
+    _paged_scratch_held.setdefault((stream.device, stream.cuda_stream), [])
 
 
 def _paged_scratch(device: torch.device, stream: int, n_part: int,
                    hd: int, n_counters: int) -> Tuple[torch.Tensor, ...]:
     """The paged kernel's f32 partials (``n_part`` rows of (m, l) and of
     ``hd`` accumulators) and its int32 ticket counters, kept per device and
-    stream and grown when a call needs more.  The kernel leaves every
-    counter at 0, so they are zeroed once, when allocated."""
+    stream and grown when a call needs more (never while the stream is
+    captured).  The kernel leaves every counter at 0, so they are zeroed
+    once, when allocated, and a graph may replay its calls on them."""
     key = (device, stream)
     need = (2 * n_part, n_part * hd, n_counters)
     bufs = _paged_scratch_bufs.get(key)
     if bufs is None or any(t.numel() < n for t, n in zip(bufs, need)):
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the paged kernel's scratch must be sized "
+                               "before the capture")
+        if bufs is not None and key in _paged_scratch_held:
+            _paged_scratch_held[key].append(bufs)
         size = need if bufs is None else [max(t.numel(), n)
                                           for t, n in zip(bufs, need)]
         bufs = (torch.empty(size[0], dtype=torch.float32, device=device),

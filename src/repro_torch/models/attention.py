@@ -56,6 +56,7 @@ import torch
 
 from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import decode_attention as decode_kernels
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   paged_decode_attention_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -324,7 +325,7 @@ def gqa_forward(
         bl = paged.block_lines
         pool_shape = (kc.shape[0] * (cap // bl), bl, kvh, hd)
         lengths = torch.clamp(t + 1, max=cap).to(torch.int32)
-        out = paged_decode_attention_cuda(
+        out = decode_kernels.paged_decode_attention_cuda(
             q.contiguous(), kc.view(pool_shape), vc.view(pool_shape),
             paged.tables, lengths, scale=scale)
     elif mode == "decode":

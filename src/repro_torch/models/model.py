@@ -12,6 +12,7 @@ Functional API on nested-dict params, mirroring the JAX package's:
   decode_step(cfg, params, tokens, state, t)           -> (logits, state)
   decode_step_paged(...)                               -> (logits, state)
   decode_multi(...)                                    -> (tokens, state, emitted)
+  decode_iteration(...)                                -> one of decode_multi's steps
 
 ``batch`` is a dict: {"tokens": (B, S) int32} plus, per the modality
 carve-out, {"patch_embeds": (B, P, E)} for VLMs or {"frames": (B, F, E)}
@@ -469,7 +470,7 @@ def decode_multi(cfg: ModelConfig, params, tokens: torch.Tensor, state,
                  long_context: bool = False
                  ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
     """Fused multi-step paged decode: ``steps`` iterations of
-    :func:`decode_step_paged` with on-device sampling and EOS / budget
+    :func:`decode_iteration` with on-device sampling and EOS / budget
     masks kept on the device, so the loop never waits on the host.
 
     Per row: ``budget`` is the remaining ``max_new_tokens``; a row goes
@@ -481,25 +482,47 @@ def decode_multi(cfg: ModelConfig, params, tokens: torch.Tensor, state,
     for temperature > 0, indexed by slot.
 
     Returns ``(tokens_all (steps, Bc), state, emitted (Bc,))``."""
-    from repro_torch.serving.sampling import sample_slots  # import cycle
     toks, tt = tokens, t
     Bc = tokens.shape[0]
     alive = torch.ones((Bc,), dtype=torch.bool, device=tokens.device)
     emitted = torch.zeros((Bc,), dtype=torch.int32, device=tokens.device)
     outs = []
     for i in range(steps):
-        logits, state = decode_step_paged(cfg, params, toks, state, tt, slots,
-                                          tables, block_lines,
-                                          long_context=long_context)
-        nxt = sample_slots(logits, slots, temperature,
-                           None if noise is None else noise[i])
-        nxt = torch.where(alive, nxt, toks[:, 0])
-        emitted = emitted + alive.to(torch.int32)
-        tt = tt + alive.to(tt.dtype)
-        alive = alive & (nxt != eos_token) & (emitted < budget)
+        nxt, tt, alive, emitted = decode_iteration(
+            cfg, params, toks, state, tt, alive, emitted, budget, slots,
+            tables, block_lines=block_lines, temperature=temperature,
+            noise=None if noise is None else noise[i], eos_token=eos_token,
+            long_context=long_context)
         toks = nxt[:, None]
         outs.append(nxt)
     return torch.stack(outs), state, emitted
+
+
+def decode_iteration(cfg: ModelConfig, params, tokens: torch.Tensor, state,
+                     t: torch.Tensor, alive: torch.Tensor,
+                     emitted: torch.Tensor, budget: torch.Tensor,
+                     slots: torch.Tensor, tables: torch.Tensor, *,
+                     block_lines: int, temperature: float = 0.0,
+                     noise: Optional[torch.Tensor] = None,
+                     eos_token: int = -1, long_context: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """One iteration of :func:`decode_multi`: a paged decode step of the
+    rows ``tokens`` (Bc, 1) at clocks ``t`` (:func:`decode_step_paged`),
+    sampled (``noise`` (num_slots + 1, V) at temperature > 0), then the
+    masks.  Returns the next ``(tokens (Bc,), t, alive, emitted)``; an
+    engine's CUDA graph captures exactly this
+    (``repro_torch.serving.decode_graph``)."""
+    from repro_torch.serving.sampling import sample_slots  # import cycle
+    logits, state = decode_step_paged(cfg, params, tokens, state, t, slots,
+                                      tables, block_lines,
+                                      long_context=long_context)
+    nxt = sample_slots(logits, slots, temperature, noise)
+    nxt = torch.where(alive, nxt, tokens[:, 0])
+    emitted = emitted + alive.to(torch.int32)
+    t = t + alive.to(t.dtype)
+    alive = alive & (nxt != eos_token) & (emitted < budget)
+    return nxt, t, alive, emitted
 
 
 def _window(cfg: ModelConfig, long_context: bool) -> Optional[int]:

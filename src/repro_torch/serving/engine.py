@@ -63,6 +63,7 @@ from repro_torch.models import (decode_multi, decode_step, init_state, prefill,
                                 prefill_batched, prefill_chunk)
 from repro_torch.models.state import state_bytes
 from repro_torch.prefixcache import PrefixCache, aligned_hit_lines
+from repro_torch.serving.decode_graph import DecodeGraphs
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.sampling import gumbel_noise, sample_slots
 from repro_torch.stepplan import (DecodePlan, PrefillItem, PrefillPlan,
@@ -130,6 +131,15 @@ class InstanceEngine:
         #: decode through the paged kernel with the batch compacted to the
         #: active primary slots (vs the dense full-window oracle path)
         self.use_paged_decode = paged_decode and self.supports_paged_decode
+        #: CUDA graphs of the paged decode iteration, one per decode shape
+        #: (``serving/decode_graph.py``): on a card, outside a mesh (gloo's
+        #: collectives cannot be captured); None decodes eagerly
+        self._graphs: Optional[DecodeGraphs] = None
+        if (self.use_paged_decode and self.device.type == "cuda"
+                and mesh is None):
+            self._graphs = DecodeGraphs(
+                cfg, self.device, num_slots, self.store.block_lines,
+                temperature, -1 if eos_token is None else eos_token, tracer)
         #: radix prefix cache over the store's ledger (suffix-only prefill
         #: rides the chunk path, so attention-only stacks only)
         self.prefix_cache: Optional[PrefixCache] = None
@@ -673,8 +683,9 @@ class InstanceEngine:
         with span(tr, "engine.decode.sync"):
             host = np.zeros((steps + 1, len(slots)), np.int32)
             if self._computes:
-                # one device->host transfer for the whole span
-                host = self._to_host(dev_out, "decode")
+                # one device->host transfer for the whole span (a graph's
+                # pad rows dropped)
+                host = self._to_host(dev_out, "decode")[:, :len(slots)]
             host = self._share(host)
         with span(tr, "engine.decode.book"):
             toks_np, emitted = host[:-1], host[-1]
@@ -705,14 +716,25 @@ class InstanceEngine:
     def _decode_multi_launch(self, slots: List[int], reqs: List[Request],
                              budget: np.ndarray, steps: int, t0: np.ndarray,
                              blocks: int) -> torch.Tensor:
-        """Enqueue the fused decode loop on the device; returns its
-        tokens with the emitted counts as the last row, on the device."""
-        cache_key = (tuple(slots), tuple(r.rid for r in reqs), blocks)
+        """Enqueue the fused decode loop on the device: through the
+        engine's CUDA graphs where it has them, else op by op;
+        returns its tokens with the emitted counts as the last row, on the
+        device (a graph's pad rows as extra columns)."""
+        rids = [r.rid for r in reqs]
+        cache_key = (tuple(slots), tuple(rids), blocks)
+        if self._graphs is not None:
+            return self._graphs.launch(
+                self.params, self.store.state, self.last_tokens[slots], t0,
+                np.asarray(slots, np.int32), budget, blocks, cache_key,
+                lambda: self.store.decode_block_tables(rids, blocks), steps,
+                lambda i: self._noise(self.draws + i))
+        if self.tracer is not None:
+            self.tracer.count("decode.graph.eager")
         if self._tables_cache is None or self._tables_cache[0] != cache_key:
             if self.tracer is not None:
                 self.tracer.count("tables.rebuild")
             self._tables_cache = (cache_key, torch.as_tensor(
-                self.store.decode_block_tables([r.rid for r in reqs], blocks),
+                self.store.decode_block_tables(rids, blocks),
                 device=self.device))
         tables = self._tables_cache[1]
         noise = None

@@ -649,3 +649,203 @@ def test_kernel_wrappers_refuse_grad_on_card():
     with torch.no_grad():
         out = flash_attention_cuda(q, kv, kv.clone())
     assert out.grad_fn is None
+
+
+def _graph_script(cfg, params, graphs: bool, temperature: float):
+    """One engine on the card through a scripted decode, with its CUDA
+    graphs or (``graphs`` False) through the eager loop: rows 3, then 5;
+    a 4-step plan in which a budget-1 row ends after one iteration and is
+    released; tables growing past 1, 2 and 4 blocks (rebuilds); 17 rows
+    (the padded key of 32); plans of 3 steps as rows finish.  Returns the
+    tokens, the kernel counts, the tracer's counters and the engine."""
+    import numpy as np
+
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.serving import InstanceEngine, Request
+    tracer = Tracer()
+    eng = InstanceEngine(cfg, params, num_slots=24, kv_capacity=64,
+                         block_lines=8, temperature=temperature, seed=5,
+                         device="cuda", tracer=tracer)
+    if not graphs:
+        eng._graphs = None
+    rng = np.random.default_rng(1)
+
+    def mk(p, n):
+        return Request(prompt_len=p, max_new_tokens=n,
+                       prompt_tokens=rng.integers(0, cfg.vocab_size, (1, p),
+                                                  dtype=np.int32))
+
+    reqs = [mk(5, 12), mk(9, 30), mk(3, 20)]
+    for r in reqs:
+        eng.prefill_request(r)
+    reset_counts()
+    eng.decode_multi(steps=1)
+    eng.decode_multi(steps=1)
+    late = [mk(7, 2), mk(4, 25)]
+    for r in late:
+        eng.prefill_request(r)
+    reqs += late
+    eng.decode_multi(steps=4)
+    assert len(late[0].output_tokens) == 2 and late[0].rid not in \
+        eng.store.rid_slot, "the budget-1 row did not end mid-plan"
+    for _ in range(3):
+        eng.decode_multi(steps=2)
+    many = [mk(3 + i % 5, 6) for i in range(14)]
+    for r in many:
+        eng.prefill_request(r)
+    reqs += many
+    assert len(eng.slot_req) == 17
+    for _ in range(4):
+        eng.decode_multi(steps=1)
+    while eng.slot_req:
+        eng.decode_multi(steps=3)
+    torch.cuda.synchronize()
+    return ([r.output_tokens for r in reqs], read_counts(),
+            dict(tracer.counters), eng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_decode_graphs_on_card_match_eager(temperature):
+    """The engine's CUDA graphs against its eager loop on the same
+    weights and script (``_graph_script``): equal tokens, equal kernel
+    counts (each replay credits its captured launches), and capture +
+    replay counting every plan; a padded key was met, and the tables were
+    rebuilt as they grew."""
+    _need_cuda()
+    cfg, _, p_card = _reduced_starcoder()
+    toks, counts, ctr, eng = _graph_script(cfg, p_card, True, temperature)
+    want, want_counts, ctr_e, _ = _graph_script(cfg, p_card, False,
+                                                temperature)
+    assert toks == want
+    assert counts == want_counts
+    assert counts["paged_decode_attention"]["launches"] > 0
+    assert counts["paged_decode_attention"]["plain_calls"] == 0
+    plans = ctr["d2h.decode"]
+    assert plans == ctr_e["d2h.decode"] == ctr_e["decode.graph.eager"]
+    assert ctr["decode.graph.capture"] + ctr["decode.graph.replay"] == plans
+    assert "decode.graph.eager" not in ctr
+    assert ctr["decode.graph.replay"] > 0
+    assert any(rows == 32 for rows, _ in eng._graphs.graphs)
+    assert ctr["tables.rebuild"] >= 4 and ctr_e["tables.rebuild"] >= 4
+
+
+@pytest.mark.cuda
+def test_decode_graph_replays_run_the_credited_launches_on_card():
+    """A replay calls no wrapper, so its kernel launches are credited: over
+    a plan of replays alone, the paged kernel's activities in the
+    profiler's trace (the graph's kernel nodes, by name) are the launches
+    credited, one a layer and iteration."""
+    _need_cuda()
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.kernels import counts_since, read_counts
+    from repro_torch.serving import InstanceEngine, Request
+    cfg, _, p_card = _reduced_starcoder()
+    tracer = Tracer()
+    eng = InstanceEngine(cfg, p_card, num_slots=8, kv_capacity=64,
+                         block_lines=8, device="cuda", tracer=tracer)
+    rng = np.random.default_rng(2)
+    for p in (5, 9, 3):
+        eng.prefill_request(Request(
+            prompt_len=p, max_new_tokens=20,
+            prompt_tokens=rng.integers(0, cfg.vocab_size, (1, p),
+                                       dtype=np.int32)))
+    eng.decode_multi(steps=2)          # captures the key (3 rows, 2 blocks)
+    torch.cuda.synchronize()
+    before = read_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.decode_multi(steps=4)
+        torch.cuda.synchronize()
+    credited = counts_since(before)["paged_decode_attention"]["launches"]
+    ran = sum(ev.count for ev in prof.key_averages()
+              if "paged_kernel" in ev.key)
+    assert tracer.counters["decode.graph.capture"] == 1
+    assert tracer.counters["decode.graph.replay"] == 1
+    assert credited == ran == 4 * cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_padded_rows_keep_live_logits_on_card():
+    """A padded key's pad rows repeat the last live row: the live rows'
+    logits of a 17-row paged decode step padded to 32 stay within 1e-4 x
+    max|logit| of the unpadded step's (the GEMMs see another M), with
+    equal greedy tokens, and the pad rows' logits are the last row's."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.models import decode_step_paged, init_state
+    cfg, _, p_card = _reduced_starcoder()
+    rng = np.random.default_rng(3)
+    n, pad, W, bl = 17, 32, 64, 8
+    g = torch.Generator(device="cuda").manual_seed(7)
+    state = torch.utils._pytree.tree_map(
+        lambda x: torch.randn(x.shape, generator=g, device="cuda"),
+        init_state(cfg, 24, W, device="cuda"))
+    slots = rng.permutation(24)[:n].astype(np.int32)
+    t = rng.integers(5, W - 1, n).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    idx = np.r_[np.arange(n), np.full(pad - n, n - 1)]
+    tables = (slots[:, None] * (W // bl) + np.arange(W // bl)).astype(
+        np.int32)
+
+    def step(rows):
+        st = torch.utils._pytree.tree_map(torch.clone, state)
+        on = lambda a: torch.as_tensor(a[rows], device="cuda")  # noqa: E731
+        logits, _ = decode_step_paged(cfg, p_card, on(toks)[:, None], st,
+                                      on(t), on(slots), on(tables), bl)
+        return logits
+
+    live = step(np.arange(n))
+    padded = step(idx)
+    torch.cuda.synchronize()
+    scale = float(live.abs().max())
+    assert float((padded[:n] - live).abs().max()) <= 1e-4 * scale
+    assert torch.equal(padded[:n].argmax(-1), live.argmax(-1))
+    assert torch.equal(padded[n:], padded[n - 1:n].expand(pad - n, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["accellm", "vllm"])
+def test_cluster_decode_graphs_on_card_match_eager(policy):
+    """A 2-instance cluster (fused up to 4 steps) on the card with the
+    engines' CUDA graphs and again with every engine eager: equal tokens,
+    stats and kernel counts; the three graph counters add up to the plans
+    (one host read each)."""
+    _need_cuda()
+    import numpy as np
+
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.scheduling import LiveCluster
+    from repro_torch.serving import Request
+    cfg, _, p_card = _reduced_starcoder()
+    shapes = [(8, 14), (12, 16), (6, 15), (10, 12), (7, 16), (9, 14),
+              (11, 9), (5, 13)]
+    out = {}
+    for graphs in (True, False):
+        tracer = Tracer()
+        cluster = LiveCluster(cfg, p_card, 2, 8, 256, policy,
+                              fuse_decode_steps=4, device="cuda",
+                              tracer=tracer)
+        if not graphs:
+            for eng in cluster.engines:
+                eng._graphs = None
+        reqs = [Request(prompt_len=p, max_new_tokens=n, rid=i,
+                        prompt_tokens=np.random.default_rng(i).integers(
+                            0, cfg.vocab_size, (1, p), dtype=np.int32))
+                for i, (p, n) in enumerate(shapes)]
+        reset_counts()
+        for r in reqs:
+            cluster.submit(r)
+        cluster.run(max_steps=300)
+        c = tracer.counters
+        assert sum(c.get("decode.graph." + k, 0) for k in
+                   ("capture", "replay", "eager")) == c["d2h.decode"]
+        assert (c.get("decode.graph.eager", 0) == 0) == graphs
+        out[graphs] = ([r.output_tokens for r in reqs], dict(cluster.stats),
+                       read_counts())
+    assert out[True] == out[False]

@@ -209,6 +209,39 @@ def test_empty_decode_does_no_work(setup):
     assert eng.host_syncs == 0
 
 
+@pytest.mark.parametrize("rows,blocks,key", [
+    (1, 64, (1, 64)), (16, 128, (16, 128)), (17, 256, (32, 256)),
+    (32, 64, (32, 64)), (33, 128, (48, 128)), (128, 256, (128, 256))])
+def test_decode_graph_key_pads_rows_past_16(rows, blocks, key):
+    """A paged decode plan's CUDA graph: exact rows up to 16, then rows
+    rounded up to a multiple of 16; the table blocks as the plan has them
+    (already a power of two)."""
+    from repro_torch.serving.decode_graph import graph_key
+    assert graph_key(rows, blocks) == key
+
+
+@pytest.mark.parametrize("where", ["cpu", "mesh"])
+def test_cpu_and_mesh_engines_decode_eagerly(setup, where):
+    """No CUDA graph off the card or on a mesh: the tokens are the plain
+    engine's, and ``decode.graph.eager`` counts every plan (one host read
+    each)."""
+    from repro_torch.core.tracing import Tracer
+    from repro_torch.meshserve import carve_slices
+    _, cfg, _, params = setup
+    want, _ = _serve(cfg, params, RAGGED, paged=True, steps=3)
+    tracer = Tracer()
+    kw = {"mesh": carve_slices(1, 1, device="cpu")[0]} if where == "mesh" \
+        else {}
+    got, eng = _serve(cfg, params, RAGGED, paged=True, steps=3,
+                      tracer=tracer, **kw)
+    assert eng._graphs is None and (eng.mesh is None) == (where == "cpu")
+    assert got == want
+    plans = tracer.counters["decode.graph.eager"]
+    assert plans == tracer.counters["d2h.decode"] == eng.host_syncs > 0
+    assert not {"decode.graph.capture", "decode.graph.replay"} \
+        & set(tracer.counters)
+
+
 # ---------------------------------------------------------------------------
 # redundancy: mirror sync, demote, promote
 # ---------------------------------------------------------------------------
